@@ -1,0 +1,380 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds every kernel of the path from ``src/repro_torch/kernels/csrc``
+(one nvcc per translation unit, all at once), then:
+
+  * runs ``lower_pipeline(pipe)`` -- the port's own DSE on the card's
+    budget, then the fused-DAG CUDA megakernel -- for each of the five
+    analytics pipelines at full size: tpchq6 at 6,000,000 rows (TPC-H
+    SF1 lineitem, 6,001,215 rows, cut to a multiple of 128), the others
+    at 4,194,304 rows with the pipelines' own widths;
+  * runs ``lower(tile(gemm))`` at m = n = k = 4096 in float32.
+
+Each run resets the kernel's launch count just before, reads it just
+after, and fails if the kernel did not run.  Each result is held
+against the kernel's plain PyTorch version on the card and against the
+numpy reference: Map outputs and the GEMM at float32 rtol/atol
+2e-3/2e-3; fold and CAM sums within SUM_RTOL of their largest
+magnitude, a limit the script first proves tighter than what two
+planted faults would shift them by; counts exactly.  Times are medians of
+CUDA-event timings with warm-up excluded.  The last lines are the
+``kernels`` JSON line, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  Needs
+one card; exits non-zero without one, or outside a checkout of the
+repository.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+RTOL = ATOL = 2e-3           # float32 tolerance of the reference's tests
+# fold / CAM sums: |kernel - float64 reference| <= SUM_RTOL * max|reference|
+SUM_RTOL = 1e-5
+EXACT = {"km_counts"}        # integer counts below 2**24: exact in float32
+TPCH_ROWS = 6_000_000        # TPC-H SF1 lineitem (6,001,215) cut to 128s
+ROWS = 4_194_304             # 2**22
+GEMM_N = 4096
+WARMUP, REPS, BATCH = 3, 10, 10
+REPLACES = "src/repro/core/codegen_pallas.py"
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def median_ms(fn, torch) -> float:
+    """Median over REPS of the per-call time of BATCH back-to-back calls
+    between two CUDA events (so the card, not the host's enqueue, sets
+    the time), after WARMUP calls."""
+    for _ in range(WARMUP):
+        fn()
+    times = []
+    for _ in range(REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(BATCH):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / BATCH)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _as_double(t, torch):
+    return torch.as_tensor(t).detach().double().cpu()
+
+
+def max_err(got, want, torch, what: str) -> float:
+    """Max abs error of ``got`` against ``want``; fails outside
+    rtol/atol."""
+    g, w = _as_double(got, torch), _as_double(want, torch)
+    if tuple(g.shape) != tuple(w.shape):
+        fail(f"{what}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{what}: non-finite values")
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
+        bad = float(((g - w).abs() / (ATOL + RTOL * w.abs())).max())
+        fail(f"{what}: max abs err {err:.3e} exceeds rtol/atol "
+             f"{RTOL}/{ATOL} (worst err/tol {bad:.3f})")
+    return err
+
+
+def as_outputs(value, names) -> dict:
+    return value if isinstance(value, dict) else {names[0]: value}
+
+
+def fault_shifts(builder, host, n: int, block: int, grid: int,
+                 ctas: int, names) -> dict:
+    """What two planted faults would shift each fold / CAM output by:
+    dropping the first row of every grid step, and dropping the partial
+    of the last persistent block (the one with the fewest steps).  Each
+    output is a sum over rows, so a shift is the float64 reference on
+    just the dropped rows.  Returns fault -> output -> max abs shift."""
+    last = np.arange(ctas - 1, grid, ctas)
+    dropped = {"row per tile": np.arange(grid) * block,
+               "block partial": (last[:, None] * block
+                                 + np.arange(block)).ravel()}
+    out = {}
+    for what, rows in dropped.items():
+        sub = {k: v[rows] if v.shape[:1] == (n,) else v
+               for k, v in host.items()}
+        ref = as_outputs(builder(n=rows.size)[2](sub), names)
+        out[what] = {k: float(np.abs(np.asarray(v, np.float64)).max())
+                     for k, v in ref.items()}
+    return out
+
+
+def check_sum(key, got, plain, ref, shifts, torch, what: str):
+    """Hold a fold / CAM output against the plain version and the float64
+    reference within its limit, after proving the limit tighter than
+    every planted fault's shift.  Returns (err vs plain, err vs
+    reference, limit)."""
+    g, p, r = (_as_double(t, torch) for t in (got, plain, ref))
+    for name, t in (("kernel", g), ("plain", p)):
+        if tuple(t.shape) != tuple(r.shape) or not bool(
+                torch.isfinite(t).all()):
+            fail(f"{what}: {name} output not finite of shape "
+                 f"{tuple(r.shape)}")
+    limit = 0.0 if key in EXACT else SUM_RTOL * float(r.abs().max())
+    for fault, by_key in shifts.items():
+        if not limit < by_key[key]:
+            fail(f"{what}: limit {limit:.4g} would not catch a dropped "
+                 f"{fault} (shift {by_key[key]:.4g})")
+    e_plain = float((g - p).abs().max())
+    e_ref = float((g - r).abs().max())
+    if e_plain > limit or e_ref > limit:
+        fail(f"{what}: max abs err {e_plain:.4g} vs plain, {e_ref:.4g} vs "
+             f"reference exceeds {limit:.4g}")
+    return e_plain, e_ref, limit
+
+
+def device_breakdown(fn, torch, calls: int = 3) -> str:
+    """Mean device time per launch of each CUDA kernel ``fn`` launches,
+    from torch.profiler (each kernel's total over its own launch count);
+    "not measured" when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us > 0 and e.count:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("::")[-1][:40]
+            parts.append(f"{name} {us / e.count / 1e3:.4f} ms x{e.count}")
+    return ", ".join(parts) if parts else "not measured"
+
+
+def pipeline_ops(name: str, inputs) -> int:
+    """Floating-point operations the pipeline's bodies do on these
+    inputs (compares and conversions counted as one each)."""
+    if name == "tpchq6":
+        return 5 * inputs["qty"].shape[0]          # 2 cmp, and, mul, add
+    if name == "gda":
+        n, d = inputs["pts"].shape
+        return n * (d * d + d + d * d)             # outer, sums
+    if name == "kmeans":
+        n, d = inputs["points"].shape
+        k = inputs["centroids"].shape[0]
+        return n * (3 * k * d + k + d + 1)         # distances, argmin, sums
+    if name == "gda_moments":
+        n, d = inputs["pts"].shape
+        return n * 4 * d                           # weight, square, 2 sums
+    if name == "normalize":
+        n, d = inputs["x"].shape
+        return n * (3 * d + 2)                     # squares, sum, rsqrt, scale
+    raise KeyError(name)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs one GPU",
+              file=sys.stderr)
+        return 2
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+
+    from repro_torch.core import codegen_cuda as cc
+    from repro_torch.core import pipeline as plmod
+    from repro_torch.core.cost import device_tier
+    from repro_torch.core.strip_mine import tile
+    from repro_torch.kernels import build
+    from repro_torch.patterns.analytics import PIPELINES, gemm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    tier = device_tier(dev)
+    print(f"device: {torch.cuda.get_device_name(0)} | {smi} | "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs"
+          f" | tier {tier}", flush=True)
+
+    # ---- lower every pipeline (kernels build lazily), then build all
+    t0 = time.perf_counter()
+    sizes = {name: (TPCH_ROWS if name == "tpchq6" else ROWS)
+             for name in PIPELINES}
+    built = {}
+    sources, labels = [], []
+    for name, builder in PIPELINES.items():
+        pipe, make_inputs, reference = builder(n=sizes[name])
+        call = plmod.lower_pipeline(pipe)
+        for g in call.group_calls:
+            sources.append(("fused_dag", g.kernel.source))
+            labels.append(f"fused_dag[{name}]")
+        built[name] = (builder, pipe, make_inputs, reference, call)
+    gp, gsizes, g_inputs, _ = gemm(GEMM_N, GEMM_N, GEMM_N)
+    bm, bn = gsizes["gemm"]
+    (bk,) = gsizes["gemm_k"]
+    gemm_call = cc.lower(tile(gp, gsizes))
+    sources.append(("tiled_gemm", cc.gemm_source(bm, bn, bk)))
+    labels.append("tiled_gemm")
+    paths = build.compile_all(sources)
+    print(f"build: {len(paths)} translation units in "
+          f"{time.perf_counter() - t0:.1f} s (plans included)", flush=True)
+    for label, p in zip(labels, paths):
+        for line in p.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {label}: {line.strip()}")
+
+    kernels = []
+
+    # ---- the five pipelines through the fused megakernel
+    for name, (builder, pipe, make_inputs, reference, call) in built.items():
+        host = make_inputs()
+        inputs = {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+        torch.cuda.synchronize()
+        cc.fused_dag.launches = 0
+        out = call(**inputs)
+        torch.cuda.synchronize()
+        launches = cc.fused_dag.launches
+        plan = call.pipeline_plan
+        print(f"[{name}] n={pipe.shared_extent} plan: block={plan.block} "
+              f"groups={list(plan.groups)} group_blocks="
+              f"{list(plan.group_blocks)} depths={list(plan.depths)} "
+              f"onchip_bytes={plan.vmem_bytes}", flush=True)
+        print(f"[{name}] group_lowerings={list(call.group_lowerings)} "
+              f"fused_dag launches={launches}")
+        if any(how != "megakernel" for _, how in call.group_lowerings):
+            fail(f"{name}: a group did not lower to the megakernel")
+        if launches < len(plan.groups):
+            fail(f"{name}: fused_dag launched {launches} times for "
+                 f"{len(plan.groups)} groups")
+        names = plmod.output_names(pipe)
+        outs = as_outputs(out, names)
+        plain = dict(inputs)
+        for g in call.group_calls:
+            plain.update(cc.fused_dag_plain(g.kernel.spec, plain))
+        ref = as_outputs(reference(host), names)
+        if set(ref) != set(outs):
+            fail(f"{name}: outputs {sorted(outs)} != {sorted(ref)}")
+        group = call.group_calls[0]
+        spec = group.kernel.spec
+        kinds = {t.name: t.kind for g in call.group_calls
+                 for t in g.kernel.spec.terminals}
+        shifts = None
+        if any(kinds[k] != "map" for k in outs):
+            shifts = fault_shifts(builder, host, pipe.shared_extent,
+                                  spec.block, spec.grid,
+                                  group.kernel.ctas(dev), names)
+        e_plain = 0.0
+        for k in outs:
+            if kinds[k] == "map":
+                ep = max_err(outs[k], plain[k], torch, f"{name}/{k} vs plain")
+                er = max_err(outs[k], ref[k], torch,
+                             f"{name}/{k} vs reference")
+                how = f"rtol/atol {RTOL}/{ATOL}"
+            else:
+                ep, er, limit = check_sum(k, outs[k], plain[k], ref[k],
+                                          shifts, torch, f"{name}/{k}")
+                how = (f"limit {limit:.6g}; planted faults shift it by "
+                       + ", ".join(f"{by[k]:.6g} ({f})"
+                                   for f, by in shifts.items()))
+            e_plain = max(e_plain, ep)
+            print(f"[{name}] {k} ({kinds[k]}): max abs err vs plain "
+                  f"{ep:.6g}, vs reference {er:.6g}; {how}")
+
+        env = dict(inputs)
+        ms = median_ms(lambda: cc.fused_dag(group.kernel, env), torch)
+        plain_ms = median_ms(
+            lambda: cc.fused_dag_plain(group.kernel.spec, env), torch)
+        nbytes = sum(t.numel() * t.element_size() for t in inputs.values()) \
+            + sum(t.numel() * t.element_size() for t in outs.values())
+        bytes_ms = nbytes / tier.hbm_bytes_per_s * 1e3
+        ops_ms = pipeline_ops(name, host) / tier.peak_flops * 1e3
+        print(f"[{name}] fused_dag {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes} B, "
+              f"{pipeline_ops(name, host)} ops)", flush=True)
+        print(f"[{name}] device time per call: " + device_breakdown(
+            lambda: cc.fused_dag(group.kernel, env), torch))
+        kernels.append({
+            "name": f"fused_dag[{name}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_dag.cuh",
+            "replaces": f"{REPLACES}:564", "launches": launches,
+            "max_abs_err": e_plain, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None})
+        del inputs, out, outs, plain, env, ref
+
+    # ---- the tiled GEMM
+    host = g_inputs()
+    x = torch.as_tensor(host["x"]).to(dev)
+    y = torch.as_tensor(host["y"]).to(dev)
+    torch.cuda.synchronize()
+    cc.tiled_gemm.launches = 0
+    out = gemm_call(x=x, y=y)
+    torch.cuda.synchronize()
+    launches = cc.tiled_gemm.launches
+    print(f"[gemm] m=n=k={GEMM_N} tile_plan={gemm_call.tile_plan} "
+          f"tiled_gemm launches={launches}")
+    if launches < 1:
+        fail("gemm: tiled_gemm was not launched")
+    plain = cc.tiled_gemm_plain(x, y, bm=bm, bn=bn, bk=bk)
+    e_plain = max_err(out, plain, torch, "gemm vs plain")
+    e_lib = max_err(out, torch.matmul(x, y), torch, "gemm vs torch.matmul")
+    rows = slice(0, 64)   # numpy float64 reference on a slice of rows
+    want = host["x"][rows].astype("float64") @ host["y"].astype("float64")
+    e_ref = max_err(out[rows], want, torch, "gemm vs reference rows")
+    print(f"[gemm] max abs err vs plain {e_plain:.3e}, vs torch.matmul "
+          f"{e_lib:.3e}, vs float64 reference (64 rows) {e_ref:.3e} "
+          f"(rtol/atol {RTOL}/{ATOL})")
+    ms = median_ms(lambda: cc.tiled_gemm(x, y, bm=bm, bn=bn, bk=bk), torch)
+    plain_ms = median_ms(
+        lambda: cc.tiled_gemm_plain(x, y, bm=bm, bn=bn, bk=bk), torch)
+    lib_ms = median_ms(lambda: torch.matmul(x, y), torch)
+    flops = 2 * GEMM_N ** 3
+    ops_ms = flops / tier.peak_flops * 1e3
+    bytes_ms = 3 * GEMM_N * GEMM_N * 4 / tier.hbm_bytes_per_s * 1e3
+    print("[gemm] device time per call: " + device_breakdown(
+        lambda: cc.tiled_gemm(x, y, bm=bm, bn=bn, bk=bk), torch))
+    print(f"[gemm] tiled_gemm {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
+          f"plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms", flush=True)
+    kernels.append({
+        "name": "tiled_gemm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tiled_gemm.cuh",
+        "replaces": f"{REPLACES}:177", "launches": launches,
+        "max_abs_err": e_plain, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": lib_ms})
+
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,7 @@
+"""repro_torch: the PyTorch/CUDA port of the parallel-pattern compiler.
+
+Laid out like the JAX package ``repro``: ``core`` holds the PPL IR, the
+tiling and fusion passes, the cost and memory models, the pipeline DSE
+and the CUDA code generator; ``kernels`` holds the hand-written CUDA
+templates and their build; ``patterns`` holds the benchmark programs.
+"""

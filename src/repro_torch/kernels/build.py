@@ -1,0 +1,115 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each kernel is one generated translation unit that includes a
+hand-written template from ``csrc/`` and exposes a plain C interface.
+It is compiled at first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+
+into the build directory (``build/repro_torch/`` at the repository
+root, or ``$REPRO_TORCH_BUILD_DIR``), named by a hash of the source, the
+templates and the flags, so an unchanged kernel is never rebuilt.
+``compile_all`` starts one nvcc per source at once.  ptxas's resource
+report (registers, shared memory, spills) is kept beside each library
+as ``<name>.log``.
+
+The C entry points take pointers and the stream as ``c_void_p`` and
+return ``cudaGetLastError()``; the caller raises when it is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Sequence, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's kernels build with the "
+                       "CUDA toolkit (set CUDA_HOME)")
+
+
+def _templates_digest() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()
+
+
+def library_path(name: str, source: str) -> Path:
+    """Where the library built from ``source`` lives (content-keyed)."""
+    h = hashlib.sha256()
+    for part in (source, _templates_digest(), " ".join(NVCC_FLAGS)):
+        h.update(part.encode())
+    return build_dir() / f"{name}_{h.hexdigest()[:16]}.so"
+
+
+def compile_all(items: Sequence[Tuple[str, str]]) -> List[Path]:
+    """Build every ``(name, source)`` not yet built, one nvcc per source,
+    all started together.  Returns the library paths in order; raises
+    with nvcc's output if any build fails."""
+    out = [library_path(name, src) for name, src in items]
+    todo = []
+    for (name, src), so in zip(items, out):
+        if so.exists() or any(so == t[0] for t in todo):
+            continue
+        todo.append((so, src))
+    if not todo:
+        return out
+    build_dir().mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    procs = []
+    for so, src in todo:
+        cu = so.with_suffix(".cu")
+        cu.write_text(src)
+        tmp = so.with_name(so.name + f".{os.getpid()}.tmp")
+        cmd = [exe, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(cu)]
+        procs.append((so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for so, tmp, proc in procs:
+        log, _ = proc.communicate()
+        so.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{so.name}:\n{log}")
+            continue
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str, source: str) -> ctypes.CDLL:
+    """The loaded library for ``source``, building it first if needed."""
+    (so,) = compile_all([(name, source)])
+    key = str(so)
+    if key not in _LIBS:
+        _LIBS[key] = ctypes.CDLL(key)
+    return _LIBS[key]
+
+
+def pointers(ptrs: Sequence[int]):
+    """A C array of device pointers, kept alive by the caller."""
+    return (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
