@@ -5,27 +5,33 @@ place of MaxJ ones, for an NVIDIA Hopper card (``sm_90a``):
 
   * the tiled GEMM (Table 3 form)          -> ``csrc/tiled_gemm.cuh``,
     one block per output tile looping over K itself
+  * a write-once tiled Map                 -> ``csrc/tiled_map.cuh``,
+    persistent blocks staging each grid step's tiles in rotating shared
+    slots and writing one output block per step
+  * a tiled GroupByFold (CAM)              -> ``csrc/fused_dag.cuh`` with
+    one CAM terminal: per-block shared tables, partials summed in order
+  * a tiled FlatMap (parallel FIFO)        -> ``csrc/tiled_flatmap.cuh``,
+    a count pass, a scan of the counts and a compacting write pass
   * a fused pipeline DAG (``lower_fused_dag``) -> ``csrc/fused_dag.cuh``,
     one persistent multi-output megakernel: producer stages in
     shared-memory scratch, fold terminals in registers, CAM terminals in
     a per-block shared table, Map terminals streamed out once; per-block
     partials are summed by a second small launch
 
-The generator instantiates a template per DAG and plan: it splices each
-pattern's CUDA body (``ir.Pattern.cuda``) and the plan's constants into
-one translation unit, which ``kernels.build`` compiles with nvcc and
-caches by hash.  Every kernel has a wrapper that launches it for CUDA
-tensors (or raises), a plain PyTorch version of the same function that
-the wrapper takes for CPU tensors only, and a launch count.
-
-Templates for tiled Map, GroupByFold and FlatMap programs
-(``lower_tiled_map`` / ``_groupby`` / ``_flatmap`` in the reference)
-are not ported yet; ``lower`` raises ``NotImplementedError`` for them.
+``lower`` picks the template for a tiled pattern and ``lower_auto``
+tiles an untiled one with the single-pattern DSE first.  The generator
+instantiates a template per program and plan: it splices each pattern's
+CUDA body (``ir.Pattern.cuda``) and the plan's constants into one
+translation unit, which ``kernels.build`` compiles with nvcc and caches
+by hash.  Every kernel has a wrapper that launches it for CUDA tensors
+(or raises), a plain PyTorch version of the same function that the
+wrapper takes for CPU tensors only, and a launch count.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import itertools
 import operator
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -56,6 +62,24 @@ def _on(tensors: Sequence[torch.Tensor]) -> torch.device:
     return dev
 
 
+def _aligned(named: Sequence[Tuple[str, torch.Tensor]]) -> None:
+    """The templates read their inputs in 16-byte pieces, so each must
+    start on a 16-byte boundary, as a fresh allocation does; a view at
+    another offset is refused (``_staged`` copies it)."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"'{name}' starts {t.data_ptr() % 16} bytes past a 16-byte "
+                "boundary; the CUDA kernels read 16-byte aligned inputs")
+
+
+def _staged(t, dev: torch.device) -> torch.Tensor:
+    """``t`` as a kernel input on ``dev``: contiguous and, on the card,
+    16-byte aligned (a view at another offset is copied)."""
+    t = torch.as_tensor(t).to(dev).contiguous()
+    return t.clone() if dev.type == "cuda" and t.data_ptr() % 16 else t
+
+
 def _check(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.error_string(rc).decode()
@@ -66,6 +90,64 @@ _ERROR_STRING = '''
 extern "C" const char* error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
+'''
+
+
+def _bind(lib, argtypes: Dict[str, list]):
+    """Declare the C entry points of a loaded kernel library (each
+    returns a CUDA error code) and its ``error_string``."""
+    for name, args in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _persistent_ctas(library: Callable, fn: str, smem_bytes: int,
+                     dev: torch.device, what: str) -> int:
+    """The persistent block count a kernel's ``<prefix>_ctas`` entry
+    point computes on ``dev``.  Raises before building when the card's
+    shared memory per block is smaller than the plan's."""
+    props = torch.cuda.get_device_properties(dev)
+    if smem_bytes > props.shared_memory_per_block_optin:
+        raise ValueError(
+            f"{what} needs {smem_bytes} B of shared memory; the card "
+            f"allows {props.shared_memory_per_block_optin} B per block")
+    lib = library()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        _check(lib, getattr(lib, fn)(ctypes.byref(n)), f"{what} occupancy")
+    return n.value
+
+
+def _ctas_source(prefix: str, kernels: Sequence[Tuple[str, str]],
+                 threads: str, max_per_sm: str) -> str:
+    """``extern "C" int <prefix>_ctas(int*)``: opt each ``(kernel,
+    shared bytes)`` into its dynamic shared memory, then the persistent
+    block count of the first kernel -- a few per SM as occupancy
+    allows, at most one per grid step (``GRID``)."""
+    sets = "".join(
+        f"  e = cudaFuncSetAttribute({k}, "
+        f"cudaFuncAttributeMaxDynamicSharedMemorySize, {s});\n"
+        "  if (e != cudaSuccess) return (int)e;\n" for k, s in kernels)
+    main, smem = kernels[0]
+    return f'''extern "C" int {prefix}_ctas(int* ctas) {{
+  cudaError_t e;
+{sets}  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, {main},
+                                                    {threads}, {smem});
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (per_sm > {max_per_sm}) per_sm = {max_per_sm};
+  long long n = (long long)sms * per_sm;
+  *ctas = (int)(n < GRID ? n : GRID);
+  return 0;
+}}
 '''
 
 
@@ -101,12 +183,9 @@ _GEMM_LIBS: Dict[Tuple[int, int, int], Any] = {}
 def _gemm_library(bm: int, bn: int, bk: int):
     if (bm, bn, bk) in _GEMM_LIBS:
         return _GEMM_LIBS[(bm, bn, bk)]
-    lib = build.load("tiled_gemm", gemm_source(bm, bn, bk))
-    lib.gemm_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    lib.gemm_launch.restype = ctypes.c_int
-    lib.error_string.argtypes = [ctypes.c_int]
-    lib.error_string.restype = ctypes.c_char_p
+    lib = _bind(build.load("tiled_gemm", gemm_source(bm, bn, bk)), {
+        "gemm_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p]})
     _GEMM_LIBS[(bm, bn, bk)] = lib
     return lib
 
@@ -145,6 +224,7 @@ def tiled_gemm(x: torch.Tensor, y: torch.Tensor, *, bm: int, bn: int,
     if k % 4 or n % 4 or bk % 4 or (bm // 4) * (bn // 4) > 1024:
         raise ValueError(f"tile ({bm}, {bn}, {bk}) on ({m}, {n}, {k}) is "
                          "not one the CUDA template takes")
+    _aligned((("x", x), ("y", y)))
     lib = _gemm_library(bm, bn, bk)
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
     rc = lib.gemm_launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
@@ -178,8 +258,8 @@ def lower_tiled_gemm(p: ir.MultiFold, *, device=None) -> Callable:
     dev = resolve(device)
 
     def call(**tensors):
-        x = torch.as_tensor(tensors[x_tc.src.name]).to(dev).contiguous()
-        y = torch.as_tensor(tensors[y_tc.src.name]).to(dev).contiguous()
+        x = _staged(tensors[x_tc.src.name], dev)
+        y = _staged(tensors[y_tc.src.name], dev)
         return tiled_gemm(x, y, bm=bi, bn=bj, bk=bk)
 
     call.tile_plan = {p.name: (bi, bj), f.name: (bk,)}
@@ -446,11 +526,14 @@ def _ident(name: str) -> str:
     return "".join(c if c.isalnum() else "_" for c in name)
 
 
-def _body_fn(fname: str, n_reads: int, body: str, keyed: bool) -> str:
+def _body_fn(fname: str, n_reads: int, body: str, keyed: bool = False,
+             counted: bool = False) -> str:
     params = [f"const float* __restrict__ in{j}" for j in range(n_reads)]
     params.append("float* __restrict__ out")
     if keyed:
         params.append("int& key")
+    if counted:
+        params.append("int& count")
     text = "\n".join("  " + line for line in body.strip().splitlines())
     return (f"__device__ __forceinline__ void {fname}(\n    "
             + ",\n    ".join(params) + ") {\n" + text + "\n}\n")
@@ -489,7 +572,7 @@ def dag_source(spec: DagSpec) -> str:
     params += [f"float* __restrict__ out_{_ident(t.name)}"
                for t in spec.terminals if t.kind == "map"]
     params.append("float* __restrict__ partials")
-    L.append("__global__ void __launch_bounds__(fdag::THREADS)\n"
+    L.append("__global__ void __launch_bounds__(tcopy::THREADS)\n"
              "fused_dag_kernel(" + ", ".join(params) + ") {")
     L.append("  extern __shared__ float4 smem4[];")
     L.append("  float* const smem = reinterpret_cast<float*>(smem4);")
@@ -500,7 +583,7 @@ def dag_source(spec: DagSpec) -> str:
     for i, buf in enumerate(spec.buffers):
         if buf.kind == "hoisted":
             src = f"in_{_ident(spec.inputs[buf.operand][0])}"
-            L.append(f"  fdag::copy_small(buf{i}, {src}, {buf.words});")
+            L.append(f"  tcopy::copy_scalar(buf{i}, {src}, {buf.words});")
         elif buf.kind == "cam":
             L.append(f"  fdag::zero(buf{i}, {buf.words});")
     for t in spec.terminals:
@@ -517,7 +600,7 @@ def dag_source(spec: DagSpec) -> str:
     for i, buf in enumerate(spec.buffers):
         if buf.kind == "stream":
             src = f"in_{_ident(spec.inputs[buf.operand][0])}"
-            L.append(f"    fdag::copy_tile(s{i}, {src} + g * "
+            L.append(f"    tcopy::copy_vec4(s{i}, {src} + g * "
                      f"{buf.words}LL, {buf.words});")
     L.append("    __syncthreads();")
 
@@ -582,28 +665,11 @@ def dag_source(spec: DagSpec) -> str:
     call = [f"(const float*)ins[{i}]" for i in range(n_in)]
     call += [f"(float*)outs[{i}]" for i in range(n_map)]
     call.append("(float*)partials")
-    L.append(f'''extern "C" int fdag_ctas(int* ctas) {{
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_dag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_dag_kernel, fdag::THREADS, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  if (per_sm > fdag::MAX_CTAS_PER_SM) per_sm = fdag::MAX_CTAS_PER_SM;
-  long long n = (long long)sms * per_sm;
-  *ctas = (int)(n < GRID ? n : GRID);
-  return 0;
-}}
-
-extern "C" int fdag_launch(void* const* ins, void* const* outs,
+    L.append(_ctas_source("fdag", [("fused_dag_kernel", "SMEM_BYTES")],
+                          "tcopy::THREADS", "tcopy::MAX_CTAS_PER_SM"))
+    L.append(f'''extern "C" int fdag_launch(void* const* ins, void* const* outs,
                            void* partials, int ctas, void* stream) {{
-  fused_dag_kernel<<<ctas, fdag::THREADS, SMEM_BYTES,
+  fused_dag_kernel<<<ctas, tcopy::THREADS, SMEM_BYTES,
                      (cudaStream_t)stream>>>(
       {", ".join(call)});
   return (int)cudaGetLastError();
@@ -627,6 +693,8 @@ class DagKernel:
     loaded library, its persistent block count and the terminals'
     ``init`` words, kept so a launch does no host work beyond it."""
 
+    name = "fused_dag"   # the build name
+
     def __init__(self, spec: DagSpec):
         self.spec = spec
         self.source = dag_source(spec)
@@ -636,16 +704,11 @@ class DagKernel:
 
     def library(self):
         if self._lib is None:
-            lib = build.load("fused_dag", self.source)
             vp = ctypes.c_void_p
-            lib.fdag_ctas.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.fdag_launch.argtypes = [vp, vp, vp, ctypes.c_int, vp]
-            lib.fdag_combine.argtypes = [vp, vp, vp, ctypes.c_int, vp]
-            for fn in (lib.fdag_ctas, lib.fdag_launch, lib.fdag_combine):
-                fn.restype = ctypes.c_int
-            lib.error_string.argtypes = [ctypes.c_int]
-            lib.error_string.restype = ctypes.c_char_p
-            self._lib = lib
+            self._lib = _bind(build.load(self.name, self.source), {
+                "fdag_ctas": [ctypes.POINTER(ctypes.c_int)],
+                "fdag_launch": [vp, vp, vp, ctypes.c_int, vp],
+                "fdag_combine": [vp, vp, vp, ctypes.c_int, vp]})
         return self._lib
 
     def ctas(self, dev: torch.device) -> int:
@@ -653,18 +716,9 @@ class DagKernel:
         one per grid step.  Raises if the card's shared memory per block
         is smaller than the plan's."""
         if dev not in self._ctas:
-            props = torch.cuda.get_device_properties(dev)
-            if self.spec.smem_bytes > props.shared_memory_per_block_optin:
-                raise ValueError(
-                    f"fused DAG needs {self.spec.smem_bytes} B of shared "
-                    f"memory; the card allows "
-                    f"{props.shared_memory_per_block_optin} B per block")
-            lib = self.library()
-            n = ctypes.c_int(0)
-            with torch.cuda.device(dev):
-                _check(lib, lib.fdag_ctas(ctypes.byref(n)),
-                       "fused_dag occupancy")
-            self._ctas[dev] = n.value
+            self._ctas[dev] = _persistent_ctas(
+                self.library, "fdag_ctas", self.spec.smem_bytes, dev,
+                "fused DAG")
         return self._ctas[dev]
 
     def init(self, dev: torch.device) -> torch.Tensor:
@@ -757,6 +811,7 @@ def fused_dag(kernel: DagKernel, tensors: Dict[str, torch.Tensor]
     dev = _on(ins)
     if dev.type == "cpu":
         return fused_dag_plain(spec, tensors)
+    _aligned([(name, tensors[name]) for name, _ in spec.inputs])
     lib = kernel.library()
     ctas = kernel.ctas(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -807,7 +862,7 @@ def lower_fused_dag(terminals, grid_n: int, depth: int = 2, *,
     dev = resolve(device)
 
     def call(**tensors):
-        ts = {name: torch.as_tensor(tensors[name]).to(dev).contiguous()
+        ts = {name: _staged(tensors[name], dev)
               for name, _ in kernel.spec.inputs}
         return fused_dag(kernel, ts)
 
@@ -905,16 +960,878 @@ def lower_fused_pipeline(pipe, *, plan=None,
 
 
 # --------------------------------------------------------------------
+# Tiled Map (write-once) and tiled FlatMap (parallel FIFO):
+#   MultiFold(grid) write-once { loads; Map(tile) }
+#   FlatMap(grid) { loads; FlatMap(tile) }
+# --------------------------------------------------------------------
+
+# warps per block of the FlatMap template (tfm::WARPS): the count pass
+# writes one count per (grid step, warp)
+FLATMAP_WARPS = 8
+
+
+def _row_major(shape: Sequence[int]) -> Tuple[int, ...]:
+    strides, s = [], 1
+    for e in reversed(shape):
+        strides.append(s)
+        s *= int(e)
+    return tuple(reversed(strides))
+
+
+def _words(shape: Sequence[int]) -> int:
+    return int(np.prod(shape)) if len(shape) else 1
+
+
+def _is_run(part: Sequence[int], whole: Sequence[int]) -> bool:
+    """A row-major block ``part`` of ``whole`` is one contiguous run:
+    after its first dim longer than 1, it spans every dim whole."""
+    big = [d for d, e in enumerate(part) if e > 1]
+    return all(part[d] == whole[d]
+               for d in range(big[0] + 1 if big else len(part), len(part)))
+
+
+@dataclasses.dataclass(frozen=True)
+class TileLoad:
+    """A tensor tile the kernel stages in shared memory: at grid index
+    ``g`` it starts at flat source offset ``origin + sum_j step[j] *
+    g[j]``."""
+
+    label: str
+    operand: int                   # index into TiledSpec.inputs
+    shape: Tuple[int, ...]         # the source tensor's
+    tile: Tuple[int, ...]
+    origin: int
+    step: Tuple[int, ...]          # flat offset per unit of each grid index
+    slots: int                     # the depth, or 1 for a hoisted preload
+
+    @property
+    def words(self) -> int:
+        return _words(self.tile)
+
+    @property
+    def contiguous(self) -> bool:
+        """The tile is one run of its source."""
+        return _is_run(self.tile, self.shape)
+
+    @property
+    def vec4(self) -> bool:
+        """Copyable in 16-byte pieces (given a 16-byte aligned slot)."""
+        return (self.contiguous and self.words % 4 == 0
+                and self.origin % 4 == 0 and all(s % 4 == 0 for s in self.step))
+
+
+@dataclasses.dataclass(frozen=True)
+class TileRead:
+    """A window the body reads from a staged tile at each local index
+    ``l``: along tile dim ``d`` it starts at ``clamp(sum_j local[d][j] *
+    l[j], 0, tile[d] - window[d])``, as ``dynamic_slice`` clamps."""
+
+    load: int
+    window: Tuple[int, ...]
+    local: Tuple[Tuple[int, ...], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledSpec:
+    """What the kernel of one tiled Map or FlatMap at one plan computes.
+
+    A Map writes ``width`` words per local index at flat output offset
+    ``out_origin + sum_j out_step[j] * g[j] + sum_j out_local[j] *
+    l[j]``; a FlatMap's body emits up to ``width`` values per index
+    into a buffer of ``out_shape`` words plus a count."""
+
+    kind: str                      # "map" | "flatmap"
+    grid: Tuple[int, ...]
+    domain: Tuple[int, ...]        # the tile's local domain
+    depth: int
+    inputs: Tuple[Tuple[str, Tuple[int, ...]], ...]   # operand order
+    loads: Tuple[TileLoad, ...]
+    reads: Tuple[TileRead, ...]
+    body: ir.Pattern               # the tile pattern (torch + CUDA body)
+    width: int
+    out_shape: Tuple[int, ...]
+    out_origin: int = 0
+    out_step: Tuple[int, ...] = ()
+    out_local: Tuple[int, ...] = ()
+
+    @property
+    def steps(self) -> int:
+        return _words(self.grid)
+
+    @property
+    def tile_n(self) -> int:
+        return _words(self.domain)
+
+    @property
+    def fifo_words(self) -> int:
+        """The FlatMap's compaction FIFO: b * max_per_iter words."""
+        return self.tile_n * self.width if self.kind == "flatmap" else 0
+
+    @property
+    def tile_bytes(self) -> int:
+        return 4 * sum(ld.words * ld.slots for ld in self.loads)
+
+    @property
+    def onchip_bytes(self) -> int:
+        return self.tile_bytes + 4 * self.fifo_words
+
+
+def _check_block_aligned(amap: AffineMap, tile: Tuple[int, ...],
+                         what: str) -> None:
+    """The reference's BlockSpec index maps address whole blocks: every
+    base offset and grid stride must be a multiple of the tile extent."""
+    for d in range(amap.n_out):
+        if amap.base[d] % tile[d]:
+            raise ValueError(
+                f"{what}: base {amap.base} is not block-aligned (dim {d} "
+                f"offset {amap.base[d]} is not a multiple of tile extent "
+                f"{tile[d]})")
+        for j in range(amap.n_in):
+            if amap.mat[d][j] % tile[d]:
+                raise ValueError(
+                    f"{what}: stride {amap.mat[d][j]} (dim {d}, grid dim "
+                    f"{j}) is not a multiple of tile extent {tile[d]}; "
+                    "the grid would address partial blocks")
+
+
+def _check_inside(amap: AffineMap, grid: Tuple[int, ...],
+                  tile: Tuple[int, ...], shape: Tuple[int, ...],
+                  what: str) -> None:
+    for d in range(amap.n_out):
+        reach = [s * (g - 1) for s, g in zip(amap.mat[d], grid)]
+        lo = amap.base[d] + sum(min(0, r) for r in reach)
+        hi = amap.base[d] + sum(max(0, r) for r in reach) + tile[d]
+        if lo < 0 or hi > shape[d]:
+            raise ValueError(f"{what}: blocks reach [{lo}, {hi}) along dim "
+                             f"{d} of a tensor of shape {shape}")
+
+
+def _flat(amap: AffineMap, shape: Tuple[int, ...]) -> Tuple[int, Tuple]:
+    """(flat origin, flat step per input index) of an affine map into a
+    row-major tensor of ``shape``."""
+    strides = _row_major(shape)
+    origin = sum(b * s for b, s in zip(amap.base, strides))
+    step = tuple(sum(amap.mat[d][j] * strides[d] for d in range(amap.n_out))
+                 for j in range(amap.n_in))
+    return origin, step
+
+
+def tiled_spec(p: ir.Pattern, depth: int = 2) -> TiledSpec:
+    """Analyse a tiled Map (``MultiFold(grid) write-once {Map(tile)}``)
+    or tiled FlatMap (``FlatMap(grid) {FlatMap(tile)}``) into its
+    kernel's tiles, windows and output addressing.
+
+    Raises ``ValueError`` for a tile copy or output block that is not
+    block-aligned (as the reference's BlockSpecs do) and
+    ``NotImplementedError`` for shapes the templates do not take: a
+    read that is not tile-local, a tile element that is itself a
+    pattern (the nested-fold GEMM form), a staged pattern, non-float32
+    data, or FlatMap values wider than one word."""
+    from .fusion import tile_copy_key
+
+    if depth < 2:
+        raise ValueError(f"metapipeline depth must be >= 2, got {depth}")
+    if isinstance(p, ir.MultiFold) and p.combine is None \
+            and isinstance(p.inner, ir.Map):
+        kind = "map"
+    elif isinstance(p, ir.FlatMap) and isinstance(p.inner, ir.FlatMap):
+        kind = "flatmap"
+    else:
+        raise NotImplementedError(
+            f"no tiled Map or FlatMap template for {type(p).__name__} "
+            f"'{p.name}'")
+    q = p.inner
+    if not p.strided:
+        raise NotImplementedError(f"'{p.name}' is not a strided grid")
+    if q.inner is not None:
+        raise NotImplementedError(
+            f"'{q.name}': no template takes a tile element that is itself "
+            f"a pattern ({type(q.inner).__name__} '{q.inner.name}')")
+    if q.loads:
+        raise NotImplementedError(f"'{q.name}' stages tiles of its own")
+    if "float32" != p.dtype or "float32" != q.dtype:
+        raise NotImplementedError(f"'{p.name}' is {p.dtype}")
+    if kind == "flatmap" and q.elem_shape:
+        raise NotImplementedError(
+            f"'{q.name}': FlatMap values wider than one word")
+    grid = tuple(int(d) for d in p.domain)
+    dom = tuple(int(d) for d in q.domain)
+
+    inputs: List[Tuple[str, Tuple[int, ...]]] = []
+    loads: List[TileLoad] = []
+    by_uid: Dict[str, int] = {}
+    by_key: Dict[Any, int] = {}
+    for tc in p.loads:
+        if not isinstance(tc.src, ir.Tensor):
+            raise NotImplementedError(
+                f"'{p.name}' stages a pattern-valued tile '{tc.name}'")
+        key = tile_copy_key(tc)
+        if key in by_key:
+            by_uid[tc.uid] = by_key[key]
+            continue
+        if tc.src.dtype != "float32":
+            raise NotImplementedError(f"input '{tc.src.name}' is "
+                                      f"{tc.src.dtype}")
+        shape, tile_ = tuple(tc.src.shape), tuple(tc.tile_shape)
+        amap = _probe(tc.index_map, len(grid))
+        if amap.n_in != len(grid):
+            raise NotImplementedError(
+                f"tile copy of '{tc.src.name}' is not indexed by the grid")
+        what = f"tile copy of '{tc.src.name}'"
+        _check_block_aligned(amap, tile_, what)
+        _check_inside(amap, grid, tile_, shape, what)
+        names = [n for n, _ in inputs]
+        if tc.src.name not in names:
+            inputs.append((tc.src.name, shape))
+            names.append(tc.src.name)
+        origin, step = _flat(amap, shape)
+        loads.append(TileLoad(tc.src.name, names.index(tc.src.name), shape,
+                              tile_, origin, step,
+                              1 if tc.hoisted else depth))
+        by_key[key] = by_uid[tc.uid] = len(loads) - 1
+    if not loads:
+        raise NotImplementedError(f"'{p.name}' reads no tensor tile")
+
+    n_stack = len(grid) + len(dom)
+    reads: List[TileRead] = []
+    for a in q.accesses:
+        if not (isinstance(a.src, ir.TileCopy) and a.src.uid in by_uid):
+            raise NotImplementedError(
+                f"'{q.name}' reads {a.src!r}, which is not one of its "
+                "tiles: the read is not tile-local")
+        ld = by_uid[a.src.uid]
+        amap = _probe(a.index_map, n_stack)
+        window = tuple(a.window)
+        if amap.n_in != n_stack or any(amap.base) or any(
+                amap.mat[d][j] for d in range(amap.n_out)
+                for j in range(len(grid))):
+            raise NotImplementedError(
+                f"'{q.name}' reads a window of '{loads[ld].label}' that is "
+                "not tile-local")
+        if len(window) != len(loads[ld].tile) or any(
+                w > t for w, t in zip(window, loads[ld].tile)):
+            raise NotImplementedError(
+                f"'{q.name}': window {window} of tile {loads[ld].tile}")
+        reads.append(TileRead(ld, window, tuple(
+            tuple(amap.mat[d][len(grid):]) for d in range(amap.n_out))))
+
+    out: Dict[str, Any] = {}
+    if kind == "map":
+        elem = tuple(q.elem_shape)
+        rng = tuple(p.range_shape)
+        upd = tuple(p.update_shape)
+        if upd != dom + elem or rng[len(dom):] != elem:
+            raise NotImplementedError(
+                f"'{p.name}': output block {upd} is not the tile {dom} "
+                f"times the element {elem}")
+        omap = AffineMap.probe(lambda *g: p.out_index_map(*g), len(grid))
+        what = f"output block of '{p.name}'"
+        _check_block_aligned(omap, upd, what)
+        _check_inside(omap, grid, upd, rng, what)
+        origin, step = _flat(omap, rng)
+        out = dict(width=_words(elem), out_shape=rng, out_origin=origin,
+                   out_step=step, out_local=_row_major(rng)[:len(dom)])
+    else:
+        cap = _words(grid) * _words(dom) * q.max_per_iter
+        if cap >= 2 ** 31:
+            raise NotImplementedError(
+                f"'{p.name}': a buffer of {cap} words needs 64-bit counts")
+        out = dict(width=int(q.max_per_iter), out_shape=(cap,))
+
+    # 16-byte copyable tiles first, so their slots stay 16-byte aligned
+    perm = sorted(range(len(loads)), key=lambda i: not loads[i].vec4)
+    remap = {old: new for new, old in enumerate(perm)}
+    return TiledSpec(
+        kind=kind, grid=grid, domain=dom, depth=int(depth),
+        inputs=tuple(inputs), loads=tuple(loads[i] for i in perm),
+        reads=tuple(dataclasses.replace(r, load=remap[r.load])
+                    for r in reads),
+        body=q, **out)
+
+
+# ------------------------------------------------------ source emission
+
+
+def _affine(const: int, coefs: Sequence[int], names: Sequence[str],
+            suffix: str = "LL") -> str:
+    terms = [f"{const}{suffix}"] if const or not any(coefs) else []
+    terms += [f"{n} * {c}{suffix}" for c, n in zip(coefs, names) if c]
+    return "(" + " + ".join(terms) + ")"
+
+
+def _unflatten_c(var: str, dims: Sequence[int], ctype: str) -> List[str]:
+    """Bind ``<var>0 ..`` to the row-major multi-index of ``var``."""
+    if len(dims) == 1:
+        return [f"const {ctype} {var}0 = {var};"]
+    lines = [f"{ctype} {var}_r = {var};"]
+    for d in range(len(dims) - 1, 0, -1):
+        lines.append(f"const {ctype} {var}{d} = {var}_r % {dims[d]}; "
+                     f"{var}_r /= {dims[d]};")
+    lines.append(f"const {ctype} {var}0 = {var}_r;")
+    return lines
+
+
+def _tiled_buffers(spec: TiledSpec, fifo: bool = False) -> List[str]:
+    """Shared-memory layout: each tile at its slots, then the FIFO."""
+    lines = ["  extern __shared__ float4 smem4[];",
+             "  float* const smem = reinterpret_cast<float*>(smem4);"]
+    off = 0
+    for k, ld in enumerate(spec.loads):
+        lines.append(f"  float* const buf{k} = smem + {off};  // tile of "
+                     f"{ld.label}: {ld.slots} x {ld.words} words")
+        off += ld.words * ld.slots
+    if fifo:
+        lines.append(f"  float* const fifo = smem + {off};  // "
+                     f"{spec.fifo_words} words")
+    return lines
+
+
+def _copy_c(spec: TiledSpec, k: int, dst: str, gvars: Sequence[str]
+            ) -> List[str]:
+    ld = spec.loads[k]
+    src = f"in{ld.operand} + {_affine(ld.origin, ld.step, gvars)}"
+    if ld.vec4:
+        return [f"tcopy::copy_vec4({dst}, {src}, {ld.words});"]
+    if ld.contiguous:
+        return [f"tcopy::copy_scalar({dst}, {src}, {ld.words});"]
+    strides = _row_major(ld.shape)
+    at = " + ".join(f"e{d} * {s}LL" for d, s in enumerate(strides))
+    return (["{", f"  const float* const src = {src};",
+             f"  for (int e = threadIdx.x; e < {ld.words}; e += blockDim.x) {{"]
+            + ["    " + x for x in _unflatten_c("e", ld.tile, "int")]
+            + [f"    {dst}[e] = src[{at}];", "  }", "}"])
+
+
+def _step_c(spec: TiledSpec) -> List[str]:
+    """Body of one grid step up to the tiles' barrier: the grid index,
+    the slots and the copies (hoisted tiles are copied before the
+    loop)."""
+    gvars = [f"g{j}" for j in range(len(spec.grid))]
+    lines = _unflatten_c("g", spec.grid, "long long")
+    lines.append("const int slot = step % DEPTH;")
+    for k, ld in enumerate(spec.loads):
+        if ld.slots == 1:
+            lines.append(f"float* const t{k} = buf{k};")
+        else:
+            lines.append(f"float* const t{k} = buf{k} + slot * {ld.words};")
+            lines += _copy_c(spec, k, f"t{k}", gvars)
+    lines.append("__syncthreads();")
+    return lines
+
+
+def _hoisted_c(spec: TiledSpec) -> List[str]:
+    lines = []
+    for k, ld in enumerate(spec.loads):
+        if ld.slots == 1:
+            lines += ["  " + x for x in
+                      _copy_c(spec, k, f"buf{k}", ["0"] * len(spec.grid))]
+    return lines
+
+
+def _windows_c(spec: TiledSpec) -> Tuple[List[str], List[str]]:
+    """Lines binding ``w<r>`` to each read's window at local index
+    ``l0 ..`` (a pointer into the tile, or a gathered copy where the
+    window is not one run of the tile), and the body's arguments."""
+    lvars = [f"l{j}" for j in range(len(spec.domain))]
+    lines, args = [], []
+    for r, rd in enumerate(spec.reads):
+        ld = spec.loads[rd.load]
+        ts = _row_major(ld.tile)
+        parts = []
+        for d, row in enumerate(rd.local):
+            if not any(row):
+                continue
+            start = _affine(0, row, lvars, suffix="")
+            parts.append(f"tmap::clamp_start({start}, "
+                         f"{ld.tile[d] - rd.window[d]}) * {ts[d]}")
+        at = " + ".join(parts) or "0"
+        if _is_run(rd.window, ld.tile):
+            lines.append(f"const float* const w{r} = t{rd.load} + {at};")
+        else:
+            n = _words(rd.window)
+            inner = " + ".join(f"e{d} * {ts[d]}"
+                               for d in range(len(rd.window)))
+            lines += [f"float w{r}[{n}];", "{", f"  const int at = {at};",
+                      f"  for (int e = 0; e < {n}; ++e) {{"]
+            lines += ["    " + x for x in _unflatten_c("e", rd.window, "int")]
+            lines += [f"    w{r}[e] = t{rd.load}[at + {inner}];", "  }", "}"]
+        args.append(f"w{r}")
+    return lines, args
+
+
+def _tiled_header(spec: TiledSpec, template: str) -> List[str]:
+    return [f"// tiled {spec.kind} ({spec.body.name}) at grid {spec.grid}, "
+            f"tile {spec.domain}, depth {spec.depth};",
+            f"// generated by codegen_cuda from {template}",
+            f'#include "{template}"', "", "namespace {",
+            f"constexpr int DEPTH = {spec.depth};",
+            f"constexpr long long GRID = {spec.steps}LL;",
+            f"constexpr int TILE_N = {spec.tile_n};",
+            f"constexpr int SMEM_BYTES = {spec.onchip_bytes};", ""]
+
+
+def _need_cuda_body(spec: TiledSpec) -> str:
+    if spec.body.cuda is None:
+        raise NotImplementedError(f"'{spec.body.name}' has no CUDA body")
+    return spec.body.cuda
+
+
+def map_source(spec: TiledSpec) -> str:
+    """The translation unit of one tiled Map at one plan: the template
+    ``tiled_map.cuh`` instantiated with the Map's body, the grid and
+    tile domains and each tile's affine window.  Deterministic."""
+    assert spec.kind == "map"
+    L = _tiled_header(spec, "tiled_map.cuh")
+    L.append(_body_fn("body", len(spec.reads), _need_cuda_body(spec)))
+    params = [f"const float* __restrict__ in{i}"
+              for i in range(len(spec.inputs))] + ["float* __restrict__ out"]
+    L.append("__global__ void __launch_bounds__(tcopy::THREADS)\n"
+             "tiled_map_kernel(" + ", ".join(params) + ") {")
+    L += _tiled_buffers(spec) + _hoisted_c(spec)
+    L.append("  int step = 0;")
+    L.append("  for (long long g = blockIdx.x; g < GRID; "
+             "g += gridDim.x, ++step) {")
+    L += ["    " + x for x in _step_c(spec)]
+    gvars = [f"g{j}" for j in range(len(spec.grid))]
+    lvars = [f"l{j}" for j in range(len(spec.domain))]
+    L.append(f"    float* const o = out + "
+             f"{_affine(spec.out_origin, spec.out_step, gvars)};")
+    L.append("    for (int l = threadIdx.x; l < TILE_N; l += blockDim.x) {")
+    L += ["      " + x for x in _unflatten_c("l", spec.domain, "int")]
+    wl, args = _windows_c(spec)
+    L += ["      " + x for x in wl]
+    dst = f"o + {_affine(0, spec.out_local, lvars)}"
+    L.append(f"      body({', '.join(args + [dst])});")
+    L += ["    }", "  }", "}", "}  // namespace", ""]
+    L.append(_ctas_source("tmap", [("tiled_map_kernel", "SMEM_BYTES")],
+                          "tcopy::THREADS", "tcopy::MAX_CTAS_PER_SM"))
+    call = ", ".join([f"(const float*)ins[{i}]"
+                      for i in range(len(spec.inputs))] + ["(float*)out"])
+    L.append(f'''extern "C" int tmap_launch(void* const* ins, void* out,
+                           int ctas, void* stream) {{
+  tiled_map_kernel<<<ctas, tcopy::THREADS, SMEM_BYTES,
+                     (cudaStream_t)stream>>>({call});
+  return (int)cudaGetLastError();
+}}''')
+    return "\n".join(L) + _ERROR_STRING
+
+
+def flatmap_source(spec: TiledSpec) -> str:
+    """The translation unit of one tiled FlatMap at one plan: the count
+    and write kernels of ``tiled_flatmap.cuh`` instantiated with the
+    FlatMap's body and each tile's affine window.  Deterministic."""
+    assert spec.kind == "flatmap"
+    L = _tiled_header(spec, "tiled_flatmap.cuh")
+    L += [f"static_assert(tfm::WARPS == {FLATMAP_WARPS}, "
+          '"codegen_cuda.FLATMAP_WARPS sizes the per-warp counts");',
+          f"constexpr int M = {spec.width};",
+          "constexpr int SEG = (TILE_N + tfm::WARPS - 1) / tfm::WARPS;",
+          f"constexpr long long CAP = {spec.out_shape[0]}LL;",
+          f"constexpr int TILE_BYTES = {spec.tile_bytes};", ""]
+    L.append(_body_fn("body", len(spec.reads), _need_cuda_body(spec),
+                      counted=True))
+    ins = [f"const float* __restrict__ in{i}" for i in range(len(spec.inputs))]
+    wl, args = _windows_c(spec)
+    segment = ["  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;",
+               "  const int lo = warp * SEG;",
+               "  const int hi = lo + SEG < TILE_N ? lo + SEG : TILE_N;",
+               "  int step = 0;",
+               "  for (long long g = blockIdx.x; g < GRID; "
+               "g += gridDim.x, ++step) {"]
+    # pass 1: each warp counts the values its segment keeps
+    L.append("__global__ void __launch_bounds__(tcopy::THREADS)\n"
+             "count_kernel(" + ", ".join(ins + ["int* __restrict__ counts"])
+             + ") {")
+    L += _tiled_buffers(spec) + _hoisted_c(spec) + segment
+    L += ["    " + x for x in _step_c(spec)]
+    L += ["    int n = 0;",
+          "    for (int l = lo + lane; l < hi; l += 32) {"]
+    L += ["      " + x for x in _unflatten_c("l", spec.domain, "int") + wl]
+    L += ["      float v[M];", "      int c = 0;",
+          f"      body({', '.join(args + ['v', 'c'])});",
+          "      n += tfm::kept(c, M);", "    }",
+          "    n = tfm::warp_sum(n);",
+          "    if (lane == 0) counts[g * tfm::WARPS + warp] = n;",
+          "  }", "}", ""]
+    # pass 3: each warp compacts its segment into the FIFO at its offset
+    # within the tile; the block copies the FIFO out at the tile's offset
+    L.append("__global__ void __launch_bounds__(tcopy::THREADS)\n"
+             "write_kernel(" + ", ".join(
+                 ins + ["const int* __restrict__ offsets",
+                        "float* __restrict__ buf"]) + ") {")
+    L += _tiled_buffers(spec, fifo=True) + _hoisted_c(spec) + segment
+    L += ["    " + x for x in _step_c(spec)]
+    L += ["    const int base = offsets[g * tfm::WARPS];",
+          "    int run = offsets[g * tfm::WARPS + warp] - base;",
+          "    for (int chunk = lo; chunk < hi; chunk += 32) {",
+          "      const int l = chunk + lane;",
+          "      float v[M];", "      int c = 0;",
+          "      if (l < hi) {"]
+    L += ["        " + x for x in _unflatten_c("l", spec.domain, "int") + wl]
+    L += [f"        body({', '.join(args + ['v', 'c'])});",
+          "        c = tfm::kept(c, M);", "      }",
+          "      const int incl = tfm::warp_inclusive_scan(c);",
+          "      for (int j = 0; j < c; ++j) fifo[run + incl - c + j] = v[j];",
+          "      run += __shfl_sync(0xffffffffu, incl, 31);", "    }",
+          "    __syncthreads();",
+          "    const int n = offsets[(g + 1) * tfm::WARPS] - base;",
+          "    for (int e = threadIdx.x; e < n; e += blockDim.x)",
+          "      buf[base + e] = fifo[e];", "  }",
+          "  // the tail past the total count is zero",
+          "  const long long stride = (long long)gridDim.x * blockDim.x;",
+          "  for (long long e = offsets[GRID * tfm::WARPS] + "
+          "(long long)blockIdx.x * blockDim.x + threadIdx.x;",
+          "       e < CAP; e += stride) buf[e] = 0.0f;",
+          "}", "}  // namespace", ""]
+    L.append(_ctas_source("tfm", [("write_kernel", "SMEM_BYTES"),
+                                  ("count_kernel", "TILE_BYTES")],
+                          "tcopy::THREADS", "tcopy::MAX_CTAS_PER_SM"))
+    in_args = [f"(const float*)ins[{i}]" for i in range(len(spec.inputs))]
+    L.append(f'''extern "C" int tfm_launch(void* const* ins, void* buf,
+                          void* counts, void* offsets, void* total,
+                          int ctas, void* stream) {{
+  cudaStream_t s = (cudaStream_t)stream;
+  count_kernel<<<ctas, tcopy::THREADS, TILE_BYTES, s>>>(
+      {", ".join(in_args + ["(int*)counts"])});
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  tfm::scan_kernel<<<1, tfm::SCAN_THREADS, 0, s>>>(
+      (const int*)counts, (int*)offsets, (int*)total, GRID * tfm::WARPS);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  write_kernel<<<ctas, tcopy::THREADS, SMEM_BYTES, s>>>(
+      {", ".join(in_args + ["(const int*)offsets", "(float*)buf"])});
+  return (int)cudaGetLastError();
+}}''')
+    return "\n".join(L) + _ERROR_STRING
+
+
+class TiledKernel:
+    """The kernel of one tiled Map or FlatMap at one plan: its
+    ``TiledSpec``, its generated source (made at first use: it needs the
+    pattern's CUDA body) and -- from its first launch on a card -- the
+    loaded library and its persistent block count."""
+
+    def __init__(self, spec: TiledSpec):
+        self.spec = spec
+        self._source: Optional[str] = None
+        self._lib = None
+        self._ctas: Dict[torch.device, int] = {}
+
+    @property
+    def name(self) -> str:
+        """The build name (``build.load`` / ``build.compile_all``)."""
+        return f"tiled_{self.spec.kind}"
+
+    @property
+    def source(self) -> str:
+        if self._source is None:
+            gen = map_source if self.spec.kind == "map" else flatmap_source
+            self._source = gen(self.spec)
+        return self._source
+
+    def library(self):
+        if self._lib is None:
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib = build.load(self.name, self.source)
+            if self.spec.kind == "map":
+                fns = {"tmap_ctas": [ctypes.POINTER(ci)],
+                       "tmap_launch": [vp, vp, ci, vp]}
+            else:
+                fns = {"tfm_ctas": [ctypes.POINTER(ci)],
+                       "tfm_launch": [vp] * 5 + [ci, vp]}
+            self._lib = _bind(lib, fns)
+        return self._lib
+
+    def ctas(self, dev: torch.device) -> int:
+        if dev not in self._ctas:
+            fn = "tmap_ctas" if self.spec.kind == "map" else "tfm_ctas"
+            self._ctas[dev] = _persistent_ctas(
+                self.library, fn, self.spec.onchip_bytes, dev,
+                f"tiled {self.spec.kind}")
+        return self._ctas[dev]
+
+
+# ------------------------------------------------------- plain versions
+
+
+def _local_index(domain: Tuple[int, ...], dev) -> Tuple[torch.Tensor, ...]:
+    rem = torch.arange(_words(domain), device=dev)
+    idx = []
+    for e in reversed(domain):
+        idx.append(rem % e)
+        rem = rem // e
+    return tuple(reversed(idx))
+
+
+def _tile_windows(spec: TiledSpec, srcs: List[torch.Tensor],
+                  g: Tuple[int, ...], local: Tuple[torch.Tensor, ...]
+                  ) -> List[torch.Tensor]:
+    """Each read's window at every local index of grid step ``g``,
+    gathered from the flat sources by the spec's offsets:
+    ``(tile_n,) + window`` with singleton dims squeezed."""
+    n = spec.tile_n
+    dev = local[0].device
+    out = []
+    for rd in spec.reads:
+        ld = spec.loads[rd.load]
+        strides = _row_major(ld.shape)
+        off = torch.full((n,), ld.origin + sum(
+            s * gi for s, gi in zip(ld.step, g)), device=dev)
+        for d, row in enumerate(rd.local):
+            start = sum(c * li for c, li in zip(row, local) if c)
+            if isinstance(start, torch.Tensor):
+                start = start.clamp(0, ld.tile[d] - rd.window[d])
+            off = off + start * strides[d]
+        win = torch.tensor(
+            [sum(c * s for c, s in zip(e, strides))
+             for e in itertools.product(*(range(w) for w in rd.window))],
+            device=dev)
+        kept = tuple(w for w in rd.window if w != 1)
+        out.append(srcs[ld.operand][off[:, None] + win].reshape((n,) + kept))
+    return out
+
+
+def _grid(spec: TiledSpec):
+    return itertools.product(*(range(g) for g in spec.grid))
+
+
+def _sources(spec: TiledSpec, tensors: Dict[str, torch.Tensor]):
+    srcs = [tensors[name].reshape(-1) for name, _ in spec.inputs]
+    return srcs, _local_index(spec.domain, _on(srcs))
+
+
+def tiled_map_plain(spec: TiledSpec, tensors: Dict[str, torch.Tensor]
+                    ) -> torch.Tensor:
+    """Plain PyTorch version of ``tiled_map``: grid step by grid step,
+    the Map's torch body over the whole tile, each window gathered at
+    the spec's offsets and the block stored at the spec's output
+    offsets."""
+    srcs, local = _sources(spec, tensors)
+    dev = local[0].device
+    n, width = spec.tile_n, spec.width
+    elem = tuple(spec.body.elem_shape)
+    out = torch.empty(_words(spec.out_shape), dtype=torch.float32,
+                      device=dev)
+    at = sum(li * s for li, s in zip(local, spec.out_local))[:, None] \
+        + torch.arange(width, device=dev)
+    for g in _grid(spec):
+        v = spec.body.fn(g + local, *_tile_windows(spec, srcs, g, local))
+        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        if tuple(v.shape) != (n,) + elem:
+            v = v.expand((n,) + elem)
+        o = spec.out_origin + sum(s * gi for s, gi in zip(spec.out_step, g))
+        out[o + at] = v.reshape(n, width)
+    return out.reshape(spec.out_shape)
+
+
+def tiled_flatmap_plain(spec: TiledSpec, tensors: Dict[str, torch.Tensor]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``tiled_flatmap``: grid step by grid
+    step, the FlatMap's torch body over the whole tile; the kept values
+    (lane < count) in grid, index and lane order, zeros after them, and
+    the total count as a 0-d int32 tensor."""
+    srcs, local = _sources(spec, tensors)
+    dev = local[0].device
+    n, m = spec.tile_n, spec.width
+    lanes = torch.arange(m, device=dev)
+    kept = []
+    for g in _grid(spec):
+        vals, cnt = spec.body.fn(g + local,
+                                 *_tile_windows(spec, srcs, g, local))
+        vals = torch.as_tensor(vals, dtype=torch.float32, device=dev)
+        vals = vals.reshape(n, m) if vals.numel() == n * m \
+            else vals.expand(n, m)
+        cnt = torch.as_tensor(cnt, device=dev).to(torch.int64).expand(n)
+        kept.append(vals[lanes[None, :] < cnt[:, None]])
+    flat = torch.cat(kept)
+    buf = torch.zeros(spec.out_shape, dtype=torch.float32, device=dev)
+    buf[:flat.numel()] = flat
+    return buf, torch.tensor(flat.numel(), dtype=torch.int32, device=dev)
+
+
+# ------------------------------------------------------------- wrappers
+
+
+def _tiled_inputs(spec: TiledSpec, tensors: Dict[str, torch.Tensor]
+                  ) -> Tuple[List[torch.Tensor], torch.device]:
+    ins = []
+    for name, shape in spec.inputs:
+        _f32(name, tensors[name], shape)
+        ins.append(tensors[name])
+    dev = _on(ins)
+    if dev.type == "cuda":
+        _aligned([(name, tensors[name]) for name, _ in spec.inputs])
+    return ins, dev
+
+
+def tiled_map(kernel: TiledKernel, tensors: Dict[str, torch.Tensor]
+              ) -> torch.Tensor:
+    """Run the tiled-Map kernel on ``tensors`` (name -> float32 tensor).
+
+    Replaces the TPU kernel ``lower_tiled_map`` (reference
+    codegen_pallas.py).  Bound by main-memory bytes (the output stream):
+    persistent blocks stage each grid step's tiles in rotating shared
+    slots and write the block's outputs once, neighbouring threads on
+    neighbouring words.  CPU tensors take ``tiled_map_plain``; CUDA
+    tensors launch the kernel or raise.
+    """
+    spec = kernel.spec
+    ins, dev = _tiled_inputs(spec, tensors)
+    if dev.type == "cpu":
+        return tiled_map_plain(spec, tensors)
+    lib = kernel.library()
+    ctas = kernel.ctas(dev)
+    out = torch.empty(spec.out_shape, dtype=torch.float32, device=dev)
+    ptrs = build.pointers([t.data_ptr() for t in ins])
+    rc = lib.tmap_launch(ctypes.cast(ptrs, ctypes.c_void_p), out.data_ptr(),
+                         ctas, torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, rc, "tiled_map launch")
+    tiled_map.launches += 1
+    return out
+
+
+tiled_map.launches = 0
+
+
+def tiled_flatmap(kernel: TiledKernel, tensors: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the tiled-FlatMap kernel on ``tensors``; returns ``(buffer,
+    count)``: the kept values compacted in grid, index and lane order
+    with zeros after them, and their number as a 0-d int32 tensor on
+    the device (never read by the host here).
+
+    Replaces the TPU kernel ``lower_tiled_flatmap`` (reference
+    codegen_pallas.py), whose running offset crosses grid steps: a
+    count pass, a one-block exclusive scan of the per-warp counts and a
+    write pass that compacts each tile in its shared FIFO.  Bound by
+    main-memory bytes.  CPU tensors take ``tiled_flatmap_plain``; CUDA
+    tensors launch the kernels or raise.
+    """
+    spec = kernel.spec
+    ins, dev = _tiled_inputs(spec, tensors)
+    if dev.type == "cpu":
+        return tiled_flatmap_plain(spec, tensors)
+    lib = kernel.library()
+    ctas = kernel.ctas(dev)
+    segs = spec.steps * FLATMAP_WARPS
+    buf = torch.empty(spec.out_shape, dtype=torch.float32, device=dev)
+    counts = torch.empty(segs, dtype=torch.int32, device=dev)
+    offsets = torch.empty(segs + 1, dtype=torch.int32, device=dev)
+    total = torch.empty(1, dtype=torch.int32, device=dev)
+    ptrs = build.pointers([t.data_ptr() for t in ins])
+    rc = lib.tfm_launch(ctypes.cast(ptrs, ctypes.c_void_p), buf.data_ptr(),
+                        counts.data_ptr(), offsets.data_ptr(),
+                        total.data_ptr(), ctas,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, rc, "tiled_flatmap launch")
+    tiled_flatmap.launches += 1
+    return buf, total.reshape(())
+
+
+tiled_flatmap.launches = 0
+
+
+def _lower_tiled(p: ir.Pattern, kind: str, run: Callable, depth: int,
+                 device) -> Callable:
+    dev = resolve(device)
+    spec = tiled_spec(p, depth)
+    if spec.kind != kind:
+        raise NotImplementedError(f"'{p.name}' is not a tiled {kind}")
+    kernel = TiledKernel(spec)
+    if dev.type == "cuda":
+        _need_cuda_body(spec)
+
+    def call(**tensors):
+        ts = {name: _staged(tensors[name], dev) for name, _ in spec.inputs}
+        return run(kernel, ts)
+
+    call.kernel = kernel
+    return call
+
+
+def lower_tiled_map(p: ir.MultiFold, *, depth: int = 2,
+                    device=None) -> Callable:
+    """Tiled Map template (write-once ``MultiFold(grid) {loads;
+    Map(tile)}``): one block of outputs per grid step, tiles staged at
+    ``depth`` shared slots.  Returns ``call(**tensors) -> tensor`` with
+    ``.kernel`` (the ``TiledKernel``)."""
+    return _lower_tiled(p, "map", tiled_map, depth, device)
+
+
+def lower_tiled_flatmap(p: ir.FlatMap, *, depth: int = 2,
+                        device=None) -> Callable:
+    """Parallel-FIFO template (``FlatMap(grid) {loads; FlatMap(tile)}``).
+    Returns ``call(**tensors) -> (buffer, count)`` with ``.kernel``."""
+    return _lower_tiled(p, "flatmap", tiled_flatmap, depth, device)
+
+
+def lower_tiled_groupby(p: ir.GroupByFold, *, depth: int = 2,
+                        device=None) -> Callable:
+    """CAM template (``GroupByFold(grid) {loads; GroupByFold(tile)}``).
+
+    That tiled IR is a fused DAG of one CAM terminal and no stages, so
+    it lowers through the fused-DAG megakernel (``fused_dag.cuh``):
+    per-block shared tables, keys outside ``[0, num_keys)`` dropped,
+    partials summed in block order.  Shapes ``dag_spec`` does not take
+    (a non-additive combine, a key read from a pattern) raise
+    ``NotImplementedError``."""
+    if not (p.strided and isinstance(p.inner, ir.GroupByFold)):
+        raise NotImplementedError(f"'{p.name}' is not a tiled GroupByFold")
+    return lower_fused_chain(p, depth=depth, device=device)
+
+
+# --------------------------------------------------------------------
 # dispatch
 # --------------------------------------------------------------------
 
 
-def lower(p: ir.Pattern, *, device=None) -> Callable:
-    """Pick the template for a tiled pattern (paper: template selection).
-    Only the GEMM template is ported; the tiled Map, GroupByFold and
-    FlatMap templates raise ``NotImplementedError``."""
+def lower(p: ir.Pattern, *, device=None, depth: int = 2) -> Callable:
+    """Pick the template for a tiled pattern (paper: template
+    selection), in the reference's order: the tiled GEMM, the
+    write-once tiled Map, the strided GroupByFold (CAM) and the strided
+    FlatMap (parallel FIFO).  ``depth`` is the plan's metapipeline
+    depth: the shared slots each streamed tile rotates through.
+    Anything else -- a strided fold such as sumrows or tpchq6, the
+    single-pattern kmeans, a Map whose tile element is a nested fold --
+    raises ``NotImplementedError``, as the reference has no template for
+    it either."""
     if match_tiled_gemm(p):
         return lower_tiled_gemm(p, device=device)
+    if isinstance(p, ir.MultiFold) and p.combine is None \
+            and isinstance(p.inner, ir.Map):
+        return lower_tiled_map(p, depth=depth, device=device)
+    if isinstance(p, ir.GroupByFold) and p.strided:
+        return lower_tiled_groupby(p, depth=depth, device=device)
+    if isinstance(p, ir.FlatMap) and p.strided:
+        return lower_tiled_flatmap(p, depth=depth, device=device)
     raise NotImplementedError(
-        f"no CUDA template for {type(p).__name__} (strided={p.strided}) in "
-        "this port yet; ported: the tiled GEMM and fused pipeline DAGs")
+        f"no CUDA template for {type(p).__name__} '{p.name}' (strided="
+        f"{p.strided}); templates: tiled GEMM, Map, GroupByFold, FlatMap")
+
+
+def lower_auto(p: ir.Pattern, *, plan=None,
+               vmem_budget: Optional[int] = None, device=None, tier=None,
+               **tuning) -> Callable:
+    """Tile an *untiled* pattern with a DSE-chosen ``TilePlan`` and lower
+    it (paper §4 tile-size selection feeding §5 template selection).
+
+    ``plan=None`` runs ``dse.explore`` on the card's tier (or ``tier``)
+    within ``vmem_budget`` (default: the tier's on-chip bytes); the
+    tiled IR is lowered at the plan's depth, and the plan is exposed on
+    the returned callable as ``.tile_plan``.  The reference's
+    tuning-runtime arguments raise ``NotImplementedError``.
+    """
+    from .cost import device_tier
+    from .dse import _refuse_tuning_runtime, explore
+    from .strip_mine import tile
+
+    _refuse_tuning_runtime(tuning)
+    dev = resolve(device)
+    tier = device_tier(dev) if tier is None else tier
+    budget = tier.onchip_bytes if vmem_budget is None else vmem_budget
+    if plan is None:
+        plan = explore(p, tier=tier, vmem_budget=budget)
+    call = lower(tile(p, plan.sizes, vmem_budget_words=budget // 4),
+                 device=dev, depth=plan.depth)
+    call.tile_plan = plan
+    return call

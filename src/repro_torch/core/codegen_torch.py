@@ -173,7 +173,8 @@ def _value(val, device, dtype=None) -> torch.Tensor:
 #   Map          -> tensor of shape domain + elem_shape
 #   MultiFold    -> tensor of range_shape
 #   GroupByFold  -> dense (num_keys,)+elem_shape accumulator
-# FlatMap programs arrive with the tiled-FlatMap template (ROADMAP.md).
+# FlatMap programs run through the tiled-FlatMap template and its plain
+# version (codegen_cuda.lower); this oracle does not evaluate them.
 # Inside a batched Map a value carries the batch as its leading dim.
 # --------------------------------------------------------------------------
 
@@ -269,7 +270,8 @@ def _execute(p: ir.Pattern, env: Env, outer_idx: Tuple) -> Any:
         return _execute_multifold(p, env, outer_idx)
     if isinstance(p, ir.FlatMap):
         raise NotImplementedError(
-            "FlatMap execution arrives with the port's tiled-FlatMap template")
+            "the eager oracle does not run a FlatMap; tile it and lower it "
+            "(codegen_cuda.lower: the tiled-FlatMap template)")
     if isinstance(p, ir.GroupByFold):
         return _execute_groupbyfold(p, env, outer_idx)
     raise TypeError(f"unknown pattern {type(p)}")

@@ -1,35 +1,46 @@
-"""Joint tile-size and fusion exploration for pipelines (paper §4).
+"""Tile-size design-space exploration (paper §4): single patterns and
+joint tile/fusion search for pipelines.
 
     "In future work, tile sizes for all pattern dimensions will instead
      be determined by the compiler through automated tile size selection
      using modeling and design space exploration."  (paper, §4)
 
-This is the analytic part of the JAX reference's ``dse``: for a
-pipeline DAG it enumerates streaming tile candidates (divisors of the
-shared extent on the lane/sublane floor) crossed with the metapipeline
-buffer depths, prices each fully fused candidate with the traffic and
-metapipeline models under one hardware ``cost.Tier``, prunes what busts
-the on-chip budget (the paper's BRAM-capacity compile check; on the
-GPU the shared memory one block may use), and -- when nothing fused
-fits -- splits the DAG at its cheapest contiguous topological cuts by a
-prefix DP.  Pricing is uncalibrated: datasheet bandwidth.
+This is the analytic part of the JAX reference's ``dse``:
 
-Handed ``cost.TPU`` it reproduces the reference's plans exactly; by
-default it plans for the card a run is on (``cost.device_tier``).  The
-tuning runtime around the reference's DSE (the tuning cache, measured
-``top_k`` mode, shape buckets, quarantine and certification) is not
-part of this port yet; asking for it raises ``NotImplementedError``.
+* ``explore`` (one untiled pattern) enumerates lane/sublane-aligned
+  divisor tiles for every named pattern domain (``tile_space``),
+  crossed with the metapipeline buffer depths, tiles each candidate
+  with ``strip_mine.tile`` and prices it (``price``): main-memory reads
+  over the tier's bandwidth, scaled by the metapipeline schedule's
+  overlap, with ``depth x`` on-chip bytes charged per stage buffer.
+  The argmin is a ``TilePlan``: fewest words, then modeled seconds,
+  then the shallowest depth, then the largest footprint.
+* ``explore_pipeline`` (a pipeline DAG) does the same for the shared
+  streaming tile of the fused megakernel and, when nothing fused fits,
+  splits the DAG at its cheapest contiguous topological cuts by a
+  prefix DP.
+
+Both prune what busts the on-chip budget (the paper's BRAM-capacity
+compile check; on the GPU the shared memory one block may use).
+Pricing is uncalibrated: datasheet bandwidth.  Handed ``cost.TPU`` the
+DSE reproduces the reference's plans exactly; by default it plans for
+the card a run is on (``cost.device_tier``).  The tuning runtime around
+the reference's DSE (the tuning cache, measured ``top_k`` mode, shape
+buckets, quarantine and certification) is not part of this port yet;
+asking for it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, List, Optional, Tuple
 
 from . import ir
 from . import pipeline as plmod
-from .cost import Tier, device_tier, stream_seconds
+from .cost import Tier, device_tier, stream_seconds, traffic
 from .memory import plan_memory
 from .scheduling import build_schedule, model_speedup
+from .strip_mine import insert_tile_copies, strip_mine, tile
 
 MXU = 128     # lane-count floor of a tile (the reference's MXU edge)
 SUBLANE = 8   # fp32 row multiple of a minimum tile
@@ -45,6 +56,12 @@ DEPTHS = (2, 3, 4)
 
 TUNING_RUNTIME = ("cache", "measure", "top_k", "timing_db", "profile",
                   "warmup", "repeat", "policy", "bucketing", "options")
+
+# the tuning runtime's keys of the reference's plan JSON, at the values
+# of an analytic plan: written so the reference reads a port plan as its
+# own, ignored when a plan is read
+_TUNING_JSON = {"measured": False, "measured_seconds": 0.0, "timed": 0,
+                "key": ""}
 
 # min-tile row (sublane) multiples per dtype: the fp32 8-row tile
 # becomes 16 rows for bf16/f16 and 32 for int8/fp8 (packed sublanes)
@@ -92,6 +109,261 @@ def axis_candidates(extent: int, align: int = MXU, *,
     return out or [extent]
 
 
+def _tier_of(tier: Optional[Tier], device) -> Tier:
+    """``tier``, else the tier of ``device`` (the card unless the caller
+    names another device; raises without one)."""
+    if tier is not None:
+        return tier
+    from ..device import resolve
+    return device_tier(resolve(device))
+
+
+def _uncalibrated(seconds: float, tier: Tier) -> float:
+    """The reference prices the stream's bytes (seconds x bandwidth)
+    over datasheet bandwidth again.  The round trip is not the identity
+    in floating point, and keeping it makes the modeled seconds agree
+    bitwise; a measured profile takes its place with the tuning-runtime
+    slice."""
+    stream_bytes = seconds * tier.hbm_bytes_per_s
+    return stream_bytes / tier.hbm_bytes_per_s
+
+
+# --------------------------------------------------------------------
+# Single patterns
+# --------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """DSE result for one pattern: per-pattern tile sizes plus the
+    model's accounting.
+
+    ``depths`` maps each tiled pattern name to the metapipeline buffer
+    depth the search selected (one searched depth per plan, recorded per
+    pattern like ``sizes``); ``depth`` is the scalar view.  The JSON form
+    is the reference's, so a plan carries across the two packages.
+    """
+
+    sizes: Dict[str, Tuple[int, ...]]
+    traffic_words: int
+    vmem_bytes: int
+    modeled_seconds: float
+    explored: int = 0        # candidates priced
+    pruned: int = 0          # candidates rejected by the on-chip budget
+    thinned: bool = False    # search space was capped (MAX_POINTS)
+    depths: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def depth(self) -> int:
+        """The plan's stage-buffer depth (2 when unrecorded)."""
+        return next(iter(self.depths.values()), 2)
+
+    def to_json(self) -> Dict:
+        return {
+            "sizes": {k: list(v) for k, v in self.sizes.items()},
+            "depths": {k: int(v) for k, v in self.depths.items()},
+            "traffic_words": int(self.traffic_words),
+            "vmem_bytes": int(self.vmem_bytes),
+            "modeled_seconds": float(self.modeled_seconds),
+            "explored": int(self.explored),
+            "pruned": int(self.pruned),
+            "thinned": bool(self.thinned),
+            **_TUNING_JSON,
+        }
+
+    @classmethod
+    def from_json(cls, d: Dict) -> "TilePlan":
+        return cls(sizes={k: tuple(v) for k, v in d["sizes"].items()},
+                   depths={k: int(v)
+                           for k, v in d.get("depths", {}).items()},
+                   traffic_words=int(d["traffic_words"]),
+                   vmem_bytes=int(d["vmem_bytes"]),
+                   modeled_seconds=float(d["modeled_seconds"]),
+                   explored=int(d.get("explored", 0)),
+                   pruned=int(d.get("pruned", 0)),
+                   thinned=bool(d.get("thinned", False)))
+
+
+def tile_space(p: ir.Pattern) -> Dict[str, List[Tuple[int, ...]]]:
+    """Per-named-pattern candidate tile tuples for every untiled domain
+    (the design space is their cross product).  Patterns that already
+    carry a strided domain are left alone; rows are aligned to the
+    pattern dtype's sublane multiple."""
+    space: Dict[str, List[Tuple[int, ...]]] = {}
+    for q in ir.walk(p):
+        if q.strided or not q.domain or q.name in space:
+            continue
+        sub = dtype_sublane(q.dtype)
+        per_dim = [axis_candidates(d, MXU, sublane=sub) for d in q.domain]
+        space[q.name] = [tuple(c) for c in itertools.product(*per_dim)]
+    return space
+
+
+def _thin(space: Dict[str, List[Tuple[int, ...]]],
+          max_points: int) -> Tuple[Dict[str, List[Tuple[int, ...]]], bool]:
+    """Halve the densest axis list (keeping endpoints) until the cross
+    product is within budget.  Returns (space, was_thinned)."""
+    def total(s):
+        t = 1
+        for v in s.values():
+            t *= len(v)
+        return t
+
+    thinned = False
+    space = {k: list(v) for k, v in space.items()}
+    while total(space) > max_points:
+        name = max(space, key=lambda k: len(space[k]))
+        v = space[name]
+        if len(v) <= 2:
+            break
+        space[name] = v[::2] if v[-1] == v[::2][-1] else v[::2] + [v[-1]]
+        thinned = True
+    return space, thinned
+
+
+def grid_steps(p: ir.Pattern, sizes: Dict[str, Tuple[int, ...]]) -> int:
+    """Grid steps the tiled program executes: the product of extent /
+    tile over every tiled domain (the trip count a measured profile will
+    charge per-step overhead against)."""
+    steps = 1
+    for q in ir.walk(p):
+        if q.name not in sizes or not q.domain:
+            continue
+        for d, s in zip(q.domain, sizes[q.name]):
+            steps *= max(1, -(-d // max(int(s), 1)))
+    return steps
+
+
+# what tile() raises when interchange or stage lifting does not apply
+_TILE_ERRORS = (ValueError, TypeError, KeyError, IndexError,
+                NotImplementedError, ArithmeticError, RuntimeError)
+
+
+def _tile_ir(p: ir.Pattern, sizes: Dict[str, Tuple[int, ...]],
+             vmem_budget_words: int) -> ir.Pattern:
+    """``tile(p, sizes)``, or strip mining plus tile copies alone where
+    interchange or stage lifting does not apply (as the reference)."""
+    try:
+        return tile(p, sizes, vmem_budget_words=vmem_budget_words)
+    except _TILE_ERRORS:
+        return insert_tile_copies(strip_mine(p, sizes),
+                                  vmem_budget_words=vmem_budget_words)
+
+
+@dataclasses.dataclass(frozen=True)
+class Priced:
+    sizes: Dict[str, Tuple[int, ...]]
+    traffic_words: int
+    vmem_bytes: int
+    seconds: float              # through the pricing seam (_uncalibrated)
+    depth: int
+
+
+def price(p: ir.Pattern, sizes: Dict[str, Tuple[int, ...]], *, tier: Tier,
+          vmem_budget: int, depth: int = 2) -> Optional[Priced]:
+    """Tile ``p`` with ``sizes`` and price it at stage-buffer ``depth``;
+    None if it busts the on-chip budget.
+
+    Modeled seconds = the tiled IR's main-memory reads over the tier's
+    bandwidth, scaled by the metapipeline time ratio of its schedule
+    (steady state vs. sequential, with whatever load issue latency
+    ``depth - 1`` steps of lookahead cannot hide)."""
+    t = _tile_ir(p, sizes, vmem_budget // 4)
+    plan = plan_memory(t, vmem_budget_bytes=vmem_budget, depth=depth)
+    if not plan.fits:
+        return None
+    # an affine tensor read left in place means its tile copy would not
+    # fit on chip (insert_tile_copies' streaming fallback): over budget
+    for q in ir.walk(t):
+        for a in q.accesses:
+            if isinstance(a.src, ir.Tensor) and a.affine:
+                return None
+    tr = traffic(t)
+    seconds = stream_seconds(tr.total_reads, tier=tier)
+    mp = build_schedule(t, vmem_budget // 4, depth=depth)
+    if mp is not None:
+        body_words = sum(s.words for s in mp.stages if s.kind == "body")
+        seq, pipe, _ = model_speedup(mp, flops_per_body=body_words * 100.0,
+                                     tier=tier)
+        if seq > 0 and pipe > 0:
+            seconds *= pipe / seq
+    return Priced(dict(sizes), tr.total_reads, plan.total_bytes,
+                  _uncalibrated(seconds, tier), depth)
+
+
+def _rank_key(a: Priced) -> Tuple:
+    # depth breaks seconds ties BEFORE the -vmem reuse term: once the
+    # exposed-latency term saturates, deeper variants tie on seconds
+    # and their larger footprint must not win via the reuse preference
+    return (a.traffic_words, a.seconds, a.depth, -a.vmem_bytes)
+
+
+def shortlist(p: ir.Pattern, *, tier: Tier, vmem_budget: int
+              ) -> Tuple[List[Priced], bool, int, int]:
+    """Every feasible (tile sizes, depth) candidate, priced and sorted
+    best-first.  Returns ``(candidates, thinned, explored, pruned)``."""
+    space, thinned = _thin(tile_space(p), MAX_POINTS)
+    names = sorted(space)
+    cands: List[Priced] = []
+    explored = pruned = 0
+    for combo in itertools.product(*(space[n] for n in names)):
+        sizes = dict(zip(names, combo))
+        for d in DEPTHS:
+            priced = price(p, sizes, tier=tier, vmem_budget=vmem_budget,
+                           depth=d)
+            explored += 1
+            if priced is None:
+                pruned += 1
+                continue
+            cands.append(priced)
+    cands.sort(key=_rank_key)
+    return cands, thinned, explored, pruned
+
+
+def explore(p: ir.Pattern, *, tier: Optional[Tier] = None,
+            vmem_budget: Optional[int] = None, device=None,
+            **tuning) -> TilePlan:
+    """Design-space exploration over tile sizes and metapipeline buffer
+    depths for one *untiled* pattern program.
+
+    Each (sizes, depth) candidate of ``tile_space`` x ``DEPTHS`` is
+    priced with ``depth x`` on-chip bytes per stage buffer and the load
+    latency the depth cannot hide; the lexicographic argmin (words,
+    seconds, depth, -bytes) wins.  ``tier`` defaults to the tier of
+    ``device`` (the card, CUDA unless said otherwise); ``vmem_budget``
+    to the tier's on-chip bytes.  Raises ``ValueError`` when no
+    candidate fits; the reference's tuning-runtime arguments raise
+    ``NotImplementedError``.
+    """
+    _refuse_tuning_runtime(tuning)
+    tier = _tier_of(tier, device)
+    vmem_budget = tier.onchip_bytes if vmem_budget is None else vmem_budget
+    cands, thinned, explored, pruned = shortlist(p, tier=tier,
+                                                 vmem_budget=vmem_budget)
+    if not cands:
+        raise ValueError(
+            f"DSE: no tile candidate fits on-chip budget {vmem_budget} B "
+            f"({explored} candidates over {sorted(tile_space(p))})")
+    best = cands[0]
+    return TilePlan(sizes={k: tuple(v) for k, v in best.sizes.items()},
+                    depths={k: int(best.depth) for k in best.sizes},
+                    traffic_words=best.traffic_words,
+                    vmem_bytes=best.vmem_bytes,
+                    modeled_seconds=best.seconds,
+                    explored=explored, pruned=pruned, thinned=thinned)
+
+
+def gemm_program(m: int, n: int, k: int) -> ir.Pattern:
+    """The Table 3 GEMM of the benchmark suite, untiled."""
+    from ..patterns.analytics import gemm
+    return gemm(m, n, k)[0]
+
+
+# --------------------------------------------------------------------
+# Pipelines
+# --------------------------------------------------------------------
+
+
 @dataclasses.dataclass(frozen=True)
 class PipelinePlan:
     """Joint DSE result for a pipeline DAG: streaming tiles plus the
@@ -117,12 +389,7 @@ class PipelinePlan:
     group_blocks: Tuple[int, ...] = ()
     explored: int = 0
     pruned: int = 0
-    cached: bool = False
-    measured: bool = False
-    measured_seconds: float = 0.0
-    timed: int = 0
     depths: Tuple[int, ...] = ()
-    key: str = ""
 
     def __post_init__(self):
         if not self.group_blocks:
@@ -156,10 +423,7 @@ class PipelinePlan:
             "modeled_seconds": float(self.modeled_seconds),
             "explored": int(self.explored),
             "pruned": int(self.pruned),
-            "measured": bool(self.measured),
-            "measured_seconds": float(self.measured_seconds),
-            "timed": int(self.timed),
-            "key": str(self.key),
+            **_TUNING_JSON,
         }
 
     @classmethod
@@ -174,12 +438,7 @@ class PipelinePlan:
                    vmem_bytes=int(d["vmem_bytes"]),
                    modeled_seconds=float(d["modeled_seconds"]),
                    explored=int(d.get("explored", 0)),
-                   pruned=int(d.get("pruned", 0)),
-                   measured=bool(d.get("measured", False)),
-                   measured_seconds=float(d.get("measured_seconds", 0.0)),
-                   timed=int(d.get("timed", 0)),
-                   key=str(d.get("key", "")),
-                   cached=True)
+                   pruned=int(d.get("pruned", 0)))
 
 
 def _pipeline_candidates(pipe) -> List[int]:
@@ -231,15 +490,8 @@ def _price_pipeline_group(sub_pipe, b: int, *, vmem_budget: int, tier: Tier,
                 ratios.append(pipe / seq)
     if ratios:
         seconds *= max(ratios)
-    steps = int(fdag.grid)
-    # the uncalibrated seam: the reference prices the stream's bytes
-    # (seconds x bandwidth) over datasheet bandwidth again.  The round
-    # trip is not the identity in floating point, and keeping it makes
-    # the modeled seconds agree bitwise; a measured profile takes its
-    # place with the tuning-runtime slice
-    stream_bytes = seconds * tier.hbm_bytes_per_s
-    calibrated = stream_bytes / tier.hbm_bytes_per_s
-    return (reads + out_w, mem.total_bytes, seconds, calibrated, steps)
+    return (reads + out_w, mem.total_bytes, seconds,
+            _uncalibrated(seconds, tier), int(fdag.grid))
 
 
 def _price_whole_pipeline(pipe, *, vmem_budget: int, tier: Tier,
@@ -286,9 +538,7 @@ def explore_pipeline(pipe, *, tier: Optional[Tier] = None,
     ``NotImplementedError``.
     """
     _refuse_tuning_runtime(tuning)
-    if tier is None:
-        from ..device import resolve
-        tier = device_tier(resolve(device))
+    tier = _tier_of(tier, device)
     vmem_budget = tier.onchip_bytes if vmem_budget is None else vmem_budget
 
     topo = plmod.topo_stages(pipe)

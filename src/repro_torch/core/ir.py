@@ -19,12 +19,14 @@ Design notes:
   (an index map + window).  ``repro_torch.patterns`` builds them the
   way the Delite DSL frontend of the paper would have.
 * ``cuda`` is the same body as CUDA C++ statements, spliced by
-  ``codegen_cuda`` into the hand-written megakernel template (the
-  paper's template instantiation).  The body sees its reads as
-  ``const float* in0, in1, ...`` (each a contiguous window) and writes
-  ``float* out``; a GroupByFold body also sets ``int key``, and a fold
-  body writes the per-index contribution its ``+`` combine adds.  A
-  CUDA body does not read the index stack.
+  ``codegen_cuda`` into a hand-written template (the paper's template
+  instantiation).  The body sees its reads as ``const float* in0, in1,
+  ...`` (each a contiguous window, row-major) and writes ``float*
+  out``: a Map body its element's words; a GroupByFold body the value
+  and ``int& key``; a fold body the per-index contribution its ``+``
+  combine adds; a FlatMap body up to ``max_per_iter`` values and ``int&
+  count``, the number of leading values kept.  A CUDA body does not
+  read the index stack.
 * Transformations (strip mining, interchange) are structural rewrites on
   the pattern tree; nesting is explicit: an outer pattern whose body is
   another pattern carries it in ``inner`` with a list of ``TileCopy``

@@ -29,32 +29,9 @@
 //  * CAM keys outside [0, K) are dropped (jax.nn.one_hot drops them).
 #pragma once
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "tile_copy.cuh"
 
 namespace fdag {
-
-constexpr int THREADS = 256;
-constexpr int MAX_CTAS_PER_SM = 4;
-
-// Copy `words` floats (a multiple of 4, both ends 16-byte aligned) from
-// device memory into shared memory with all threads of the block.
-__device__ __forceinline__ void copy_tile(float* __restrict__ dst,
-                                          const float* __restrict__ src,
-                                          int64_t words) {
-  const float4* s = reinterpret_cast<const float4*>(src);
-  float4* d = reinterpret_cast<float4*>(dst);
-#pragma unroll 4
-  for (int64_t e = threadIdx.x; e < words / 4; e += blockDim.x) d[e] = s[e];
-}
-
-// Scalar copy for small, possibly unaligned tiles (hoisted preloads).
-__device__ __forceinline__ void copy_small(float* __restrict__ dst,
-                                           const float* __restrict__ src,
-                                           int64_t words) {
-  for (int64_t e = threadIdx.x; e < words; e += blockDim.x) dst[e] = src[e];
-}
 
 __device__ __forceinline__ void zero(float* dst, int64_t words) {
   for (int64_t e = threadIdx.x; e < words; e += blockDim.x) dst[e] = 0.0f;

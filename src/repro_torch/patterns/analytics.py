@@ -1,13 +1,16 @@
 """The paper's benchmark programs as PPL, with torch and CUDA bodies.
 
-``SUITE`` holds the single-pattern ``gemm`` (the Table 3 tiling
-template); ``PIPELINES`` holds the composed programs the fused
+``SUITE`` holds the single patterns of the paper's Table 5: outerprod,
+sumrows, gemm, tpchq6, gda and kmeans (``codegen_cuda.lower`` takes the
+tiled outerprod, gemm and gda; the others have no template, as in the
+reference).  ``PIPELINES`` holds the composed programs the fused
 megakernel runs: tpchq6, gda, kmeans, gda_moments and normalize.  The
 numpy ``make_inputs`` use the same seeds as the JAX reference, so both
-packages see identical data.  Every pipeline stage carries a torch body
-(batched over leading dimensions, see ``core.ir``) and the same body as
-CUDA C++ statements.  The ``reference`` functions are vectorised numpy,
-accumulating in float64, so they run at full size.
+packages see identical data.  Every pattern carries a torch body
+(batched over leading dimensions, see ``core.ir``); every one a CUDA
+template takes also carries the same body as CUDA C++ statements.  The
+``reference`` functions are vectorised numpy, accumulating in float64,
+so they run at full size.
 
 Builders return ``(pattern, tile_sizes, make_inputs, reference)`` for
 ``SUITE`` and ``(Pipeline, make_inputs, reference)`` for ``PIPELINES``;
@@ -31,6 +34,48 @@ def _rng(seed, *shape):
 def _keys(labels: torch.Tensor) -> torch.Tensor:
     """f32 class labels to int32 keys, truncating like ``astype``."""
     return labels.to(torch.int32)
+
+
+# ------------------------------------------------------------- outerprod
+def outerprod(m=256, n=256, bm=64, bn=64):
+    """Vector outer product: a 2-D Map, one float32 multiply per element."""
+    x = ir.Tensor("x", (m,))
+    y = ir.Tensor("y", (n,))
+    p = ir.Map(
+        domain=(m, n),
+        reads=(ir.Access(x, lambda i, j: (i,), (1,)),
+               ir.Access(y, lambda i, j: (j,), (1,))),
+        fn=lambda s, xe, ye: xe * ye,
+        cuda="out[0] = in0[0] * in1[0];", name="outer")
+    sizes = {"outer": (bm, bn)}
+
+    def make_inputs():
+        return {"x": _rng(0, m), "y": _rng(1, n)}
+
+    def reference(inp):
+        return np.outer(inp["x"], inp["y"])
+
+    return p, sizes, make_inputs, reference
+
+
+# --------------------------------------------------------------- sumrows
+def sumrows(m=256, n=256, b0=64, b1=64):
+    """Row sums as a MultiFold (m, n) -> (m,)."""
+    x = ir.Tensor("x", (m, n))
+    p = ir.MultiFold(
+        domain=(m, n), range_shape=(m,), init=lambda: torch.zeros((m,)),
+        reads=(ir.elem(x),),
+        out_index_map=lambda i, j: (i,), update_shape=(1,),
+        fn=lambda s, acc, e: acc + e, combine=operator.add, name="sumrows")
+    sizes = {"sumrows": (b0, b1)}
+
+    def make_inputs():
+        return {"x": _rng(2, m, n)}
+
+    def reference(inp):
+        return inp["x"].sum(1, dtype=np.float64).astype(np.float32)
+
+    return p, sizes, make_inputs, reference
 
 
 # ------------------------------------------------------------------ gemm
@@ -57,7 +102,145 @@ def gemm(m=128, n=128, k=128, bm=64, bn=64, bk=64):
     return p, sizes, make_inputs, reference
 
 
-SUITE = {"gemm": gemm}
+# ---------------------------------------------------------------- tpchq6
+def tpchq6(n=4096, b=512):
+    """SELECT sum(price * discount) WHERE lo <= qty < hi as one fold (the
+    filter fuses into the fold)."""
+    qty = ir.Tensor("qty", (n,))
+    price = ir.Tensor("price", (n,))
+    disc = ir.Tensor("disc", (n,))
+    lo, hi = 0.05, 0.95
+
+    def fn(s, acc, q, pr, dc):
+        return acc + torch.where((q >= lo) & (q < hi), pr * dc, 0.0)
+
+    p = ir.MultiFold(
+        domain=(n,), range_shape=(), init=lambda: torch.zeros(()),
+        reads=(ir.elem(qty), ir.elem(price), ir.elem(disc)),
+        out_index_map=lambda i: (), update_shape=(),
+        fn=fn, combine=operator.add, name="q6")
+    sizes = {"q6": (b,)}
+    _, make_inputs, reference = tpchq6_pipeline(n)
+    return p, sizes, make_inputs, reference
+
+
+# ------------------------------------------------------------------- gda
+def gda(n=512, d=8, k=4, b0=64):
+    """Per-class scatter moments sum_k [x_i ; x_i x_i^T] as one keyed
+    fold: map + groupBy + reduce (the paper's GDA core)."""
+    pts = ir.Tensor("pts", (n, d))
+    labels = ir.Tensor("labels", (n,))
+    ew = d + d * d
+
+    def fn(s, lab, row):
+        outer = row[..., :, None] * row[..., None, :]
+        return _keys(lab), torch.cat([row, outer.flatten(-2)], -1)
+
+    p = ir.GroupByFold(
+        domain=(n,), num_keys=k, elem_shape=(ew,),
+        init=lambda: torch.zeros((k, ew)),
+        reads=(ir.elem(labels),
+               ir.Access(pts, lambda i: (i, 0), (1, d))),
+        fn=fn, combine=operator.add,
+        cuda=(f"key = (int)in0[0];\n"
+              f"for (int a = 0; a < {d}; ++a) {{\n"
+              f"  out[a] = in1[a];\n"
+              f"  for (int c = 0; c < {d}; ++c)\n"
+              f"    out[{d} + a * {d} + c] = in1[a] * in1[c];\n"
+              f"}}"),
+        name="gda")
+    sizes = {"gda": (b0,)}
+    _, make_inputs, reference = gda_pipeline(n, d, k)
+    return p, sizes, make_inputs, reference
+
+
+# ---------------------------------------------------------------- kmeans
+def _sq_dist(c_row, p_row):
+    """Squared distance summed over the last dim in index order, one
+    multiply and one add per term (see ``kmeans_pipeline``)."""
+    s = torch.zeros(torch.broadcast_shapes(c_row.shape[:-1],
+                                           p_row.shape[:-1]),
+                    device=p_row.device)
+    for a in range(p_row.shape[-1]):
+        t = c_row[..., a] - p_row[..., a]
+        s = s + t * t
+    return s
+
+
+def _nearest(pts_, cents_):
+    """Each row's nearest centroid (first minimum), the distance summed
+    in index order as the pattern bodies sum it."""
+    n, k = pts_.shape[0], cents_.shape[0]
+    idx = np.empty(n, np.int64)
+    step = 1 << 18       # rows per chunk: bounds the (rows, k) temp
+    for i0 in range(0, n, step):
+        p = pts_[i0:i0 + step]
+        d2 = np.zeros((p.shape[0], k), np.float32)
+        for a in range(pts_.shape[1]):
+            t = cents_[None, :, a] - p[:, None, a]
+            d2 = d2 + t * t
+        idx[i0:i0 + step] = d2.argmin(1)
+    return idx
+
+
+def kmeans(n=256, k=8, d=16, b0=32, b1=4):
+    """One k-means step as a keyed fold whose key is an assignment fold
+    over the centroids (paper Fig. 4).  No CUDA template takes it: the
+    scatter reads the assignment fold, not a tensor tile."""
+    pts = ir.Tensor("points", (n, d))
+    cents = ir.Tensor("centroids", (k, d))
+
+    def assign_fn(s, acc, c_row, p_row):
+        d2 = _sq_dist(c_row, p_row)
+        j = torch.as_tensor(s[-1], dtype=d2.dtype, device=d2.device)
+        new = torch.stack([d2, j.expand_as(d2)], -1)
+        return torch.where((d2 < acc[..., 0])[..., None], new, acc)
+
+    assign = ir.MultiFold(
+        domain=(k,), range_shape=(2,),
+        init=lambda: torch.tensor([float("inf"), -1.0]),
+        reads=(ir.Access(cents, lambda i, j: (j, 0), (1, d)),
+               ir.Access(pts, lambda i, j: (i, 0), (1, d))),
+        out_index_map=lambda i, j: (0,), update_shape=(2,),
+        fn=assign_fn,
+        combine=lambda a, b: torch.where(a[..., :1] <= b[..., :1], a, b),
+        name="assign")
+
+    def scatter_fn(s, pair, p_row):
+        ones = torch.ones(p_row.shape[:-1] + (1,), device=p_row.device)
+        return pair[..., 1].to(torch.int32), torch.cat([p_row, ones], -1)
+
+    p = ir.GroupByFold(
+        domain=(n,), num_keys=k, elem_shape=(d + 1,),
+        init=lambda: torch.zeros((k, d + 1)),
+        reads=(ir.Access(assign, lambda i: (0,), (2,)),
+               ir.Access(pts, lambda i: (i, 0), (1, d))),
+        fn=scatter_fn, combine=operator.add, name="scatter")
+    sizes = {"scatter": (b0,), "assign": (b1,)}
+
+    def make_inputs():
+        return {"points": _rng(7, n, d), "centroids": _rng(8, k, d)}
+
+    def reference(inp):
+        idx = _nearest(inp["points"], inp["centroids"])
+        out = np.zeros((k, d + 1), np.float64)
+        x = inp["points"].astype(np.float64)
+        for c in range(k):
+            out[c, :d] = x[idx == c].sum(0)
+            out[c, d] = (idx == c).sum()
+        return out.astype(np.float32)
+
+    return p, sizes, make_inputs, reference
+
+
+SUITE = {
+    "outerprod": outerprod,
+    "sumrows": sumrows,
+    "gemm": gemm,
+    "tpchq6": tpchq6,
+    "gda": gda,
+    "kmeans": kmeans,
+}
 
 
 # ==========================================================================
@@ -179,12 +362,7 @@ def kmeans_pipeline(n=256, k=8, d=16):
     cents = ir.Tensor("centroids", (k, d))
 
     def assign_fn(s, c_all, p_row):
-        d2 = torch.zeros(torch.broadcast_shapes(c_all.shape[:-1],
-                                                p_row.shape[:-1] + (1,)),
-                         device=p_row.device)
-        for a in range(d):
-            t = c_all[..., a] - p_row[..., a, None]
-            d2 = d2 + t * t
+        d2 = _sq_dist(c_all, p_row[..., None, :])
         return torch.argmin(d2, -1).to(torch.float32)
 
     assign = ir.Map(
@@ -228,16 +406,8 @@ def kmeans_pipeline(n=256, k=8, d=16):
         return {"points": _rng(7, n, d), "centroids": _rng(8, k, d)}
 
     def reference(inp):
-        pts_, cents_ = inp["points"], inp["centroids"]
-        idx = np.empty(n, np.int64)
-        step = 1 << 18       # rows per chunk: bounds the (rows, k, d) temp
-        for i0 in range(0, n, step):
-            p = pts_[i0:i0 + step]
-            d2 = np.zeros((p.shape[0], k), np.float32)
-            for a in range(d):
-                t = cents_[None, :, a] - p[:, None, a]
-                d2 = d2 + t * t
-            idx[i0:i0 + step] = d2.argmin(1)
+        pts_ = inp["points"]
+        idx = _nearest(pts_, inp["centroids"])
         sums_ = np.zeros((k, d), np.float64)
         counts_ = np.bincount(idx, minlength=k).astype(np.float32)
         x = pts_.astype(np.float64)

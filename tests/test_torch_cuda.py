@@ -5,8 +5,14 @@ runs on a GPU machine that has no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-float32 rtol/atol 2e-3; the launch counts show the kernels ran.
+float32 rtol/atol 2e-3 for sums; tiled Map and FlatMap outputs bitwise
+(count exact, tail zero); the launch counts show the kernels ran.  The
+small single-pattern programs below (the paper's Table 2 filter and
+histogram, and Maps and FlatMaps that reach the templates' other
+paths) are shared with the CPU parity tests.
 """
+import operator
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +26,79 @@ from repro_torch.patterns import analytics as an
 
 NAMES = sorted(an.PIPELINES)
 TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+# ------------------------------------------------ single-pattern programs
+def filter_program(n):
+    """Table 2: x.flatMap{e => if (e > 0) [e] else []}."""
+    x = ir.Tensor("x", (n,))
+    return ir.FlatMap(
+        domain=(n,), max_per_iter=1, reads=(ir.elem(x),),
+        fn=lambda s, e: (e[..., None], (e > 0).to(torch.int32)),
+        cuda="out[0] = in0[0];\ncount = in0[0] > 0.0f ? 1 : 0;", name="f")
+
+
+def two_way_program(n):
+    """A FlatMap emitting 2 values (e, -e) above 0.5, 1 value (e) above
+    -0.5 and none below: ``max_per_iter`` 2."""
+    x = ir.Tensor("x", (n,))
+
+    def fn(s, e):
+        count = torch.where(e > 0.5, 2, torch.where(e > -0.5, 1, 0))
+        return torch.stack([e, -e], -1), count.to(torch.int32)
+
+    return ir.FlatMap(
+        domain=(n,), max_per_iter=2, reads=(ir.elem(x),), fn=fn,
+        cuda=("out[0] = in0[0];\nout[1] = -in0[0];\n"
+              "count = in0[0] > 0.5f ? 2 : (in0[0] > -0.5f ? 1 : 0);"),
+        name="two")
+
+
+def hist_program(n, k, clip=True):
+    """Table 2: histogram x.groupByFold(0){e => (e, 1)}{_+_}.  With
+    ``clip`` the key is clamped into [0, k); without, keys outside it
+    are dropped by the template."""
+    x = ir.Tensor("x", (n,))
+
+    def fn(s, e):
+        key = e.to(torch.int32)
+        return (key.clamp(0, k - 1) if clip else key), torch.ones_like(e)
+
+    key = f"min(max((int)in0[0], 0), {k - 1})" if clip else "(int)in0[0]"
+    return ir.GroupByFold(
+        domain=(n,), num_keys=k, init=lambda: torch.zeros(k),
+        reads=(ir.elem(x),), fn=fn, combine=operator.add,
+        cuda=f"key = {key};\nout[0] = 1.0f;", name="h")
+
+
+def pairs_program(n):
+    """A 1-D Map with a 2-wide element: each index reads the pair
+    x[2i:2i+2] and writes [sum, product]."""
+    x = ir.Tensor("x", (2 * n,))
+    return ir.Map(
+        domain=(n,), elem_shape=(2,),
+        reads=(ir.Access(x, lambda i: (2 * i,), (2,)),),
+        fn=lambda s, w: torch.stack([w[..., 0] + w[..., 1],
+                                     w[..., 0] * w[..., 1]], -1),
+        cuda="out[0] = in0[0] + in0[1];\nout[1] = in0[0] * in0[1];",
+        name="pairs")
+
+
+def column_pairs_program(m, n):
+    """A 2-D Map reading a (2, 1) window of a (2m, n) matrix: the window
+    is not one run of its tile, and neither is the tile of the matrix."""
+    x = ir.Tensor("x", (2 * m, n))
+    return ir.Map(
+        domain=(m, n),
+        reads=(ir.Access(x, lambda i, j: (2 * i, j), (2, 1)),),
+        fn=lambda s, w: w[..., 0] - w[..., 1],
+        cuda="out[0] = in0[0] - in0[1];", name="cols")
+
+
+def _plain(kernel, inp):
+    plain = cc.tiled_map_plain if kernel.spec.kind == "map" \
+        else cc.tiled_flatmap_plain
+    return plain(kernel.spec, inp)
 
 
 def _card():
@@ -112,3 +191,162 @@ def test_group_without_a_megakernel_raises_on_the_card():
     pipe = pl.Pipeline(name="max", stages=(sq, top))
     with pytest.raises(NotImplementedError, match="'max' has no CUDA"):
         cc.lower_fused_pipeline(pipe)
+
+
+# ------------------------------------------- single-pattern templates
+MAPS = [("outerprod", lambda: an.outerprod(256, 192)[0], {"outer": (64, 64)}),
+        ("pairs", lambda: pairs_program(1024), {"pairs": (256,)}),
+        ("columns", lambda: column_pairs_program(64, 96),
+         {"cols": (16, 32)})]
+
+
+def _inputs(p, seed=0):
+    rng = np.random.RandomState(seed)
+    return {t.name: torch.as_tensor(rng.randn(*t.shape).astype(np.float32))
+            .cuda() for t in ir.inputs_of(p)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,build,sizes", MAPS)
+def test_tiled_map_kernel_matches_plain_bitwise(name, build, sizes):
+    _card()
+    p = build()
+    inp = _inputs(p)
+    for depth in (2, 3):
+        call = cc.lower(tile(p, sizes), depth=depth)
+        before = cc.tiled_map.launches
+        out = call(**inp)
+        torch.cuda.synchronize()
+        assert cc.tiled_map.launches == before + 1
+        assert torch.equal(out, _plain(call.kernel, inp)), (name, depth)
+
+
+FLATMAPS = [("filter", filter_program, 4096, 256),
+            ("filter", filter_program, 1000, 40),
+            ("two_way", two_way_program, 4096, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,build,n,b", FLATMAPS)
+def test_tiled_flatmap_kernel_matches_plain_bitwise(name, build, n, b):
+    _card()
+    p = build(n)
+    inp = _inputs(p, seed=n)
+    call = cc.lower(tile(p, {p.name: (b,)}))
+    before = cc.tiled_flatmap.launches
+    buf, count = call(**inp)
+    torch.cuda.synchronize()
+    assert cc.tiled_flatmap.launches == before + 1
+    assert count.is_cuda and count.dtype == torch.int32 and count.dim() == 0
+    want_buf, want_count = _plain(call.kernel, inp)
+    assert int(count) == int(want_count)
+    assert torch.equal(buf, want_buf)
+    assert not bool(buf[int(count):].any())
+
+
+@pytest.mark.cuda
+def test_tiled_groupby_runs_the_cam_and_drops_out_of_range_keys():
+    _card()
+    n, k = 4096, 8
+    xs = np.random.RandomState(3).randint(-3, k + 3, n).astype(np.float32)
+    keep = xs.astype(np.int32)
+    want = np.bincount(keep[(keep >= 0) & (keep < k)], minlength=k)
+    before = cc.fused_dag.launches
+    out = cc.lower(tile(hist_program(n, k, clip=False), {"h": (256,)}))(
+        x=torch.as_tensor(xs).cuda())
+    torch.cuda.synchronize()
+    assert cc.fused_dag.launches == before + 1
+    np.testing.assert_array_equal(out.cpu().numpy(), want.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["outerprod", "gda", "filter"])
+def test_lower_auto_on_the_card(name):
+    _card()
+    if name == "filter":
+        p = filter_program(1 << 16)
+        host = {"x": np.random.RandomState(0).randn(1 << 16).astype(np.float32)}
+    else:
+        p, _, make_inputs, reference = an.SUITE[name](
+            **({"m": 1024, "n": 512} if name == "outerprod" else {"n": 65536}))
+        host = make_inputs()
+    inp = {k: torch.as_tensor(v).cuda() for k, v in host.items()}
+    kern = cc.lower_auto(p)
+    assert kern.tile_plan.vmem_bytes <= torch.cuda.get_device_properties(
+        0).shared_memory_per_block_optin
+    out = kern(**inp)
+    torch.cuda.synchronize()
+    if name == "filter":
+        buf, count = out
+        want = host["x"][host["x"] > 0]
+        assert int(count) == want.size
+        np.testing.assert_array_equal(buf.cpu().numpy()[:want.size], want)
+        assert not bool(buf[want.size:].any())
+    elif name == "outerprod":
+        np.testing.assert_array_equal(out.cpu().numpy(), reference(host))
+    else:
+        np.testing.assert_allclose(out.cpu().numpy(), reference(host), **TOL)
+
+
+def _offset_view(t):
+    """``t``'s values in a view that starts one word past a 16-byte
+    boundary."""
+    big = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    big[1:].copy_(t.reshape(-1))
+    return big[1:].view(t.shape)
+
+
+ALIGNMENT = {
+    "outerprod": lambda: (an.outerprod(256, 192)[0], {"outer": (64, 64)}),
+    "filter": lambda: (filter_program(4096), {"f": (256,)}),
+    "hist": lambda: (hist_program(4096, 8), {"h": (256,)}),
+    "gemm": lambda: an.gemm(256, 256, 512)[:2],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ALIGNMENT))
+def test_inputs_off_a_16_byte_boundary(name):
+    """The kernels read 16-byte pieces: a wrapper refuses a view that
+    starts elsewhere, and the lowered call copies it first."""
+    _card()
+    p, sizes = ALIGNMENT[name]()
+    call = cc.lower(tile(p, sizes))
+    inp = _inputs(p)
+    odd = {k: _offset_view(v) for k, v in inp.items()}
+    assert all(v.data_ptr() % 16 for v in odd.values())
+    want, got = call(**inp), call(**odd)
+    torch.cuda.synchronize()
+    if name != "filter":          # the FlatMap returns (buffer, count)
+        want, got = (want,), (got,)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    with pytest.raises(ValueError, match="16-byte"):
+        if name == "gemm":
+            cc.tiled_gemm(odd["x"], odd["y"], bm=64, bn=64, bk=64)
+        elif name == "hist":
+            cc.fused_dag(call.kernel, odd)
+        else:
+            run = cc.tiled_map if name == "outerprod" else cc.tiled_flatmap
+            run(call.kernel, odd)
+
+
+# the programs no template takes, tiled: three SUITE programs at their own
+# tiles, and the GEMM at the tiles the DSE picks on the card's budget (a
+# write-once Map over per-element K folds, not the Table 3 form)
+NO_TEMPLATE = {
+    "sumrows": lambda: an.sumrows()[:2],
+    "tpchq6": lambda: an.tpchq6()[:2],
+    "kmeans": lambda: an.kmeans()[:2],
+    "gemm_at_the_cards_budget": lambda: (
+        an.gemm(512, 512, 512)[0], {"gemm": (128, 512), "gemm_k": (512,)}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NO_TEMPLATE))
+def test_patterns_without_a_template_raise_on_the_card(name):
+    _card()
+    p, sizes = NO_TEMPLATE[name]()
+    with pytest.raises(NotImplementedError):
+        cc.lower(tile(p, sizes, vmem_budget_words=232_448 // 4))

@@ -47,14 +47,22 @@ def test_plain_gemm_is_the_product():
 
 
 def test_only_the_gemm_template_is_ported():
+    """Template selection beside the GEMM: the tiled outer product (a
+    write-once Map) now lowers to the tiled-Map template, not the GEMM;
+    a strided fold still has no template."""
     n = 64
     x = ir.Tensor("x", (n,))
     outer = ir.Map(domain=(n, n),
                    reads=(ir.Access(x, lambda i, j: (i,), (1,)),
                           ir.Access(x, lambda i, j: (j,), (1,))),
                    fn=lambda s, a, b: a * b, name="outer")
+    call = cc.lower(tile(outer, {"outer": (32, 32)}), device="cpu")
+    assert call.kernel.spec.kind == "map" and call.kernel.spec.steps == 4
+    xs = np.random.RandomState(0).randn(n).astype(np.float32)
+    np.testing.assert_array_equal(call(x=xs).numpy(), np.outer(xs, xs))
+    p, sizes, _, _ = an.sumrows()
     with pytest.raises(NotImplementedError, match="no CUDA template"):
-        cc.lower(tile(outer, {"outer": (32, 32)}), device="cpu")
+        cc.lower(tile(p, sizes), device="cpu")
 
 
 def test_gemm_source_instantiates_the_tile():

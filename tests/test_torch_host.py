@@ -166,11 +166,15 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pipe, make_inputs, _ = an.PIPELINES["tpchq6"]()
     p, sizes, _, _ = an.gemm()
+    outer, outer_sizes, _, _ = an.outerprod()
     for fn in (lambda: pl.lower_pipeline(pipe),
                lambda: pl.lower_pipeline(pipe, fused=False),
                lambda: pl.run_unfused(pipe, make_inputs()),
                lambda: codegen_torch.execute(p, {}),
                lambda: codegen_cuda.lower(tile(p, sizes)),
+               lambda: codegen_cuda.lower(tile(outer, outer_sizes)),
+               lambda: codegen_cuda.lower_auto(outer),
+               lambda: dse.explore(outer),
                lambda: dse.explore_pipeline(pipe)):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()
