@@ -17,7 +17,17 @@ Builds every kernel of the path from ``src/repro_torch/kernels/csrc``
     the outer product at m = n = 16,384 (the tiled-Map kernel, a 1 GiB
     output), gda as one keyed fold at 4,194,304 rows (the CAM), and the
     paper's Table 2 filter ``x.flatMap{e => if (e > 0) [e] else []}``
-    at 6,000,000 rows (the tiled-FlatMap kernel).
+    at 6,000,000 rows (the tiled-FlatMap kernel);
+  * runs the hand-written kernels of ``repro_torch.kernels`` through
+    their entry points, each at the DSE's plan for the card unless said
+    otherwise: ``matmul`` at 4096^3 in float32 at its default blocks and
+    through ``autotile.tuned_matmul``, and in bfloat16; ``filter_reduce``
+    and ``fused_filter_fold`` on TPC-H Q6 (6,000,000 rows of discount and
+    extended price, ``0.05 <= discount < 0.075``); ``ops.groupby`` on
+    4,194,304 rows into 64 keys of 8 values (about 1% of the keys
+    outside the table) and as MoE's ``router_counts`` (8 experts, values
+    one); ``fused_kmeans_step`` on the kmeans pipeline's inputs, timed
+    beside the compiler's fused-DAG kernel for the same step.
 
 Each run resets the kernel's launch count just before, reads it just
 after, and fails if the kernel did not run.  Each result is held
@@ -27,7 +37,9 @@ numpy reference: Map outputs and the GEMM at float32 rtol/atol
 count exactly, the buffer's tail zero); fold and CAM sums within
 SUM_RTOL of their largest magnitude, a limit the script first proves
 tighter than what two planted faults would shift them by; counts
-exactly.  Times are medians of
+exactly; the hand-written ``matmul`` at float32 rtol/atol 2e-3 against
+its plain version, ``torch.matmul`` and a float64 product of 64 rows
+(bfloat16 at 2e-2).  Times are medians of
 CUDA-event timings with warm-up excluded.  The last lines are the
 ``kernels`` JSON line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  Needs
@@ -47,7 +59,8 @@ import numpy as np
 RTOL = ATOL = 2e-3           # float32 tolerance of the reference's tests
 # fold / CAM sums: |kernel - float64 reference| <= SUM_RTOL * max|reference|
 SUM_RTOL = 1e-5
-EXACT = {"km_counts"}        # integer counts below 2**24: exact in float32
+EXACT = {"km_counts", "router"}  # integer counts below 2**24: exact in f32
+BF16_TOL = 2e-2              # bfloat16 tolerance of the reference's tests
 TPCH_ROWS = 6_000_000        # TPC-H SF1 lineitem (6,001,215) cut to 128s
 ROWS = 4_194_304             # 2**22
 GEMM_N = 4096
@@ -55,6 +68,10 @@ OUTER_N = 16_384             # outer product: a 1 GiB float32 output
 CHECK_ROWS = 256             # outer-product rows held against numpy
 WARMUP, REPS, BATCH = 3, 10, 10
 REPLACES = "src/repro/core/codegen_pallas.py"
+HAND = "src/repro/kernels"   # the TPU kernels written by hand
+CSRC = "src/repro_torch/kernels/csrc"
+BF16_PEAK = 989.4e12         # H100 SXM dense bf16 tensor-core FLOP/s
+Q6_LO, Q6_HI = 0.05, 0.075   # Q6: discount BETWEEN 0.06 - 0.01 AND 0.06 + 0.01
 
 
 def fail(msg: str) -> None:
@@ -86,19 +103,19 @@ def _as_double(t, torch):
     return torch.as_tensor(t).detach().double().cpu()
 
 
-def max_err(got, want, torch, what: str) -> float:
-    """Max abs error of ``got`` against ``want``; fails outside
-    rtol/atol."""
+def max_err(got, want, torch, what: str, tol: float = RTOL) -> float:
+    """Max abs error of ``got`` against ``want``; fails outside rtol =
+    atol = ``tol``."""
     g, w = _as_double(got, torch), _as_double(want, torch)
     if tuple(g.shape) != tuple(w.shape):
         fail(f"{what}: shape {tuple(g.shape)} != {tuple(w.shape)}")
     if not bool(torch.isfinite(g).all()):
         fail(f"{what}: non-finite values")
     err = float((g - w).abs().max()) if g.numel() else 0.0
-    if not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
-        bad = float(((g - w).abs() / (ATOL + RTOL * w.abs())).max())
+    if not torch.allclose(g, w, rtol=tol, atol=tol):
+        bad = float(((g - w).abs() / (tol + tol * w.abs())).max())
         fail(f"{what}: max abs err {err:.3e} exceeds rtol/atol "
-             f"{RTOL}/{ATOL} (worst err/tol {bad:.3f})")
+             f"{tol}/{tol} (worst err/tol {bad:.3f})")
     return err
 
 
@@ -217,11 +234,11 @@ def filter_program(n: int):
     return p, None, make_inputs, reference
 
 
-def bound(nbytes: int, ops: int, tier) -> tuple:
+def bound(nbytes: int, ops: int, tier, peak=None) -> tuple:
     """(bound ms, what bounds it): bytes over the card's memory rate
-    against operations over its fp32 rate."""
+    against operations over its fp32 rate (or ``peak`` FLOP/s)."""
     bytes_ms = nbytes / tier.hbm_bytes_per_s * 1e3
-    ops_ms = ops / tier.peak_flops * 1e3
+    ops_ms = ops / (peak or tier.peak_flops) * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -368,6 +385,257 @@ def run_filter(call, make_inputs, reference, cc, tier, torch) -> dict:
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
 
 
+# ------------------------------------------------ hand-written kernels
+def show_plan(label: str, kind: str, *shape, dev) -> None:
+    from repro_torch.kernels import ops
+    blocks, plan = ops.resolve_plan(kind, *shape, device=dev)
+    print(f"[{label}] DSE plan for {kind}{shape}: blocks={blocks} depth="
+          f"{plan.depth} onchip_bytes={plan.vmem_bytes}", flush=True)
+
+
+def nbytes_of(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def run_matmul(label: str, run, x, y, tol: float, peak, tier, torch) -> dict:
+    """One ``matmul`` entry point at 4096^3: against its plain version,
+    torch.matmul (TF32 off) and a float64 product of 64 rows."""
+    from repro_torch.kernels import matmul as mm
+
+    torch.cuda.synchronize()
+    mm.matmul.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    launches = mm.matmul.launches
+    print(f"[{label}] {tuple(x.shape)} x {tuple(y.shape)} {x.dtype} -> "
+          f"{out.dtype}; matmul launches={launches}")
+    if launches < 1:
+        fail(f"{label}: the matmul kernel was not launched")
+    e_plain = max_err(out, mm.matmul_plain(x, y, out.dtype), torch,
+                      f"{label} vs plain", tol)
+    e_lib = max_err(out, torch.matmul(x, y), torch,
+                    f"{label} vs torch.matmul", tol)
+    want = x[:64].double().cpu() @ y.double().cpu()
+    e_ref = max_err(out[:64], want, torch, f"{label} vs float64 rows", tol)
+    print(f"[{label}] max abs err vs plain {e_plain:.3e}, vs torch.matmul "
+          f"{e_lib:.3e}, vs float64 (64 rows) {e_ref:.3e} (rtol/atol {tol})")
+    ms = median_ms(run, torch)
+    plain_ms = median_ms(lambda: mm.matmul_plain(x, y, out.dtype), torch)
+    lib_ms = median_ms(lambda: torch.matmul(x, y), torch)
+    flops = 2 * x.shape[0] * x.shape[1] * y.shape[1]
+    bound_ms, by = bound(nbytes_of(x, y, out), flops, tier, peak)
+    print(f"[{label}] matmul {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
+          f"plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by})", flush=True)
+    print(f"[{label}] device time per call: " + device_breakdown(run, torch))
+    return {"name": label, "route": "cuda", "source": f"{CSRC}/matmul.cuh",
+            "replaces": f"{HAND}/matmul.py:49", "launches": launches,
+            "max_abs_err": e_plain, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
+
+
+def q6_inputs(n: int) -> dict:
+    """TPC-H Q6's two lineitem columns (seed 12): l_discount drawn from
+    {0.00, 0.01, ..., 0.10} and an l_extendedprice-like value uniform in
+    [901, 104,950] (SF1's range), both float32."""
+    rng = np.random.RandomState(12)
+    return {"x": (rng.randint(0, 11, n) / 100).astype(np.float32),
+            "w": rng.uniform(901.0, 104950.0, n).astype(np.float32)}
+
+
+def q6_reference(inp) -> np.ndarray:
+    """The Q6 sum in float64 over the float32 products, the bounds
+    compared in float32."""
+    x, w = inp["x"], inp["w"]
+    pred = (x >= np.float32(Q6_LO)) & (x < np.float32(Q6_HI))
+    return np.float64(np.where(pred, x * w, np.float32(0)).sum(
+        dtype=np.float64))
+
+
+def keyed_reference(keys: np.ndarray, values: np.ndarray, k: int):
+    """Float64 keyed sums of a (t, E) values array, keys outside [0, k)
+    dropped."""
+    keep = (keys >= 0) & (keys < k)
+    return np.stack([np.bincount(keys[keep], weights=values[keep, e]
+                                 .astype(np.float64), minlength=k)
+                     for e in range(values.shape[1])], 1)
+
+
+def run_folded(label: str, key: str, run, plain, ref, reference_at, host,
+               block: int, fn, library, nbytes: int, ops: int, source: str,
+               replaces: str, tier, torch) -> dict:
+    """One persistent hand-written kernel whose outputs are sums: the
+    launch count, the sums (and counts exactly) against its plain
+    version and the float64 reference after the planted-fault proof,
+    then its times beside its plain version's and the library call's."""
+    torch.cuda.synchronize()
+    fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    launches = fn.launches
+    print(f"[{label}] block={block} steps={host_rows(host) // block} "
+          f"ctas={fn.ctas} launches={launches}")
+    if launches < 1:
+        fail(f"{label}: the kernel was not launched")
+    names = list(ref) if isinstance(ref, dict) else [key]
+
+    def named(v) -> dict:   # a kernel's tuple of outputs, in ref's order
+        return dict(zip(names, v)) if isinstance(v, tuple) \
+            else as_outputs(v, names)
+
+    outs, plains, refs = named(out), named(plain()), as_outputs(ref, names)
+    shifts = fault_shifts(reference_at, host, host_rows(host), block,
+                          host_rows(host) // block, fn.ctas, names)
+    e_plain = 0.0
+    for k in names:
+        ep, er, limit = check_sum(k, outs[k], plains[k], refs[k], shifts,
+                                  torch, f"{label}/{k}")
+        e_plain = max(e_plain, ep)
+        print(f"[{label}] {k}: max abs err vs plain {ep:.6g}, vs reference "
+              f"{er:.6g}; limit {limit:.6g}; planted faults shift it by "
+              + ", ".join(f"{by[k]:.6g} ({f})" for f, by in shifts.items()))
+    ms = median_ms(run, torch)
+    plain_ms = median_ms(plain, torch)
+    lib_ms = median_ms(library, torch) if library else None
+    bound_ms, by = bound(nbytes, ops, tier)
+    print(f"[{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+          f"{bound_ms:.4f} ms ({nbytes} B, {ops} ops)", flush=True)
+    print(f"[{label}] device time per call: " + device_breakdown(run, torch))
+    return {"name": label, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": e_plain, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
+
+
+def host_rows(host: dict) -> int:
+    return max(v.shape[0] for v in host.values())
+
+
+def run_hand_kernels(kmeans_kernel, cc, tier, torch, dev) -> list:
+    """The hand-written kernels through their entry points, on the card
+    at full size."""
+    from repro_torch.kernels import autotile, ops
+    from repro_torch.kernels import filter_reduce as fr
+    from repro_torch.kernels import fused_filter_fold as fff
+    from repro_torch.kernels import fused_kmeans as fkm
+    from repro_torch.kernels import groupby_fold as gbf
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.patterns.analytics import gemm, kmeans_pipeline
+
+    rows = []
+    # ---- matmul: default blocks, the DSE's plan, bfloat16
+    host = gemm(GEMM_N, GEMM_N, GEMM_N)[2]()
+    x = torch.as_tensor(host["x"]).to(dev)
+    y = torch.as_tensor(host["y"]).to(dev)
+    print("[matmul[f32]] fixed blocks (128, 128, 128), matmul's defaults")
+    rows.append(run_matmul("matmul[f32]", lambda: mm.matmul(x, y), x, y,
+                           RTOL, None, tier, torch))
+    show_plan("matmul[f32,auto]", "gemm", GEMM_N, GEMM_N, GEMM_N, dev=dev)
+    rows.append(run_matmul("matmul[f32,auto]",
+                           lambda: autotile.tuned_matmul(x, y), x, y, RTOL,
+                           None, tier, torch))
+    xb, yb = x.bfloat16(), y.bfloat16()
+    del x, y
+    print("[matmul[bf16]] fixed blocks (128, 128, 128), matmul's defaults")
+    rows.append(run_matmul("matmul[bf16]", lambda: mm.matmul(xb, yb), xb, yb,
+                           BF16_TOL, BF16_PEAK, tier, torch))
+    del xb, yb
+
+    # ---- TPC-H Q6 through both filter-fold kernels
+    host = q6_inputs(TPCH_ROWS)
+    x, w = (torch.as_tensor(host[k]).to(dev) for k in ("x", "w"))
+    ref = q6_reference(host)
+    for label, kind, fn, plain, src_line in (
+            ("filter_reduce", "filter_reduce", fr.filter_reduce,
+             fr.filter_reduce_plain, "filter_reduce.py:41"),
+            ("fused_filter_fold", "fused_filter_fold", fff.fused_filter_fold,
+             fff.fused_filter_fold_plain, "fused_filter_fold.py:48")):
+        show_plan(label, kind, TPCH_ROWS, dev=dev)
+        block = ops.resolve_plan(kind, TPCH_ROWS, device=dev)[0]
+        rows.append(run_folded(
+            label, "q6",
+            lambda fn=fn: fn(x, w, Q6_LO, Q6_HI, auto_tile=True),
+            lambda plain=plain: plain(x, w, Q6_LO, Q6_HI), ref,
+            lambda n: q6_reference, host, block, fn, None,
+            2 * TPCH_ROWS * 4 + 4, 4 * TPCH_ROWS, f"{CSRC}/filter_fold.cuh",
+            f"{HAND}/{src_line}", tier, torch))
+    del x, w
+
+    # ---- keyed sums: 64 keys x 8 values, ~1% of the keys outside
+    rng = np.random.RandomState(13)
+    keys = rng.randint(0, 64, ROWS).astype(np.int32)
+    bad = rng.rand(ROWS) < 0.01
+    keys[bad] = rng.choice(np.array([-1, 64], np.int32), int(bad.sum()))
+    host = {"keys": keys, "values": rng.randn(ROWS, 8).astype(np.float32)}
+    kt, vt = (torch.as_tensor(host[k]).to(dev) for k in ("keys", "values"))
+    show_plan("groupby_fold[64x8]", "groupby", ROWS, 64, 8, dev=dev)
+    block = ops.resolve_plan("groupby", ROWS, 64, 8, device=dev)[0]
+    print(f"[groupby_fold[64x8]] {int(bad.sum())} keys outside [0, 64)")
+    rows.append(run_folded(
+        "groupby_fold[64x8]", "gbf",
+        lambda: gbf.groupby_fold(kt, vt, 64, auto_tile=True),
+        lambda: gbf.groupby_fold_plain(kt, vt, 64),
+        keyed_reference(keys, host["values"], 64),
+        lambda n: (lambda h: keyed_reference(h["keys"], h["values"], 64)),
+        host, block, gbf.groupby_fold, None,
+        nbytes_of(kt, vt) + 64 * 8 * 4, ROWS * 8,
+        f"{CSRC}/groupby_fold.cuh", f"{HAND}/groupby_fold.py:43", tier, torch))
+    del kt, vt
+
+    # ---- MoE router_counts: top-1 expert per token, values one
+    keys = np.random.RandomState(14).randint(0, 8, ROWS).astype(np.int32)
+    host = {"keys": keys}
+    kt = torch.as_tensor(keys).to(dev)
+    ones = torch.ones(ROWS, device=dev)
+    show_plan("groupby_fold[router]", "groupby", ROWS, 8, 1, dev=dev)
+    block = ops.resolve_plan("groupby", ROWS, 8, 1, device=dev)[0]
+    rows.append(run_folded(
+        "groupby_fold[router]", "router",
+        lambda: ops.groupby(kt, ones, 8, block_t=block),
+        lambda: gbf.groupby_fold_plain(kt, ones, 8),
+        np.bincount(keys, minlength=8).astype(np.float64),
+        lambda n: (lambda h: np.bincount(h["keys"], minlength=8)
+                   .astype(np.float64)),
+        host, block, gbf.groupby_fold,
+        lambda: torch.zeros(8, device=dev).index_add_(0, kt, ones),
+        nbytes_of(kt, ones) + 8 * 4, ROWS, f"{CSRC}/groupby_fold.cuh",
+        f"{HAND}/groupby_fold.py:43", tier, torch))
+    del kt, ones
+
+    # ---- one k-means step, beside the compiler's megakernel
+    pipe, make_inputs, reference = kmeans_pipeline(n=ROWS)
+    host = make_inputs()
+    pts = torch.as_tensor(host["points"]).to(dev)
+    cents = torch.as_tensor(host["centroids"]).to(dev)
+    show_plan("fused_kmeans", "fused_kmeans", ROWS, 8, 16, dev=dev)
+    block = ops.resolve_plan("fused_kmeans", ROWS, 8, 16, device=dev)[0]
+    print(f"[fused_kmeans] shared bytes per block "
+          f"{fkm.smem_bytes(8, 16, block)}")
+    rows.append(run_folded(
+        "fused_kmeans", "km_sums",
+        lambda: fkm.fused_kmeans_step(pts, cents, auto_tile=True),
+        lambda: fkm.fused_kmeans_plain(pts, cents), reference(host),
+        lambda n: kmeans_pipeline(n=n)[2], host, block,
+        fkm.fused_kmeans_step, None,
+        nbytes_of(pts, cents) + (8 * 16 + 8) * 4,
+        pipeline_ops("kmeans", host), f"{CSRC}/fused_kmeans.cuh",
+        f"{HAND}/fused_kmeans.py:61", tier, torch))
+    env = {"points": pts, "centroids": cents}
+    gen = cc.fused_dag(kmeans_kernel, env)
+    hand = fkm.fused_kmeans_step(pts, cents, auto_tile=True)
+    if not torch.equal(hand[1], gen["km_counts"]):
+        fail("fused_kmeans: counts differ from the fused_dag[kmeans] kernel")
+    hand_ms = median_ms(lambda: fkm.fused_kmeans_step(pts, cents,
+                                                      auto_tile=True), torch)
+    gen_ms = median_ms(lambda: cc.fused_dag(kmeans_kernel, env), torch)
+    print(f"[fused_kmeans] hand-written {hand_ms:.4f} ms vs compiler-"
+          f"generated fused_dag[kmeans] {gen_ms:.4f} ms on the same inputs "
+          f"(block {kmeans_kernel.spec.block}, depth "
+          f"{kmeans_kernel.spec.depth}); counts equal", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -387,6 +655,10 @@ def main() -> int:
     from repro_torch.core.cost import device_tier
     from repro_torch.core.strip_mine import tile
     from repro_torch.kernels import build
+    from repro_torch.kernels import filter_reduce as fr
+    from repro_torch.kernels import fused_kmeans as fkm
+    from repro_torch.kernels import groupby_fold as gbf
+    from repro_torch.kernels import matmul as mm
     from repro_torch.patterns.analytics import PIPELINES, gda, gemm, outerprod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -433,6 +705,10 @@ def main() -> int:
         sources.append((call.kernel.name, call.kernel.source))
         labels.append(f"lower_auto[{name}]")
         autos[name] = (call, make_inputs, reference)
+    # the hand-written kernels: one fixed translation unit each
+    for lib in (mm.LIB, fr.LIB, gbf.LIB, fkm.LIB):
+        sources.append((lib.name, lib.source))
+        labels.append(lib.name)
     paths = build.compile_all(sources)
     print(f"build: {len(paths)} translation units in "
           f"{time.perf_counter() - t0:.1f} s (plans included)", flush=True)
@@ -562,6 +838,9 @@ def main() -> int:
     kernels.append(run_outerprod(*autos["outerprod"], cc, tier, torch))
     kernels.append(run_gda(*autos["gda"], cc, tier, torch, dev))
     kernels.append(run_filter(*autos["filter"], cc, tier, torch))
+    kmeans_call = built["kmeans"][4]
+    kernels.extend(run_hand_kernels(kmeans_call.group_calls[0].kernel, cc,
+                                    tier, torch, dev))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

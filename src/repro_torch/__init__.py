@@ -3,5 +3,6 @@
 Laid out like the JAX package ``repro``: ``core`` holds the PPL IR, the
 tiling and fusion passes, the cost and memory models, the pipeline DSE
 and the CUDA code generator; ``kernels`` holds the hand-written CUDA
-templates and their build; ``patterns`` holds the benchmark programs.
+kernels and templates, their wrappers and their build; ``patterns``
+holds the benchmark programs.
 """

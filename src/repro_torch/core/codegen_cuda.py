@@ -80,31 +80,6 @@ def _staged(t, dev: torch.device) -> torch.Tensor:
     return t.clone() if dev.type == "cuda" and t.data_ptr() % 16 else t
 
 
-def _check(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
-
-
-_ERROR_STRING = '''
-extern "C" const char* error_string(int e) {
-  return cudaGetErrorString((cudaError_t)e);
-}
-'''
-
-
-def _bind(lib, argtypes: Dict[str, list]):
-    """Declare the C entry points of a loaded kernel library (each
-    returns a CUDA error code) and its ``error_string``."""
-    for name, args in argtypes.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.error_string.argtypes = [ctypes.c_int]
-    lib.error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _persistent_ctas(library: Callable, fn: str, smem_bytes: int,
                      dev: torch.device, what: str) -> int:
     """The persistent block count a kernel's ``<prefix>_ctas`` entry
@@ -118,32 +93,26 @@ def _persistent_ctas(library: Callable, fn: str, smem_bytes: int,
     lib = library()
     n = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        _check(lib, getattr(lib, fn)(ctypes.byref(n)), f"{what} occupancy")
+        build.check(lib, getattr(lib, fn)(ctypes.byref(n)),
+                    f"{what} occupancy")
     return n.value
 
 
-def _ctas_source(prefix: str, kernels: Sequence[Tuple[str, str]],
-                 threads: str, max_per_sm: str) -> str:
-    """``extern "C" int <prefix>_ctas(int*)``: opt each ``(kernel,
-    shared bytes)`` into its dynamic shared memory, then the persistent
-    block count of the first kernel -- a few per SM as occupancy
-    allows, at most one per grid step (``GRID``)."""
-    sets = "".join(
-        f"  e = cudaFuncSetAttribute({k}, "
-        f"cudaFuncAttributeMaxDynamicSharedMemorySize, {s});\n"
-        "  if (e != cudaSuccess) return (int)e;\n" for k, s in kernels)
-    main, smem = kernels[0]
+def _ctas_source(prefix: str, main: str, smem: str,
+                 others: Sequence[str] = ()) -> str:
+    """``extern "C" int <prefix>_ctas(int*)``: opt every kernel into the
+    card's largest dynamic shared memory, then the persistent block
+    count of ``main`` at ``smem`` bytes -- a few per SM as occupancy
+    allows (``tcopy::blocks_per_sm``), at most one per grid step
+    (``GRID``)."""
+    opts = "".join(f"  if ((e = tcopy::opt_in({k})) != 0) return e;\n"
+                   for k in others)
     return f'''extern "C" int {prefix}_ctas(int* ctas) {{
-  cudaError_t e;
-{sets}  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, {main},
-                                                    {threads}, {smem});
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  if (per_sm > {max_per_sm}) per_sm = {max_per_sm};
+  int e, dev = 0, sms = 0, per_sm = 0;
+{opts}  if ((e = tcopy::blocks_per_sm({main}, {smem}, &per_sm)) != 0) return e;
+  if ((e = (int)cudaGetDevice(&dev)) != 0) return e;
+  e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != 0) return e;
   long long n = (long long)sms * per_sm;
   *ctas = (int)(n < GRID ? n : GRID);
   return 0;
@@ -174,7 +143,7 @@ extern "C" int gemm_launch(const void* x, const void* y, void* out, int m,
       (const float*)x, (const float*)y, (float*)out, m, n, k,
       (cudaStream_t)stream);
 }}
-''' + _ERROR_STRING
+''' + build.ERROR_STRING
 
 
 _GEMM_LIBS: Dict[Tuple[int, int, int], Any] = {}
@@ -183,7 +152,7 @@ _GEMM_LIBS: Dict[Tuple[int, int, int], Any] = {}
 def _gemm_library(bm: int, bn: int, bk: int):
     if (bm, bn, bk) in _GEMM_LIBS:
         return _GEMM_LIBS[(bm, bn, bk)]
-    lib = _bind(build.load("tiled_gemm", gemm_source(bm, bn, bk)), {
+    lib = build.bind(build.load("tiled_gemm", gemm_source(bm, bn, bk)), {
         "gemm_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
         + [ctypes.c_void_p]})
     _GEMM_LIBS[(bm, bn, bk)] = lib
@@ -229,7 +198,7 @@ def tiled_gemm(x: torch.Tensor, y: torch.Tensor, *, bm: int, bn: int,
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
     rc = lib.gemm_launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
                          torch.cuda.current_stream(x.device).cuda_stream)
-    _check(lib, rc, "tiled_gemm launch")
+    build.check(lib, rc, "tiled_gemm launch")
     tiled_gemm.launches += 1
     return out
 
@@ -665,8 +634,7 @@ def dag_source(spec: DagSpec) -> str:
     call = [f"(const float*)ins[{i}]" for i in range(n_in)]
     call += [f"(float*)outs[{i}]" for i in range(n_map)]
     call.append("(float*)partials")
-    L.append(_ctas_source("fdag", [("fused_dag_kernel", "SMEM_BYTES")],
-                          "tcopy::THREADS", "tcopy::MAX_CTAS_PER_SM"))
+    L.append(_ctas_source("fdag", "fused_dag_kernel", "SMEM_BYTES"))
     L.append(f'''extern "C" int fdag_launch(void* const* ins, void* const* outs,
                            void* partials, int ctas, void* stream) {{
   fused_dag_kernel<<<ctas, tcopy::THREADS, SMEM_BYTES,
@@ -684,7 +652,7 @@ extern "C" int fdag_combine(const void* partials, const void* init,
       PARTIAL_WORDS);
   return (int)cudaGetLastError();
 }}''')
-    return "\n".join(L) + _ERROR_STRING
+    return "\n".join(L) + build.ERROR_STRING
 
 
 class DagKernel:
@@ -705,7 +673,7 @@ class DagKernel:
     def library(self):
         if self._lib is None:
             vp = ctypes.c_void_p
-            self._lib = _bind(build.load(self.name, self.source), {
+            self._lib = build.bind(build.load(self.name, self.source), {
                 "fdag_ctas": [ctypes.POINTER(ctypes.c_int)],
                 "fdag_launch": [vp, vp, vp, ctypes.c_int, vp],
                 "fdag_combine": [vp, vp, vp, ctypes.c_int, vp]})
@@ -824,7 +792,7 @@ def fused_dag(kernel: DagKernel, tensors: Dict[str, torch.Tensor]
     rc = lib.fdag_launch(ctypes.cast(in_ptrs, ctypes.c_void_p),
                          ctypes.cast(out_ptrs, ctypes.c_void_p),
                          partials.data_ptr(), ctas, stream)
-    _check(lib, rc, "fused_dag launch")
+    build.check(lib, rc, "fused_dag launch")
     fused_dag.launches += 1
     outs: Dict[str, torch.Tensor] = dict(maps)
     if spec.partial_words:
@@ -832,7 +800,7 @@ def fused_dag(kernel: DagKernel, tensors: Dict[str, torch.Tensor]
                            device=dev)
         rc = lib.fdag_combine(partials.data_ptr(), kernel.init(dev).data_ptr(),
                               flat.data_ptr(), ctas, stream)
-        _check(lib, rc, "fused_dag combine")
+        build.check(lib, rc, "fused_dag combine")
         for t in spec.terminals:
             if t.kind != "map":
                 w = int(np.prod(t.shape)) if t.shape else 1
@@ -1403,8 +1371,7 @@ def map_source(spec: TiledSpec) -> str:
     dst = f"o + {_affine(0, spec.out_local, lvars)}"
     L.append(f"      body({', '.join(args + [dst])});")
     L += ["    }", "  }", "}", "}  // namespace", ""]
-    L.append(_ctas_source("tmap", [("tiled_map_kernel", "SMEM_BYTES")],
-                          "tcopy::THREADS", "tcopy::MAX_CTAS_PER_SM"))
+    L.append(_ctas_source("tmap", "tiled_map_kernel", "SMEM_BYTES"))
     call = ", ".join([f"(const float*)ins[{i}]"
                       for i in range(len(spec.inputs))] + ["(float*)out"])
     L.append(f'''extern "C" int tmap_launch(void* const* ins, void* out,
@@ -1413,7 +1380,7 @@ def map_source(spec: TiledSpec) -> str:
                      (cudaStream_t)stream>>>({call});
   return (int)cudaGetLastError();
 }}''')
-    return "\n".join(L) + _ERROR_STRING
+    return "\n".join(L) + build.ERROR_STRING
 
 
 def flatmap_source(spec: TiledSpec) -> str:
@@ -1483,9 +1450,8 @@ def flatmap_source(spec: TiledSpec) -> str:
           "(long long)blockIdx.x * blockDim.x + threadIdx.x;",
           "       e < CAP; e += stride) buf[e] = 0.0f;",
           "}", "}  // namespace", ""]
-    L.append(_ctas_source("tfm", [("write_kernel", "SMEM_BYTES"),
-                                  ("count_kernel", "TILE_BYTES")],
-                          "tcopy::THREADS", "tcopy::MAX_CTAS_PER_SM"))
+    L.append(_ctas_source("tfm", "write_kernel", "SMEM_BYTES",
+                          ["count_kernel"]))
     in_args = [f"(const float*)ins[{i}]" for i in range(len(spec.inputs))]
     L.append(f'''extern "C" int tfm_launch(void* const* ins, void* buf,
                           void* counts, void* offsets, void* total,
@@ -1502,7 +1468,7 @@ def flatmap_source(spec: TiledSpec) -> str:
       {", ".join(in_args + ["(const int*)offsets", "(float*)buf"])});
   return (int)cudaGetLastError();
 }}''')
-    return "\n".join(L) + _ERROR_STRING
+    return "\n".join(L) + build.ERROR_STRING
 
 
 class TiledKernel:
@@ -1539,7 +1505,7 @@ class TiledKernel:
             else:
                 fns = {"tfm_ctas": [ctypes.POINTER(ci)],
                        "tfm_launch": [vp] * 5 + [ci, vp]}
-            self._lib = _bind(lib, fns)
+            self._lib = build.bind(lib, fns)
         return self._lib
 
     def ctas(self, dev: torch.device) -> int:
@@ -1685,7 +1651,7 @@ def tiled_map(kernel: TiledKernel, tensors: Dict[str, torch.Tensor]
     ptrs = build.pointers([t.data_ptr() for t in ins])
     rc = lib.tmap_launch(ctypes.cast(ptrs, ctypes.c_void_p), out.data_ptr(),
                          ctas, torch.cuda.current_stream(dev).cuda_stream)
-    _check(lib, rc, "tiled_map launch")
+    build.check(lib, rc, "tiled_map launch")
     tiled_map.launches += 1
     return out
 
@@ -1723,7 +1689,7 @@ def tiled_flatmap(kernel: TiledKernel, tensors: Dict[str, torch.Tensor]
                         counts.data_ptr(), offsets.data_ptr(),
                         total.data_ptr(), ctas,
                         torch.cuda.current_stream(dev).cuda_stream)
-    _check(lib, rc, "tiled_flatmap launch")
+    build.check(lib, rc, "tiled_flatmap launch")
     tiled_flatmap.launches += 1
     return buf, total.reshape(())
 

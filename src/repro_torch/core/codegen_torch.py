@@ -17,6 +17,7 @@ entries are index tensors of the batch.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -172,9 +173,8 @@ def _value(val, device, dtype=None) -> torch.Tensor:
 # Per-pattern evaluators.  Each returns the pattern's realized value:
 #   Map          -> tensor of shape domain + elem_shape
 #   MultiFold    -> tensor of range_shape
+#   FlatMap      -> (buffer (trip_count * max_per_iter,)+elem_shape, count)
 #   GroupByFold  -> dense (num_keys,)+elem_shape accumulator
-# FlatMap programs run through the tiled-FlatMap template and its plain
-# version (codegen_cuda.lower); this oracle does not evaluate them.
 # Inside a batched Map a value carries the batch as its leading dim.
 # --------------------------------------------------------------------------
 
@@ -237,6 +237,53 @@ def _execute_multifold(p: ir.MultiFold, env: Env,
     return acc
 
 
+def _execute_flatmap(p: ir.FlatMap, env: Env,
+                     outer_idx: Tuple) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The values each index keeps (its lanes below its count), written in
+    index and lane order from the start of a zeroed ``(trip_count *
+    max_per_iter,) + elem_shape`` buffer, and the total as a 0-d int32
+    tensor.  An untiled FlatMap runs its body once, batched over the
+    domain; a tiled one runs its inner FlatMap per grid step.  Each kept
+    value then lands at the exclusive prefix sum of the counts before its
+    index, which is where the reference's running count writes it."""
+    if _batch(outer_idx) is not None:
+        raise NotImplementedError("a FlatMap nested in a batched Map")
+    n, elem, dev = p.trip_count, tuple(p.elem_shape), env.device
+    dtype = getattr(torch, p.dtype)
+    cap = n * p.max_per_iter
+    if p.inner is None:
+        stack = tuple(outer_idx) + _unflatten(torch.arange(n, device=dev),
+                                              p.domain)
+        sub = env.child()
+        _load_tiles(sub, p, stack)
+        vals, cnt = p.fn(stack, *_windows(sub, p, stack))
+        vals = _value(vals, dev, dtype)
+        lanes = p.max_per_iter
+        vals = vals.reshape((n, lanes) + elem) \
+            if vals.numel() == n * lanes * math.prod(elem) \
+            else vals.expand((n, lanes) + elem)
+        cnt = _value(cnt, dev, torch.int64).expand(n)
+    else:
+        steps = []
+        for flat_i in range(n):
+            stack = tuple(outer_idx) + _unflatten(flat_i, p.domain)
+            sub = env.child()
+            _load_tiles(sub, p, stack)
+            buf, c = _execute(p.inner, sub, stack)
+            steps.append((_value(buf, dev, dtype).reshape((-1,) + elem),
+                          _value(c, dev, torch.int64).reshape(())))
+        vals = torch.stack([v for v, _ in steps])
+        cnt = torch.stack([c for _, c in steps])
+        lanes = vals.shape[1]
+    local = torch.arange(lanes, device=dev)
+    dest = (torch.cumsum(cnt, 0) - cnt)[:, None] + local
+    # dropped lanes, and any past the buffer, go to a spare last slot
+    dest = torch.where((local < cnt[:, None]) & (dest < cap), dest, cap)
+    out = torch.zeros((cap + 1,) + elem, dtype=dtype, device=dev)
+    out[dest.reshape(-1)] = vals.reshape((-1,) + elem)
+    return out[:cap], cnt.sum().to(torch.int32)
+
+
 def _execute_groupbyfold(p: ir.GroupByFold, env: Env,
                          outer_idx: Tuple) -> torch.Tensor:
     if _batch(outer_idx) is not None:
@@ -269,9 +316,7 @@ def _execute(p: ir.Pattern, env: Env, outer_idx: Tuple) -> Any:
     if isinstance(p, ir.MultiFold):
         return _execute_multifold(p, env, outer_idx)
     if isinstance(p, ir.FlatMap):
-        raise NotImplementedError(
-            "the eager oracle does not run a FlatMap; tile it and lower it "
-            "(codegen_cuda.lower: the tiled-FlatMap template)")
+        return _execute_flatmap(p, env, outer_idx)
     if isinstance(p, ir.GroupByFold):
         return _execute_groupbyfold(p, env, outer_idx)
     raise TypeError(f"unknown pattern {type(p)}")

@@ -33,7 +33,10 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import operator
 from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from . import ir
 from . import pipeline as plmod
@@ -109,7 +112,7 @@ def axis_candidates(extent: int, align: int = MXU, *,
     return out or [extent]
 
 
-def _tier_of(tier: Optional[Tier], device) -> Tier:
+def tier_of(tier: Optional[Tier], device) -> Tier:
     """``tier``, else the tier of ``device`` (the card unless the caller
     names another device; raises without one)."""
     if tier is not None:
@@ -336,7 +339,7 @@ def explore(p: ir.Pattern, *, tier: Optional[Tier] = None,
     ``NotImplementedError``.
     """
     _refuse_tuning_runtime(tuning)
-    tier = _tier_of(tier, device)
+    tier = tier_of(tier, device)
     vmem_budget = tier.onchip_bytes if vmem_budget is None else vmem_budget
     cands, thinned, explored, pruned = shortlist(p, tier=tier,
                                                  vmem_budget=vmem_budget)
@@ -538,7 +541,7 @@ def explore_pipeline(pipe, *, tier: Optional[Tier] = None,
     ``NotImplementedError``.
     """
     _refuse_tuning_runtime(tuning)
-    tier = _tier_of(tier, device)
+    tier = tier_of(tier, device)
     vmem_budget = tier.onchip_bytes if vmem_budget is None else vmem_budget
 
     topo = plmod.topo_stages(pipe)
@@ -615,3 +618,123 @@ def explore_pipeline(pipe, *, tier: Optional[Tier] = None,
         vmem_bytes=int(best[2]), modeled_seconds=float(best[1]),
         explored=counters["explored"], pruned=counters["pruned"],
         depths=best[5])
+
+
+# --------------------------------------------------------------------
+# Proxy programs of the hand-written kernels (analysed, never lowered:
+# torch bodies for the oracle, no CUDA body)
+# --------------------------------------------------------------------
+
+
+def filter_reduce_program(t: int) -> ir.Pattern:
+    """TPC-H Q6 shape: fused filter + weighted-sum fold over one stream
+    (tileable domain: ``fr``)."""
+    x = ir.Tensor("x", (t,))
+    w = ir.Tensor("w", (t,))
+    return ir.MultiFold(
+        domain=(t,), range_shape=(), init=lambda: torch.zeros(()),
+        reads=(ir.elem(x), ir.elem(w)),
+        out_index_map=lambda i: (), update_shape=(),
+        fn=lambda s, acc, xe, we: acc + xe * we,
+        combine=operator.add, name="fr")
+
+
+def groupby_program(t: int, num_keys: int, ew: int) -> ir.Pattern:
+    """Keyed fold over a (t,) stream into a dense (num_keys, ew)
+    accumulator (tileable domain: ``gbf``)."""
+    keys = ir.Tensor("keys", (t,), "int32")
+    vals = ir.Tensor("vals", (t, ew))
+    return ir.GroupByFold(
+        domain=(t,), num_keys=num_keys, elem_shape=(ew,),
+        init=lambda: torch.zeros((num_keys, ew)),
+        reads=(ir.elem(keys),
+               ir.Access(vals, lambda i: (i, 0), (1, ew))),
+        fn=lambda s, ke, ve: (ke.to(torch.int32), ve),
+        combine=operator.add, name="gbf")
+
+
+def filter_fold_pipeline(t: int):
+    """TPC-H Q6 as a two-stage pipeline: a mask Map producing the
+    per-record contribution, folded by a separate sum stage.  The fused
+    kernel keeps the (t,) intermediate on chip; unfused, it round-trips
+    main memory (the quantity ``PipelinePlan.traffic_ratio`` reports)."""
+    x = ir.Tensor("x", (t,))
+    w = ir.Tensor("w", (t,))
+    mask = ir.Map(domain=(t,), reads=(ir.elem(x), ir.elem(w)),
+                  fn=lambda s, xe, we: xe * we, name="ff_mask")
+    total = ir.MultiFold(
+        domain=(t,), range_shape=(), init=lambda: torch.zeros(()),
+        reads=(ir.elem(ir.Tensor("ff_mask", (t,))),),
+        out_index_map=lambda i: (), update_shape=(),
+        fn=lambda s, acc, v: acc + v,
+        combine=operator.add, name="ff_sum")
+    return plmod.Pipeline(name="filter_fold", stages=(mask, total))
+
+
+# --------------------------------------------------------------------
+# Block sizes of the hand-written kernels (one selector per kernel).
+# Each takes ``tier`` / ``vmem_budget`` / ``device`` as ``explore`` does
+# and returns ``(blocks, plan)``.
+# --------------------------------------------------------------------
+
+
+def _one(plan: TilePlan, name: str) -> Tuple[int, ...]:
+    return tuple(int(x) for x in plan.sizes[name])
+
+
+def select_gemm_blocks(m: int, n: int, k: int, *, tier: Optional[Tier] = None,
+                       vmem_budget: Optional[int] = None, device=None,
+                       **tuning) -> Tuple[Tuple[int, int, int], TilePlan]:
+    """``(block_m, block_n, block_k)`` for ``kernels.matmul``."""
+    plan = explore(gemm_program(m, n, k), tier=tier, vmem_budget=vmem_budget,
+                   device=device, **tuning)
+    (bm, bn), (bk,) = _one(plan, "gemm"), _one(plan, "gemm_k")
+    return (bm, bn, bk), plan
+
+
+def select_filter_reduce_blocks(t: int, *, tier: Optional[Tier] = None,
+                                vmem_budget: Optional[int] = None,
+                                device=None, **tuning
+                                ) -> Tuple[int, TilePlan]:
+    """``block_t`` for ``kernels.filter_reduce``."""
+    plan = explore(filter_reduce_program(t), tier=tier,
+                   vmem_budget=vmem_budget, device=device, **tuning)
+    (bt,) = _one(plan, "fr")
+    return bt, plan
+
+
+def select_groupby_blocks(t: int, num_keys: int, ew: int, *,
+                          tier: Optional[Tier] = None,
+                          vmem_budget: Optional[int] = None, device=None,
+                          **tuning) -> Tuple[int, TilePlan]:
+    """``block_t`` for ``kernels.groupby_fold``."""
+    plan = explore(groupby_program(t, num_keys, ew), tier=tier,
+                   vmem_budget=vmem_budget, device=device, **tuning)
+    (bt,) = _one(plan, "gbf")
+    return bt, plan
+
+
+def select_fused_filter_fold_blocks(t: int, *, tier: Optional[Tier] = None,
+                                    vmem_budget: Optional[int] = None,
+                                    device=None, **tuning
+                                    ) -> Tuple[int, PipelinePlan]:
+    """``block_t`` for ``kernels.fused_filter_fold``: one joint plan for
+    the filter -> fold pipeline."""
+    plan = explore_pipeline(filter_fold_pipeline(t), tier=tier,
+                            vmem_budget=vmem_budget, device=device, **tuning)
+    return plan.block, plan
+
+
+def select_fused_kmeans_blocks(n: int, k: int, d: int, *,
+                               tier: Optional[Tier] = None,
+                               vmem_budget: Optional[int] = None,
+                               device=None, **tuning
+                               ) -> Tuple[int, PipelinePlan]:
+    """``block_n`` for ``kernels.fused_kmeans``: one joint plan for the
+    assign -> {scatter-sum, count} DAG."""
+    from ..patterns.analytics import kmeans_pipeline
+    pipe, _, _ = kmeans_pipeline(n, k, d)
+    plan = explore_pipeline(pipe, tier=tier, vmem_budget=vmem_budget,
+                            device=device, **tuning)
+    return plan.block, plan
+

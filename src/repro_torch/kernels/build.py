@@ -14,7 +14,9 @@ report (registers, shared memory, spills) is kept beside each library
 as ``<name>.log``.
 
 The C entry points take pointers and the stream as ``c_void_p`` and
-return ``cudaGetLastError()``; the caller raises when it is not 0.
+return ``cudaGetLastError()``; the caller raises when it is not 0
+(``check``).  ``Library`` holds one hand-written kernel's fixed
+translation unit, built and bound at first use.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -113,3 +117,87 @@ def load(name: str, source: str) -> ctypes.CDLL:
 def pointers(ptrs: Sequence[int]):
     """A C array of device pointers, kept alive by the caller."""
     return (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
+
+
+# appended to every translation unit: the message of a CUDA error code
+ERROR_STRING = '''
+extern "C" const char* error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}
+'''
+
+
+def bind(lib, argtypes: Dict[str, list]):
+    """Declare the C entry points of a loaded kernel library (each
+    returns a CUDA error code) and its ``error_string``."""
+    for name, args in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib, rc: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error."""
+    if rc != 0:
+        msg = lib.error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+class Library:
+    """One hand-written kernel's library: a fixed translation unit that
+    includes its ``csrc`` header and exports ``extern "C"`` entry points.
+    Block sizes are run-time arguments, so it builds once for every plan.
+    It is built and bound at first use; what a launch needs that is fixed
+    per card (persistent block counts, zero rows) is kept so that a launch
+    does no other host work."""
+
+    def __init__(self, name: str, source: str, argtypes: Dict[str, list]):
+        self.name = name
+        self.source = source + ERROR_STRING
+        self.argtypes = argtypes
+        self._lib = None
+        self._per_card: Dict[Tuple, int] = {}
+        self._zeros: Dict[Tuple, torch.Tensor] = {}
+
+    def __call__(self, fn: str, *args) -> None:
+        """Call the entry point ``fn``; raise on a CUDA error."""
+        if self._lib is None:
+            self._lib = bind(load(self.name, self.source), self.argtypes)
+        check(self._lib, getattr(self._lib, fn)(*args), f"{self.name} {fn}")
+
+    def persistent_ctas(self, dev: torch.device, variant: int, smem: int,
+                        steps: int) -> int:
+        """Blocks of a persistent launch of kernel ``variant`` with
+        ``smem`` bytes of dynamic shared memory: as many per SM as
+        occupancy allows (the entry point ``per_sm``, which calls
+        ``tcopy::blocks_per_sm``), at most one per grid step.  Raises
+        before building when the card allows a block fewer bytes."""
+        key = (dev, variant, smem)
+        if key not in self._per_card:
+            props = torch.cuda.get_device_properties(dev)
+            if smem > props.shared_memory_per_block_optin:
+                raise ValueError(
+                    f"{self.name} needs {smem} B of shared memory per block;"
+                    f" the card allows {props.shared_memory_per_block_optin}"
+                    " B")
+            n = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                self("per_sm", variant, smem, ctypes.byref(n))
+            self._per_card[key] = n.value * props.multi_processor_count
+        return max(1, min(self._per_card[key], steps))
+
+    def combine(self, partials: torch.Tensor) -> torch.Tensor:
+        """The per-block partials ``(ctas, width)`` summed in block order
+        by ``fdag::combine_partials`` (the entry point ``combine``)."""
+        ctas, width = partials.shape
+        dev = partials.device
+        if (dev, width) not in self._zeros:
+            self._zeros[(dev, width)] = torch.zeros(width, device=dev)
+        out = torch.empty(width, dtype=torch.float32, device=dev)
+        self("combine", partials.data_ptr(),
+             self._zeros[(dev, width)].data_ptr(), out.data_ptr(), ctas,
+             width, torch.cuda.current_stream(dev).cuda_stream)
+        return out

@@ -27,6 +27,10 @@
 //    The copies are synchronous in this first version; cp.async/TMA
 //    prefetch into the spare slots is later work.
 //  * CAM keys outside [0, K) are dropped (jax.nn.one_hot drops them).
+//
+// The hand-written kernels that replace the other revisited-output TPU
+// kernels (filter_fold.cuh, groupby_fold.cuh, fused_kmeans.cuh) reuse the
+// same pieces: cam_add, block_sum and combine_partials (launch_combine).
 #pragma once
 
 #include "tile_copy.cuh"
@@ -75,6 +79,16 @@ __global__ void combine_partials(const float* __restrict__ partials,
   float s = init[j];
   for (int c = 0; c < ctas; ++c) s += partials[(int64_t)c * width + j];
   out[j] = s;
+}
+
+// Launch combine_partials over `width` words; returns cudaGetLastError().
+inline int launch_combine(const float* partials, const float* init,
+                          float* out, int ctas, int width,
+                          cudaStream_t stream) {
+  if (width == 0) return 0;
+  combine_partials<<<(width + 255) / 256, 256, 0, stream>>>(
+      partials, init, out, ctas, width);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace fdag

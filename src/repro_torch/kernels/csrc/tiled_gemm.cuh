@@ -26,6 +26,17 @@ namespace tgemm {
 constexpr int TM = 4;  // rows of the micro-tile a thread owns
 constexpr int TN = 4;  // columns of the micro-tile a thread owns
 
+// One K step of a thread's micro-tile: acc[i][j] += a[i] * b[j] with fused
+// multiply-adds (shared with matmul.cuh).
+__device__ __forceinline__ void micro_fma(float (&acc)[TM][TN],
+                                          const float (&a)[TM],
+                                          const float (&b)[TN]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+}
+
 template <int BM, int BN, int BK>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 tiled_gemm_kernel(const float* __restrict__ x, const float* __restrict__ y,
@@ -64,10 +75,7 @@ tiled_gemm_kernel(const float* __restrict__ x, const float* __restrict__ y,
       for (int i = 0; i < TM; ++i) a[i] = xs[(ty * TM + i) * BK + kk];
       const float4 b = reinterpret_cast<const float4*>(ys + kk * BN)[tx];
       const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+      micro_fma(acc, a, bv);
     }
     __syncthreads();
   }

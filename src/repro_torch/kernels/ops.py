@@ -1,0 +1,106 @@
+"""Public wrappers of the hand-written kernels.
+
+Every op takes ``use_kernel``: True -> the CUDA kernel (its plain
+PyTorch version for CPU tensors); False -> the ``ref`` oracle.  Both
+paths are held against each other in the tests.
+
+``resolve_plan`` is the shared auto-tile front door: every kernel's
+``auto_tile=True`` path resolves its DSE plan here (one memo, one
+selector table) instead of carrying a private selector call.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from . import filter_reduce as _fr
+from . import groupby_fold as _gbf
+from . import matmul as _mm
+from . import ref
+from ..device import place
+
+# pattern-domain kind -> core.dse selector; every selector returns
+# (blocks, plan) where ``blocks`` is whatever tile tuple or scalar the
+# kernel consumes
+_SELECTORS = {
+    "gemm": "select_gemm_blocks",
+    "attention": "select_attention_blocks",
+    "scan": "select_scan_blocks",
+    "filter_reduce": "select_filter_reduce_blocks",
+    "groupby": "select_groupby_blocks",
+    "fused_filter_fold": "select_fused_filter_fold_blocks",
+    "fused_kmeans": "select_fused_kmeans_blocks",
+    "paged_decode": "select_paged_decode_blocks",
+}
+
+# kinds whose kernels and selectors arrive with a later slice of the port
+_LATER = {
+    "attention": "the LM-stack slice (flash_attention)",
+    "scan": "the LM-stack slice (ssd_scan)",
+    "paged_decode": "the serving slice (lower_paged_decode)",
+}
+
+_PLAN_MEMO: dict = {}
+
+
+def resolve_plan(kind: str, *shape: int, tier=None, device=None, **tuning):
+    """Resolve the DSE tile plan for ``kind`` at ``shape``.
+
+    Returns the selector's ``(blocks, plan)``: ``blocks`` is the tile
+    tuple (or scalar) the kernel consumes, ``plan`` the full
+    ``TilePlan`` / ``PipelinePlan``.  The plan is for ``tier``, else for
+    the tier of ``device`` (the card unless the caller names another
+    device).  Results are memoised in-process per (kind, shape, tier or
+    device), so a kernel's ``auto_tile=True`` call does no planning
+    after its first.
+    The reference's tuning-runtime arguments raise
+    ``NotImplementedError``.
+    """
+    from ..core import dse
+
+    if kind not in _SELECTORS:
+        raise ValueError(f"unknown plan kind {kind!r}; "
+                         f"one of {sorted(_SELECTORS)}")
+    if kind in _LATER:
+        raise NotImplementedError(
+            f"plan kind {kind!r}: its kernel and selector arrive with "
+            f"{_LATER[kind]}")
+    select = getattr(dse, _SELECTORS[kind])
+    if tuning:
+        return select(*shape, tier=tier, device=device, **tuning)
+    key = (kind, shape, tier, None if tier is not None else str(device))
+    if key not in _PLAN_MEMO:
+        _PLAN_MEMO[key] = select(*shape, tier=dse.tier_of(tier, device))
+    return _PLAN_MEMO[key]
+
+
+def clear_plan_memo() -> None:
+    """Drop the in-process plan memo."""
+    _PLAN_MEMO.clear()
+
+
+def matmul(x, y, *, use_kernel: bool = True, block_m: int = 128,
+           block_n: int = 128, block_k: int = 128, device=None):
+    if use_kernel:
+        return _mm.matmul(x, y, block_m=block_m, block_n=block_n,
+                          block_k=block_k, device=device)
+    x, y = place((x, y), device)
+    return ref.matmul(x, y).to(x.dtype)
+
+
+def groupby(keys, values, num_keys: int, *, use_kernel: bool = True,
+            block_t: int = 256, device=None):
+    if use_kernel:
+        return _gbf.groupby_fold(keys, values, num_keys, block_t=block_t,
+                                 device=device)
+    keys, values = place((keys, values), device)
+    return ref.groupby_fold(keys, values, num_keys)
+
+
+def filter_sum(x, weight, lo, hi, *, use_kernel: bool = True,
+               block_t: int = 1024, device=None):
+    if use_kernel:
+        return _fr.filter_reduce(x, weight, lo, hi, block_t=block_t,
+                                 device=device)
+    x, weight = place((x, weight), device)
+    return ref.filter_reduce(x, float(np.float32(lo)), float(np.float32(hi)),
+                             weight)

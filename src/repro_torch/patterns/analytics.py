@@ -155,7 +155,7 @@ def gda(n=512, d=8, k=4, b0=64):
 
 
 # ---------------------------------------------------------------- kmeans
-def _sq_dist(c_row, p_row):
+def sq_dist(c_row, p_row):
     """Squared distance summed over the last dim in index order, one
     multiply and one add per term (see ``kmeans_pipeline``)."""
     s = torch.zeros(torch.broadcast_shapes(c_row.shape[:-1],
@@ -191,7 +191,7 @@ def kmeans(n=256, k=8, d=16, b0=32, b1=4):
     cents = ir.Tensor("centroids", (k, d))
 
     def assign_fn(s, acc, c_row, p_row):
-        d2 = _sq_dist(c_row, p_row)
+        d2 = sq_dist(c_row, p_row)
         j = torch.as_tensor(s[-1], dtype=d2.dtype, device=d2.device)
         new = torch.stack([d2, j.expand_as(d2)], -1)
         return torch.where((d2 < acc[..., 0])[..., None], new, acc)
@@ -362,7 +362,7 @@ def kmeans_pipeline(n=256, k=8, d=16):
     cents = ir.Tensor("centroids", (k, d))
 
     def assign_fn(s, c_all, p_row):
-        d2 = _sq_dist(c_all, p_row[..., None, :])
+        d2 = sq_dist(c_all, p_row[..., None, :])
         return torch.argmin(d2, -1).to(torch.float32)
 
     assign = ir.Map(

@@ -9,7 +9,11 @@ float32 rtol/atol 2e-3 for sums; tiled Map and FlatMap outputs bitwise
 (count exact, tail zero); the launch counts show the kernels ran.  The
 small single-pattern programs below (the paper's Table 2 filter and
 histogram, and Maps and FlatMaps that reach the templates' other
-paths) are shared with the CPU parity tests.
+paths) are shared with the CPU parity tests.  The hand-written kernels
+of ``repro_torch.kernels`` are held against their plain versions:
+float32 products at 1e-4 (K <= 256), bfloat16 outputs at 2e-2, sums at
+1e-5 of their largest magnitude (the plain versions sum in float64),
+counts and assignments exactly.
 """
 import operator
 
@@ -22,6 +26,12 @@ from repro_torch.core import ir
 from repro_torch.core import pipeline as pl
 from repro_torch.core.dse import PipelinePlan
 from repro_torch.core.strip_mine import tile
+from repro_torch.kernels import filter_reduce as fr
+from repro_torch.kernels import fused_filter_fold as fff
+from repro_torch.kernels import fused_kmeans as fkm
+from repro_torch.kernels import groupby_fold as gbf
+from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import ops
 from repro_torch.patterns import analytics as an
 
 NAMES = sorted(an.PIPELINES)
@@ -350,3 +360,197 @@ def test_patterns_without_a_template_raise_on_the_card(name):
     p, sizes = NO_TEMPLATE[name]()
     with pytest.raises(NotImplementedError):
         cc.lower(tile(p, sizes, vmem_budget_words=232_448 // 4))
+
+
+# ------------------------------------------------ hand-written kernels
+def _randn(seed, *shape, dtype=torch.float32):
+    rng = np.random.RandomState(seed)
+    return torch.as_tensor(rng.randn(*shape).astype(np.float32)).cuda() \
+        .to(dtype)
+
+
+def _sum_close(got, want):
+    """Within 1e-5 of the largest magnitude of ``want``."""
+    limit = 1e-5 * float(want.abs().max()) + 1e-6
+    assert float((got.double() - want.double()).abs().max()) <= limit
+
+
+# (m, k, n, block_m, block_n, block_k): the reference's shapes and tiny
+# blocks, and blocks wider than the kernel's 64-word sub-tile
+MATMULS = [(128, 128, 128, 128, 128, 128), (256, 128, 64, 128, 64, 64),
+           (64, 256, 128, 32, 128, 128), (8, 16, 8, 8, 8, 16),
+           (192, 96, 320, 96, 160, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MATMULS)
+def test_matmul_kernel_matches_plain(shape):
+    _card()
+    m, k, n, bm, bn, bk = shape
+    x, y = _randn(0, m, k), _randn(1, k, n)
+    before = mm.matmul.launches
+    out = mm.matmul(x, y, block_m=bm, block_n=bn, block_k=bk)
+    torch.cuda.synchronize()
+    assert mm.matmul.launches == before + 1
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, mm.matmul_plain(x, y, torch.float32),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_matmul_kernel_bfloat16(out_dtype):
+    _card()
+    x, y = (_randn(s, 64, 64, dtype=torch.bfloat16) for s in (2, 3))
+    out = mm.matmul(x, y, block_m=32, block_n=32, block_k=32,
+                    out_dtype=out_dtype)
+    want = mm.matmul_plain(x, y, out.dtype)
+    assert out.dtype == (out_dtype or torch.bfloat16)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_matmul_auto_tile_and_ops_on_the_card():
+    _card()
+    x, y = _randn(0, 512, 512), _randn(1, 512, 512)
+    ops.clear_plan_memo()
+    blocks, _ = ops.resolve_plan("gemm", 512, 512, 512, device=x.device)
+    assert blocks == (128, 512, 512)
+    before = mm.matmul.launches
+    out = mm.matmul(x, y, auto_tile=True)
+    assert ops.matmul(x, y).is_cuda and mm.matmul.launches == before + 2
+    torch.testing.assert_close(out, ops.matmul(x, y, use_kernel=False),
+                               rtol=1e-4, atol=1e-4)
+
+
+FILTERS = [(fr.filter_reduce, fr.filter_reduce_plain),
+           (fff.fused_filter_fold, fff.fused_filter_fold_plain)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,plain", FILTERS)
+@pytest.mark.parametrize("block_t", [128, 1000, 8192])
+def test_filter_fold_kernels_match_plain(fn, plain, block_t):
+    _card()
+    t = 8000 if block_t == 1000 else 16384
+    x, w = _randn(0, t), _randn(1, t)
+    x[:3] = torch.tensor([0.7, 0.9, 0.8], dtype=torch.float32)   # on bounds
+    w[3] = float("nan")
+    x[3] = 5.0                         # fails the predicate: adds 0
+    before = fn.launches
+    got = fn(x, w, 0.7, 0.9, block_t=block_t)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and got.dim() == 0
+    _sum_close(got, plain(x, w, 0.7, 0.9))
+
+
+# each hand kernel on inputs made from (seed, shape) tensors
+HAND = {
+    "matmul": lambda a, b: mm.matmul(a, b, block_m=64, block_n=64,
+                                     block_k=32),
+    "filter_reduce": lambda a, b: fr.filter_reduce(
+        a.reshape(-1), b.reshape(-1), -0.5, 0.8, block_t=512),
+    "fused_filter_fold": lambda a, b: fff.fused_filter_fold(
+        a.reshape(-1), b.reshape(-1), -0.5, 0.8, block_t=512),
+    "groupby_fold": lambda a, b: gbf.groupby_fold(
+        (a.reshape(-1) * 4).to(torch.int32), b.reshape(-1), 8, block_t=512),
+    "fused_kmeans": lambda a, b: fkm.fused_kmeans_step(a, b[:8],
+                                                       block_n=16)[0],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(HAND))
+def test_hand_kernels_take_a_view_off_a_16_byte_boundary(name):
+    """The hand kernels read scalars: a view one word past a 16-byte
+    boundary gives the aligned input's result (up to the order of the
+    shared atomics of groupby_fold and fused_kmeans)."""
+    _card()
+    a, b = _randn(0, 64, 64), _randn(1, 64, 64)
+    oa, ob = _offset_view(a), _offset_view(b)
+    assert oa.data_ptr() % 16 and ob.data_ptr() % 16
+    _sum_close(HAND[name](oa, ob), HAND[name](a, b))
+
+
+@pytest.mark.cuda
+def test_staged_filter_fold_refuses_a_step_beyond_shared_memory():
+    _card()
+    x = _randn(0, 1 << 17)
+    before = fff.fused_filter_fold.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fff.fused_filter_fold(x, x, 0.0, 1.0, block_t=1 << 17)
+    assert fff.fused_filter_fold.launches == before
+
+
+GROUPBYS = [(512, 16, 4, 128), (256, 8, 1, 256), (128, 64, 8, 32),
+            (4096, 8, 0, 512)]          # E = 0: 1-D values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,k,ew,bt", GROUPBYS)
+def test_groupby_fold_kernel_matches_plain(t, k, ew, bt):
+    _card()
+    rng = np.random.RandomState(t)
+    keys = torch.as_tensor(rng.randint(-2, k + 2, t).astype(np.int32)).cuda()
+    vals = _randn(1, *((t, ew) if ew else (t,)))
+    before = gbf.groupby_fold.launches
+    out = gbf.groupby_fold(keys, vals, k, block_t=bt)
+    torch.cuda.synchronize()
+    assert gbf.groupby_fold.launches == before + 1
+    want = gbf.groupby_fold_plain(keys, vals, k)
+    assert out.shape == want.shape
+    _sum_close(out, want)
+
+
+@pytest.mark.cuda
+def test_groupby_fold_counts_are_exact_and_drop_keys_outside():
+    _card()
+    keys = torch.tensor([0, 1, -1, 8, 3, 9, 2, 7], dtype=torch.int32).cuda()
+    out = ops.groupby(keys, torch.ones(8).cuda(), 8, block_t=4)
+    assert out.tolist() == [1, 1, 1, 1, 0, 0, 0, 1]
+    keys = torch.as_tensor(np.random.RandomState(0).randint(0, 8, 1 << 16)
+                           .astype(np.int32)).cuda()
+    counts = gbf.groupby_fold(keys, torch.ones(1 << 16).cuda(), 8,
+                              auto_tile=True)
+    assert torch.equal(counts, torch.bincount(keys, minlength=8).float())
+
+
+@pytest.mark.cuda
+def test_groupby_fold_refuses_a_table_beyond_shared_memory():
+    _card()
+    keys = torch.zeros(1024, dtype=torch.int32).cuda()
+    before = gbf.groupby_fold.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        gbf.groupby_fold(keys, torch.ones(1024, 64).cuda(), 1024)
+    assert gbf.groupby_fold.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d,block_n", [(4096, 8, 16, 1024),
+                                           (1000, 5, 3, 200)])
+def test_fused_kmeans_kernel_matches_plain(n, k, d, block_n):
+    _card()
+    pts, cents = _randn(0, n, d), _randn(1, k, d)
+    cents[k - 1] = cents[0]               # a tie: the lower index wins
+    before = fkm.fused_kmeans_step.launches
+    sums, counts = fkm.fused_kmeans_step(pts, cents, block_n=block_n)
+    torch.cuda.synchronize()
+    assert fkm.fused_kmeans_step.launches == before + 1
+    want_s, want_c = fkm.fused_kmeans_plain(pts, cents)
+    assert torch.equal(counts, want_c) and float(counts[k - 1]) == 0.0
+    _sum_close(sums, want_s)
+
+
+@pytest.mark.cuda
+def test_fused_kmeans_matches_the_generated_megakernel():
+    """The hand-written kernel and the compiler's fused DAG of
+    kmeans_pipeline compute the same step."""
+    _card()
+    pipe, make_inputs, _ = an.PIPELINES["kmeans"](n=8192)
+    inp = {k: torch.as_tensor(v).cuda() for k, v in make_inputs().items()}
+    gen = cc.lower_fused_pipeline(pipe)(**inp)
+    sums, counts = fkm.fused_kmeans_step(inp["points"], inp["centroids"],
+                                         auto_tile=True)
+    assert torch.equal(counts, gen["km_counts"])
+    _sum_close(sums, gen["km_sums"])

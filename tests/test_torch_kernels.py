@@ -1,0 +1,332 @@
+"""The port's hand-written kernel layer (``repro_torch.kernels``: ``matmul``,
+``filter_reduce``, ``fused_filter_fold``, ``groupby_fold``,
+``fused_kmeans``, ``ops``, ``ref``, ``autotile``) on the CPU -- each
+kernel's plain version -- against the JAX package's Pallas kernels in
+interpret mode and its ``ref`` oracles, on the same seeded numpy inputs.
+The cases mirror ``tests/test_kernels.py`` and the kernel tests of
+``tests/test_pipeline.py``, with the reference tests' tolerances:
+matmul float32 2e-5 and bfloat16 2e-2, groupby 1e-5, filters 1e-4,
+kmeans sums 1e-4 and counts exact.  ``auto_tile`` plans differ between
+the packages (the reference plans for its TPU budget, the port for the
+card's), so those cases compare values only.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import autotile as jautotile
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.filter_reduce import filter_reduce as jfilter_reduce
+from repro.kernels.fused_filter_fold import \
+    fused_filter_fold as jfused_filter_fold
+from repro.kernels.fused_kmeans import fused_kmeans_step as jfused_kmeans
+from repro.kernels.groupby_fold import groupby_fold as jgroupby_fold
+from repro.kernels.matmul import matmul as jmatmul
+
+from repro_torch.core import cost
+from repro_torch.kernels import autotile, ops, ref
+from repro_torch.kernels.filter_reduce import filter_reduce
+from repro_torch.kernels.fused_filter_fold import fused_filter_fold
+from repro_torch.kernels.fused_kmeans import fused_kmeans_step
+from repro_torch.kernels.groupby_fold import groupby_fold
+from repro_torch.kernels.matmul import k_chunk, matmul
+
+
+def _r(seed, *shape):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def _keys(seed, t, lo, hi):
+    return np.random.RandomState(seed).randint(lo, hi, t).astype(np.int32)
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t, np.float32)
+
+
+# ------------------------------------------------------------- matmul
+@pytest.mark.parametrize("m,k,n,bm,bn,bk", [
+    (128, 128, 128, 128, 128, 128),
+    (256, 128, 64, 128, 64, 64),
+    (64, 256, 128, 32, 128, 128),
+    (8, 16, 8, 8, 8, 16),
+])
+def test_matmul_shapes_match_jax(m, k, n, bm, bn, bk):
+    x, y = _r(0, m, k), _r(1, k, n)
+    want = jmatmul(x, y, block_m=bm, block_n=bn, block_k=bk)
+    got = matmul(x, y, block_m=bm, block_n=bn, block_k=bk, device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_dtypes_match_jax(dtype):
+    x, y = _r(2, 64, 64), _r(3, 64, 64)
+    want = jmatmul(jnp.asarray(x, dtype), jnp.asarray(y, dtype),
+                   block_m=32, block_n=32, block_k=32)
+    tdt = getattr(torch, dtype)
+    got = matmul(torch.as_tensor(x).to(tdt), torch.as_tensor(y).to(tdt),
+                 block_m=32, block_n=32, block_k=32, device="cpu")
+    assert got.dtype == tdt      # out_dtype defaults to x.dtype
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        _np(got), np.asarray(jref.matmul(jnp.asarray(x, dtype),
+                                         jnp.asarray(y, dtype))),
+        rtol=tol, atol=tol)
+
+
+def test_matmul_auto_tile_matches_jax():
+    x, y = _r(0, 256, 128), _r(1, 128, 256)
+    want = jmatmul(x, y, auto_tile=True)
+    got = matmul(x, y, auto_tile=True, device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(autotile.tuned_matmul(x, y, device="cpu"),
+                               got.numpy(), rtol=0, atol=0)
+
+
+def test_matmul_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros(64, 64)
+    with pytest.raises(ValueError, match="must divide"):
+        matmul(x, x, block_m=48, device="cpu")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        matmul(x.double(), x.double(), device="cpu")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        matmul(x, x.bfloat16(), device="cpu")
+    with pytest.raises(ValueError, match="matmul of"):
+        matmul(x, torch.zeros(32, 8), device="cpu")
+
+
+@pytest.mark.parametrize("block_k,kc", [(128, 32), (16, 16), (4096, 32),
+                                        (48, 24), (7, 7)])
+def test_matmul_stages_k_in_divisors_of_block_k(block_k, kc):
+    assert k_chunk(block_k) == kc
+
+
+# ------------------------------------------------------- groupby fold
+def _blocks(name, block):
+    """A block argument, or ``auto_tile`` when ``block`` is None."""
+    return {"auto_tile": True} if block is None else {name: block}
+
+
+@pytest.mark.parametrize("t,k,ew,bt", [(512, 16, 4, 128), (256, 8, 1, 256),
+                                       (128, 64, 8, 32), (512, 16, 4, None)])
+def test_groupby_fold_matches_jax(t, k, ew, bt):
+    keys, vals = _keys(0, t, 0, k), _r(1, t, ew)
+    want = jgroupby_fold(keys, vals, k, **_blocks("block_t", bt))
+    got = groupby_fold(keys, vals, k, device="cpu", **_blocks("block_t", bt))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), jref.groupby_fold(keys, vals, k),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("auto_tile", [False, True])
+def test_groupby_fold_1d_values_match_jax(auto_tile):
+    keys, vals = _keys(2, 512, 0, 16), _r(3, 512)
+    kw = {"auto_tile": True} if auto_tile else {}
+    want = jgroupby_fold(keys, vals, 16, **kw)
+    got = groupby_fold(keys, vals, 16, device="cpu", **kw)
+    assert got.shape == (16,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_groupby_fold_drops_keys_outside_the_table():
+    keys = np.array([0, 1, -1, 8, 3, 9, 2, 7], np.int32)
+    ones = np.ones(8, np.float32)
+    want = [1, 1, 1, 1, 0, 0, 0, 1]
+    np.testing.assert_array_equal(jgroupby_fold(keys, ones, 8, block_t=4),
+                                  want)
+    for got in (groupby_fold(keys, ones, 8, block_t=4, device="cpu"),
+                ops.groupby(keys, ones, 8, device="cpu"),
+                ops.groupby(keys, ones, 8, use_kernel=False, device="cpu"),
+                ref.groupby_fold(torch.as_tensor(keys),
+                                 torch.as_tensor(ones), 8)):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_groupby_fold_refuses_what_the_kernel_does_not_take():
+    keys = np.zeros(64, np.int32)
+    with pytest.raises(ValueError, match="int32"):
+        groupby_fold(keys.astype(np.int64), np.ones(64, np.float32), 4,
+                     device="cpu")
+    with pytest.raises(ValueError, match="must divide"):
+        groupby_fold(keys, np.ones(64, np.float32), 4, block_t=48,
+                     device="cpu")
+
+
+# ------------------------------------------------------ filter kernels
+FILTERS = {"filter_reduce": (jfilter_reduce, filter_reduce),
+           "fused_filter_fold": (jfused_filter_fold, fused_filter_fold)}
+
+
+@pytest.mark.parametrize("t,bt", [(2048, 512), (1024, 1024), (512, 128),
+                                  (2048, None)])
+def test_filter_reduce_matches_jax(t, bt):
+    x, w = _r(0, t), _r(1, t)
+    want = jfilter_reduce(x, w, -0.5, 0.8, **_blocks("block_t", bt))
+    got = filter_reduce(x, w, -0.5, 0.8, device="cpu",
+                        **_blocks("block_t", bt))
+    assert got.dim() == 0 and got.dtype == torch.float32
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(
+        float(got), float(jref.filter_reduce(x, jnp.float32(-0.5),
+                                             jnp.float32(0.8), w)),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(FILTERS))
+@pytest.mark.parametrize("auto_tile", [False, True])
+def test_filter_kernels_match_jax(name, auto_tile):
+    """test_pipeline.py's fused_filter_fold case, for both kernels."""
+    jfn, fn = FILTERS[name]
+    rng = np.random.RandomState(0)
+    x, w = rng.rand(2048).astype(np.float32), rng.rand(2048).astype(np.float32)
+    kw = {"auto_tile": True} if auto_tile else {"block_t": 256}
+    want = np.sum(np.where((x >= 0.1) & (x < 0.9), x * w, 0.0))
+    got = fn(x, w, 0.1, 0.9, device="cpu", **kw)
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)
+    np.testing.assert_allclose(float(got), float(jfn(x, w, 0.1, 0.9, **kw)),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(FILTERS))
+def test_filter_bounds_are_float32(name):
+    """``float32(0.7)`` and ``float32(0.9)`` lie below 0.7 and 0.9: the
+    row equal to float32(lo) is kept and the one equal to float32(hi)
+    dropped, as the reference's float32 bounds do (a float64 comparison
+    would do the opposite for both)."""
+    jfn, fn = FILTERS[name]
+    x = np.array([0.7, 0.9, 0.8, 0.1], np.float32)
+    w = np.array([1.0, 10.0, 100.0, 1000.0], np.float32)
+    want = float(jfn(x, w, 0.7, 0.9, block_t=4))
+    got = fn(x, w, 0.7, 0.9, block_t=4, device="cpu")
+    assert float(got) == want == np.float32(0.7) * 1.0 + np.float32(0.8) * 100
+    assert float(ops.filter_sum(x, w, 0.7, 0.9, use_kernel=False,
+                                device="cpu")) == want
+
+
+@pytest.mark.parametrize("name", sorted(FILTERS))
+def test_filter_where_fails_adds_zero_even_for_nan(name):
+    jfn, fn = FILTERS[name]
+    x = np.array([0.5, 2.0, np.inf, 0.25], np.float32)
+    w = np.array([2.0, np.nan, 0.0, 4.0], np.float32)
+    want = float(jfn(x, w, 0.0, 1.0, block_t=2))
+    got = float(fn(x, w, 0.0, 1.0, block_t=2, device="cpu"))
+    assert got == want == 2.0
+
+
+# ----------------------------------------------------- fused k-means
+@pytest.mark.parametrize("auto_tile", [False, True])
+def test_fused_kmeans_matches_jax(auto_tile):
+    n, k, d = 256, 8, 16
+    rng = np.random.RandomState(0)
+    pts, cents = rng.randn(n, d).astype(np.float32), \
+        rng.randn(k, d).astype(np.float32)
+    kw = {"auto_tile": True} if auto_tile else {"block_n": 64}
+    js, jc = jfused_kmeans(pts, cents, **kw)
+    sums, counts = fused_kmeans_step(pts, cents, device="cpu", **kw)
+    np.testing.assert_allclose(sums.numpy(), np.asarray(js), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+    idx = ((pts[:, None] - cents[None]) ** 2).sum(-1).argmin(1)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.bincount(idx, minlength=k))
+
+
+def test_fused_kmeans_ties_go_to_the_lowest_index():
+    pts = np.zeros((4, 2), np.float32)
+    cents = np.array([[1, 0], [0, 1], [-1, 0], [0, -1]], np.float32)
+    sums, counts = fused_kmeans_step(pts, cents, device="cpu")
+    _, jc = jfused_kmeans(pts, cents)
+    np.testing.assert_array_equal(counts.numpy(), [4, 0, 0, 0])
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+
+
+# ------------------------------------------------------ ops, ref, plans
+def test_ops_match_ref_and_the_kernels():
+    x, y = _r(0, 64, 32), _r(1, 32, 48)
+    tx, ty = torch.as_tensor(x), torch.as_tensor(y)
+    np.testing.assert_array_equal(
+        ops.matmul(x, y, use_kernel=False, device="cpu").numpy(),
+        ref.matmul(tx, ty).numpy())
+    np.testing.assert_allclose(ops.matmul(x, y, block_m=32, device="cpu"),
+                               ref.matmul(tx, ty), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(ref.matmul(tx, ty), jref.matmul(x, y),
+                               rtol=2e-5, atol=2e-5)
+    keys, vals = _keys(2, 256, 0, 8), _r(3, 256, 4)
+    np.testing.assert_array_equal(
+        ops.groupby(keys, vals, 8, use_kernel=False, device="cpu").numpy(),
+        ref.groupby_fold(torch.as_tensor(keys), torch.as_tensor(vals),
+                         8).numpy())
+    np.testing.assert_allclose(ops.groupby(keys, vals, 8, device="cpu"),
+                               jref.groupby_fold(keys, vals, 8),
+                               rtol=1e-5, atol=1e-5)
+    xs, ws = _r(4, 1024), _r(5, 1024)
+    assert float(ops.filter_sum(xs, ws, -0.5, 0.8, use_kernel=False,
+                                device="cpu")) == float(ref.filter_reduce(
+                                    torch.as_tensor(xs), np.float32(-0.5),
+                                    np.float32(0.8), torch.as_tensor(ws)))
+    np.testing.assert_allclose(
+        float(ops.filter_sum(xs, ws, -0.5, 0.8, device="cpu")),
+        float(jref.filter_reduce(xs, jnp.float32(-0.5), jnp.float32(0.8),
+                                 ws)), rtol=1e-4, atol=1e-4)
+
+
+def test_resolve_plan_memoises_and_dispatches(monkeypatch):
+    ops.clear_plan_memo()
+    calls = []
+    from repro_torch.core import dse
+    select = dse.select_filter_reduce_blocks
+    monkeypatch.setattr(dse, "select_filter_reduce_blocks",
+                        lambda *a, **k: calls.append(a) or select(*a, **k))
+    first = ops.resolve_plan("filter_reduce", 4096, tier=cost.TPU)
+    again = ops.resolve_plan("filter_reduce", 4096, tier=cost.TPU)
+    assert again is first and len(calls) == 1
+    assert first == select(4096, tier=cost.TPU)
+    ops.resolve_plan("filter_reduce", 4096, device="cpu")
+    assert len(calls) == 2         # another tier: another plan
+    ops.clear_plan_memo()
+    ops.resolve_plan("filter_reduce", 4096, tier=cost.TPU)
+    assert len(calls) == 3
+
+
+def test_resolve_plan_refuses_unknown_later_and_tuning_kinds():
+    assert sorted(ops._SELECTORS) == sorted(jops._SELECTORS)
+    with pytest.raises(ValueError, match="unknown plan kind"):
+        ops.resolve_plan("conv", 1)
+    for kind in ("attention", "scan", "paged_decode"):
+        with pytest.raises(NotImplementedError, match="slice"):
+            ops.resolve_plan(kind, 128, 128, 64)
+    with pytest.raises(NotImplementedError, match="tuning-runtime"):
+        ops.resolve_plan("gemm", 512, 512, 512, measure="top_k",
+                         device="cpu")
+
+
+@pytest.mark.parametrize("budget", [None, cost.H100_SXM.onchip_bytes])
+def test_select_gemm_tiles_matches_jax(budget):
+    want = jautotile.select_gemm_tiles(512, 512, 512, vmem_budget=budget,
+                                       cache=False)
+    got = autotile.select_gemm_tiles(512, 512, 512, vmem_budget=budget,
+                                     tier=cost.TPU)
+    assert vars(got) == vars(want)
+
+
+def test_kernel_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.ones((8, 8), np.float32)
+    v = np.ones(8, np.float32)
+    k = np.zeros(8, np.int32)
+    for fn in (lambda: matmul(x, x), lambda: autotile.tuned_matmul(x, x),
+               lambda: ops.matmul(x, x), lambda: ops.matmul(
+                   x, x, use_kernel=False),
+               lambda: filter_reduce(v, v, 0.0, 1.0),
+               lambda: fused_filter_fold(v, v, 0.0, 1.0),
+               lambda: groupby_fold(k, v, 4), lambda: ops.groupby(k, v, 4),
+               lambda: fused_kmeans_step(x, x),
+               lambda: ops.resolve_plan("gemm", 512, 512, 512)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()

@@ -175,6 +175,27 @@ def test_tiled_flatmap_matches_the_reference_bitwise(name, n, b):
     assert not buf[want.size:].any()
 
 
+@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("name", sorted(FLATMAPS))
+def test_eager_oracle_runs_a_flatmap_as_the_reference(name, tiled):
+    """``codegen_torch.execute`` on a FlatMap, untiled and tiled, against
+    ``codegen_jax.execute``: the buffer bitwise, the count exact, the
+    tail zero."""
+    jbuild, tbuild = FLATMAPS[name]
+    n, b = 1000, 40
+    xs = np.random.RandomState(n).randn(n).astype(np.float32)
+    jp, tp = jbuild(n), tbuild(n)
+    if tiled:
+        jp, tp = jtile(jp, {jp.name: (b,)}), tile(tp, {tp.name: (b,)})
+    jbuf, jcount = jex.execute(jp, {"x": xs})
+    buf, count = tex.execute(tp, {"x": xs}, device="cpu")
+    assert count.dtype == torch.int32 and count.shape == ()
+    assert int(count) == int(jcount)
+    assert tuple(buf.shape) == tp.shape == (n * tbuild(n).max_per_iter,)
+    np.testing.assert_array_equal(buf.numpy(), np.asarray(jbuf))
+    assert not buf[int(count):].any()
+
+
 # -------------------------------------------------------- lower_auto
 def _plan_fields(p):
     return (p.sizes, p.depths, p.traffic_words, p.vmem_bytes,
