@@ -27,7 +27,21 @@ Builds every kernel of the path from ``src/repro_torch/kernels/csrc``
     4,194,304 rows into 64 keys of 8 values (about 1% of the keys
     outside the table) and as MoE's ``router_counts`` (8 experts, values
     one); ``fused_kmeans_step`` on the kmeans pipeline's inputs, timed
-    beside the compiler's fused-DAG kernel for the same step.
+    beside the compiler's fused-DAG kernel for the same step;
+  * runs the LM kernels at the widths of ``repro_torch.configs``:
+    ``flash_attention`` at granite-3-2b's (causal prefill of 2 x 4096
+    tokens in float32 and bfloat16, decode of 32 rows over 32,768 keys)
+    and mixtral-8x22b's (window 4096 over 8,192 tokens), ``ssd_scan`` at
+    mamba2-370m's (4 x 4096 steps, float32 and bfloat16).  Each output
+    is held against the plain version and a float64 oracle at rtol
+    ``tol`` and an atol of ``tol`` times the oracle's root mean square:
+    per output row for attention (rows that average thousands of keys
+    are small), over the whole output for the SSD.  ``tol`` is 2e-3 for
+    float32 attention, SSD_F32_TOL for the float32 SSD, 2e-2 for
+    bfloat16.  Each limit is first proved to catch planted faults: a
+    dropped kv block in the first and in the last query tile, the SSD's
+    state carry zeroed at a chunk boundary, and, for float32, the
+    oracle's output rounded to bfloat16.
 
 Each run resets the kernel's launch count just before, reads it just
 after, and fails if the kernel did not run.  Each result is held
@@ -61,6 +75,10 @@ RTOL = ATOL = 2e-3           # float32 tolerance of the reference's tests
 SUM_RTOL = 1e-5
 EXACT = {"km_counts", "router"}  # integer counts below 2**24: exact in f32
 BF16_TOL = 2e-2              # bfloat16 tolerance of the reference's tests
+# the float32 SSD: rtol, and atol as a share of the output's root mean square;
+# the kernel's error is about 1e-5 of its largest output, and an output
+# rounded to bfloat16 (up to 2**-8 of each value) must fail it
+SSD_F32_TOL = 1e-4
 TPCH_ROWS = 6_000_000        # TPC-H SF1 lineitem (6,001,215) cut to 128s
 ROWS = 4_194_304             # 2**22
 GEMM_N = 4096
@@ -79,22 +97,22 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def median_ms(fn, torch) -> float:
-    """Median over REPS of the per-call time of BATCH back-to-back calls
-    between two CUDA events (so the card, not the host's enqueue, sets
-    the time), after WARMUP calls."""
+def median_ms(fn, torch, reps: int = REPS, batch: int = BATCH) -> float:
+    """Median over ``reps`` of the per-call time of ``batch`` back-to-back
+    calls between two CUDA events (so the card, not the host's enqueue,
+    sets the time), after WARMUP calls."""
     for _ in range(WARMUP):
         fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(BATCH):
+        for _ in range(batch):
             fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / BATCH)
+        times.append(a.elapsed_time(b) / batch)
     times.sort()
     return times[len(times) // 2]
 
@@ -636,6 +654,355 @@ def run_hand_kernels(kmeans_kernel, cc, tier, torch, dev) -> list:
     return rows
 
 
+# ------------------------------------------------ LM kernels (attention, SSD)
+LM_REPS, LM_BATCH = 5, 2     # the LM phases' calls take up to ~0.1 s each
+FA_TPU = f"{HAND}/flash_attention.py:77"
+SSD_TPU = f"{HAND}/ssd_scan.py:71"
+
+
+def lm_randn(shape, seed: int, torch, dev):
+    """Standard normal float32 values made on the card from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev)
+
+
+def fmt_atol(atol) -> str:
+    if isinstance(atol, float):
+        return f"{atol:.4g}"
+    return f"{float(atol.min()):.4g}..{float(atol.max()):.4g} (per row)"
+
+
+def check_close(got, want, tol: float, atol, torch, what: str):
+    """Max abs error of ``got`` against ``want``; fails where
+    |got - want| > tol * |want| + atol (a float, or a tensor that
+    broadcasts against ``want``), or on a wrong shape or a value that is
+    not finite."""
+    g, w = got.double(), want.double()
+    if tuple(g.shape) != tuple(w.shape) or not bool(torch.isfinite(g).all()):
+        fail(f"{what}: not finite of shape {tuple(w.shape)}")
+    err = (g - w).abs()
+    over = err - (tol * w.abs() + atol)
+    if bool((over > 0).any()):
+        fail(f"{what}: max abs err {float(err.max()):.4g} exceeds rtol {tol}"
+             f" / atol {fmt_atol(atol)} by {float(over.max()):.4g}")
+    return float(err.max())
+
+
+def catches(faulted, want, tol: float, atol) -> bool:
+    """Whether the limit of ``check_close`` would fail ``faulted``."""
+    shift = (faulted.double() - want).abs()
+    return bool((shift > tol * want.abs() + atol).any())
+
+
+def rounding_fault(want, tol: float, atol, torch, what: str) -> float:
+    """The planted fault of a float32 phase: the oracle's output rounded
+    to bfloat16, as a kernel that kept its output or state in bfloat16
+    would give.  Fails unless the limit catches it; returns its shift."""
+    rounded = want.to(torch.bfloat16).double()
+    if not catches(rounded, want, tol, atol):
+        fail(f"{what}: rtol {tol} / atol {fmt_atol(atol)} would not catch "
+             f"the output rounded to bfloat16")
+    return float((rounded - want).abs().max())
+
+
+def attention_f64(q, k, v, causal: bool, window, torch):
+    """``ref.attention`` in float64, one (batch, kv head) at a time so the
+    logits fit (every row of these phases sees a key, where the oracle's
+    -inf mask and the kernel's -1e30 agree)."""
+    from repro_torch.kernels import ref
+
+    b, hq = q.shape[:2]
+    hkv = k.shape[1]
+    group = hq // hkv
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for bi in range(b):
+        for h in range(hkv):
+            heads = slice(h * group, (h + 1) * group)
+            out[bi:bi + 1, heads] = ref.attention(
+                q[bi:bi + 1, heads].double(), k[bi:bi + 1, h:h + 1].double(),
+                v[bi:bi + 1, h:h + 1].double(), causal=causal, window=window)
+    return out
+
+
+def dropped_block_fault(q, k, v, want, causal, window, q0: int, rows: int,
+                        block_k: int, tol: float, atol, torch):
+    """The planted fault: the query tile of rows q0.. of (batch 0, head 0)
+    loses the kv block that holds most of its softmax mass, as a kernel
+    that skipped it would give (float64, the kernel's finite mask: a row
+    left with no visible key is the mean of the V it kept).  ``atol`` is
+    the per-row limit of those rows.  Returns (the block, the largest
+    shift, whether the limit catches it)."""
+    from repro_torch.kernels.flash_attention import NEG_INF, visible_mask
+
+    sq, d = q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    qr = q[0, 0, q0:q0 + rows].double()
+    kk, vv = k[0, 0].double(), v[0, 0].double()
+    logits = (qr @ kk.T) * d ** -0.5
+    mask = visible_mask(sq, sk, q0, 0, rows, sk, causal, window, q.device)
+    logits = logits.masked_fill(~mask, NEG_INF)
+    mass = torch.softmax(logits, -1).sum(0).reshape(-1, block_k).sum(1)
+    j = int(mass.argmax())
+    keep = torch.ones(sk, dtype=torch.bool, device=q.device)
+    keep[j * block_k:(j + 1) * block_k] = False
+    faulted = torch.softmax(logits[:, keep], -1) @ vv[keep]
+    ref_rows = want[0, 0, q0:q0 + rows]
+    shift = float((faulted - ref_rows).abs().max())
+    return j, shift, catches(faulted, ref_rows, tol, atol)
+
+
+def sdpa_call(q, k, v, causal: bool, window, torch):
+    """One PyTorch call computing the same attention:
+    ``scaled_dot_product_attention`` with ``enable_gqa``.  Its
+    ``is_causal`` is aligned top left, so it is used only where sq == sk;
+    decode (sq 1, every key visible) takes no mask, a window a boolean
+    one."""
+    from repro_torch.kernels.flash_attention import visible_mask
+
+    sq, sk = q.shape[2], k.shape[2]
+    kw = {"enable_gqa": True}
+    if window is not None:
+        kw["attn_mask"] = visible_mask(sq, sk, 0, 0, sq, sk, causal, window,
+                                       q.device)
+    elif causal and sq == sk:
+        kw["is_causal"] = True
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, **kw)
+
+
+def sdpa_backend(breakdown: str) -> str:
+    low = breakdown.lower()
+    for key, name in (("flash", "flash"), ("cudnn", "cudnn"),
+                      ("fmha", "memory-efficient"),
+                      ("efficient", "memory-efficient")):
+        if key in low:
+            return name
+    return "math (or not measured)"
+
+
+def run_attention(label: str, cfg, b: int, sq: int, sk: int, dtype, *,
+                  causal: bool, window, blocks, seed: int, tier, torch,
+                  dev) -> dict:
+    """``flash_attention`` at one model's attention widths through its entry
+    point: ``blocks`` (block_q, block_k), or the DSE's plan when None.
+    Held against its plain version and the float64 oracle (atol per
+    output row) after proving the limit catches a kv block dropped from
+    the first and from the last q tile and, in float32, an output rounded
+    to bfloat16; timed beside its plain version and SDPA."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import visible_mask
+
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = lm_randn((b, hq, sq, d), seed, torch, dev).to(dtype)
+    k = lm_randn((b, hkv, sk, d), seed + 1, torch, dev).to(dtype)
+    v = lm_randn((b, hkv, sk, d), seed + 2, torch, dev).to(dtype)
+    kw = {"causal": causal, "window": window}
+    if blocks is None:
+        show_plan(label, "attention", sq, sk, d, dev=dev)
+        block_q, block_k = ops.resolve_plan("attention", sq, sk, d,
+                                            device=dev)[0]
+
+        def run():
+            return fa.flash_attention(q, k, v, auto_tile=True, **kw)
+    else:
+        block_q, block_k = blocks
+        try:
+            show_plan(label, "attention", sq, sk, d, dev=dev)
+        except ValueError as e:
+            print(f"[{label}] DSE: {e}; fixed blocks {blocks}")
+
+        def run():
+            return fa.flash_attention(q, k, v, block_q=block_q,
+                                      block_k=block_k, **kw)
+    tol = BF16_TOL if dtype == torch.bfloat16 else RTOL
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    print(f"[{label}] {cfg.name}: q {tuple(q.shape)}, k/v {tuple(k.shape)} "
+          f"{dtype}, causal={causal}, window={window}, blocks ({block_q}, "
+          f"{block_k}); flash_attention launches={launches}")
+    if launches < 1:
+        fail(f"{label}: the flash_attention kernel was not launched")
+
+    def plain():
+        return fa.flash_attention_plain(q, k, v, block_k=block_k, **kw)
+    want = attention_f64(q, k, v, causal, window, torch)
+    # atol per output row: tol x the row's root mean square over the head
+    # dim.  A row averaging n keys is about sqrt(e / n) in size, so late
+    # rows are held as tightly, for their size, as the O(1) first rows.
+    atol = tol * want.pow(2).mean(-1, keepdim=True).sqrt()
+    rows = min(block_q, sq)
+    faults = []
+    for q0 in sorted({0, sq - rows}):          # the first and last q tile
+        j, shift, caught = dropped_block_fault(
+            q, k, v, want, causal, window, q0, rows, block_k, tol,
+            atol[0, 0, q0:q0 + rows], torch)
+        if not caught:
+            fail(f"{label}: rtol {tol} / atol {fmt_atol(atol)} would not "
+                 f"catch kv block {j} dropped from the q tile at row {q0} "
+                 f"(shift {shift:.4g})")
+        faults.append(f"kv block {j} dropped from the q tile at row {q0} "
+                      f"shifts it by {shift:.4g}")
+    if dtype == torch.float32:
+        faults.append("the output rounded to bfloat16 by " + format(
+            rounding_fault(want, tol, atol, torch, label), ".4g"))
+    p_out = plain()
+    e_plain = check_close(out, p_out, tol, atol, torch, f"{label} vs plain")
+    e_ref = check_close(out, want, tol, atol, torch, f"{label} vs float64")
+    e_pref = check_close(p_out, want, tol, atol, torch,
+                         f"{label}: plain vs float64")
+    del p_out
+    lib = sdpa_call(q, k, v, causal, window, torch)
+    e_lib = check_close(lib(), want, tol, atol, torch, f"{label}: SDPA")
+    del want
+    print(f"[{label}] max abs err vs plain {e_plain:.4g}, vs float64 "
+          f"{e_ref:.4g} (plain {e_pref:.4g}, SDPA {e_lib:.4g}); rtol {tol}, "
+          f"atol {fmt_atol(atol)}; planted faults caught: "
+          + "; ".join(faults))
+    del atol
+    ms = median_ms(run, torch, LM_REPS, LM_BATCH)
+    plain_ms = median_ms(plain, torch, LM_REPS, LM_BATCH)
+    lib_ms = median_ms(lib, torch, LM_REPS, LM_BATCH)
+    pairs = int(visible_mask(sq, sk, 0, 0, sq, sk, causal, window, dev).sum())
+    flops = 4 * b * hq * pairs * d
+    peak = BF16_PEAK if dtype == torch.bfloat16 else None
+    bound_ms, by = bound(nbytes_of(q, k, v, out), flops, tier, peak)
+    lib_parts = device_breakdown(lib, torch)
+    print(f"[{label}] flash_attention {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+          f"TFLOP/s on visible pairs), plain {plain_ms:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms ({sdpa_backend(lib_parts)} backend), bound "
+          f"{bound_ms:.4f} ms ({by}; {pairs} visible pairs per head)",
+          flush=True)
+    print(f"[{label}] device time per call: " + device_breakdown(run, torch))
+    print(f"[{label}] SDPA device time per call: {lib_parts}")
+    return {"name": f"flash_attention[{label[10:-1]}]", "route": "cuda",
+            "source": f"{CSRC}/flash_attention.cuh", "replaces": FA_TPU,
+            "launches": launches, "max_abs_err": e_plain, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def run_ssd(label: str, cfg, b: int, seq: int, chunk: int, dtype, seed: int,
+            tier, torch, dev) -> dict:
+    """``ssd_scan`` at one model's SSD widths through its entry point:
+    held against its plain version and the float64 recurrence (atol
+    scaled by the output's root mean square) after proving the limit
+    catches a state carry zeroed at one chunk boundary and, in float32,
+    an output rounded to bfloat16; timed beside its plain version (no
+    single PyTorch call computes the scan)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    h, dh, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    if h * dh != cfg.d_inner:
+        fail(f"{label}: heads x head dim {h * dh} != d_inner {cfg.d_inner}")
+    F = torch.nn.functional
+    x = lm_randn((b, seq, h, dh), seed, torch, dev).to(dtype)
+    dt = (F.softplus(lm_randn((b, seq, h), seed + 1, torch, dev))
+          * 0.1).to(dtype)
+    A = -F.softplus(lm_randn((h,), seed + 2, torch, dev)) - 0.1
+    B = lm_randn((b, seq, n), seed + 3, torch, dev).to(dtype)
+    C = lm_randn((b, seq, n), seed + 4, torch, dev).to(dtype)
+    try:
+        show_plan(label, "scan", seq, n, dh, dev=dev)
+    except ValueError as e:
+        print(f"[{label}] DSE: {e}; fixed chunk {chunk}")
+    tol = BF16_TOL if dtype == torch.bfloat16 else SSD_F32_TOL
+
+    def run():
+        return ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+    def plain():
+        return ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    ssd.ssd_scan.launches = 0
+    y = run()
+    torch.cuda.synchronize()
+    launches = ssd.ssd_scan.launches
+    print(f"[{label}] {cfg.name}: x {tuple(x.shape)} {dtype}, state ({n}, "
+          f"{dh}), chunk {chunk} as sub-chunks of {ssd.sub_chunk(chunk)}; "
+          f"ssd_scan launches={launches}")
+    if launches < 1:
+        fail(f"{label}: the ssd_scan kernel was not launched")
+    want = ref.ssd_scan(*(t.double() for t in (x, dt, A, B, C)))
+    atol = tol * float(want.pow(2).mean().sqrt())
+    # the planted fault: batch 0, head 0 restarts from a zero state at the
+    # chunk boundary t0 (the oracle run from t0 on)
+    t0 = seq // 2 // chunk * chunk
+    part = (x[:1, t0:t0 + chunk, :1], dt[:1, t0:t0 + chunk, :1], A[:1],
+            B[:1, t0:t0 + chunk], C[:1, t0:t0 + chunk])
+    faulted = ref.ssd_scan(*(t.double() for t in part))
+    ref_rows = want[:1, t0:t0 + chunk, :1]
+    shift = float((faulted - ref_rows).abs().max())
+    if not catches(faulted, ref_rows, tol, atol):
+        fail(f"{label}: rtol {tol} / atol {atol:.4g} would not catch the "
+             f"state carry zeroed at step {t0} (shift {shift:.4g})")
+    faults = f"the carry zeroed at step {t0} shifts it by {shift:.4g}"
+    if dtype == torch.float32:
+        faults += "; the output rounded to bfloat16 by " + format(
+            rounding_fault(want, tol, atol, torch, label), ".4g")
+    p_y = plain()
+    e_plain = check_close(y, p_y, tol, atol, torch, f"{label} vs plain")
+    e_ref = check_close(y, want, tol, atol, torch, f"{label} vs float64")
+    e_pref = check_close(p_y, want, tol, atol, torch,
+                         f"{label}: plain vs float64")
+    y_max = float(want.abs().max())
+    del want
+    print(f"[{label}] max abs err vs plain {e_plain:.4g}, vs float64 "
+          f"{e_ref:.4g} (plain {e_pref:.4g}); rtol {tol}, atol {atol:.4g} "
+          f"(max |y| {y_max:.4g}); planted faults caught: {faults}")
+    ms = median_ms(run, torch, LM_REPS, LM_BATCH)
+    plain_ms = median_ms(plain, torch, LM_REPS, LM_BATCH)
+    # the least work: per step and state element, one FMA to carry the
+    # state and one to read it out
+    flops = 4 * b * seq * h * n * dh
+    peak = BF16_PEAK if dtype == torch.bfloat16 else None
+    bound_ms, by = bound(nbytes_of(x, dt, A, B, C, y), flops, tier, peak)
+    print(f"[{label}] ssd_scan {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"none, bound {bound_ms:.4f} ms ({by})", flush=True)
+    print(f"[{label}] device time per call: " + device_breakdown(run, torch))
+    return {"name": f"ssd_scan[{label[4:-1]}]", "route": "cuda",
+            "source": f"{CSRC}/ssd_scan.cuh", "replaces": SSD_TPU,
+            "launches": launches, "max_abs_err": e_plain, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None}
+
+
+def run_lm_kernels(tier, torch, dev) -> list:
+    """flash_attention and ssd_scan through their entry points at the
+    published widths of granite-3-2b, mixtral-8x22b and mamba2-370m."""
+    from repro_torch.configs import SHAPES, get_config
+
+    granite = get_config("granite-3-2b")
+    mixtral = get_config("mixtral-8x22b")
+    mamba = get_config("mamba2-370m")
+    bf16, f32 = torch.bfloat16, torch.float32
+    ctx = SHAPES["decode_32k"].seq_len
+    rows = []
+    for dtype, blocks, tag in ((f32, (128, 128), "f32"),
+                               (bf16, (128, 128), "bf16"),
+                               (bf16, None, "bf16,auto")):
+        rows.append(run_attention(
+            f"attention[granite,prefill,{tag}]", granite, 2, 4096, 4096,
+            dtype, causal=True, window=None, blocks=blocks, seed=21,
+            tier=tier, torch=torch, dev=dev))
+    rows.append(run_attention(
+        "attention[granite,decode,bf16,auto]", granite, 32, 1, ctx, bf16,
+        causal=True, window=None, blocks=None, seed=24, tier=tier,
+        torch=torch, dev=dev))
+    rows.append(run_attention(
+        "attention[mixtral,swa,bf16]", mixtral, 1, 8192, 8192, bf16,
+        causal=True, window=mixtral.sliding_window, blocks=(128, 128),
+        seed=27, tier=tier, torch=torch, dev=dev))
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        rows.append(run_ssd(f"ssd[mamba2,{tag}]", mamba, 4, 4096, 128, dtype,
+                            30, tier, torch, dev))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -656,9 +1023,11 @@ def main() -> int:
     from repro_torch.core.strip_mine import tile
     from repro_torch.kernels import build
     from repro_torch.kernels import filter_reduce as fr
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_kmeans as fkm
     from repro_torch.kernels import groupby_fold as gbf
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.patterns.analytics import PIPELINES, gda, gemm, outerprod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -706,7 +1075,7 @@ def main() -> int:
         labels.append(f"lower_auto[{name}]")
         autos[name] = (call, make_inputs, reference)
     # the hand-written kernels: one fixed translation unit each
-    for lib in (mm.LIB, fr.LIB, gbf.LIB, fkm.LIB):
+    for lib in (mm.LIB, fr.LIB, gbf.LIB, fkm.LIB, fa.LIB, ssd.LIB):
         sources.append((lib.name, lib.source))
         labels.append(lib.name)
     paths = build.compile_all(sources)
@@ -841,6 +1210,7 @@ def main() -> int:
     kmeans_call = built["kmeans"][4]
     kernels.extend(run_hand_kernels(kmeans_call.group_calls[0].kernel, cc,
                                     tier, torch, dev))
+    kernels.extend(run_lm_kernels(tier, torch, dev))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -626,6 +626,49 @@ def explore_pipeline(pipe, *, tier: Optional[Tier] = None,
 # --------------------------------------------------------------------
 
 
+def attention_program(sq: int, sk: int, d: int) -> ir.Pattern:
+    """Flash attention as Map(queries){ MultiFold(keys) } -- the online-
+    softmax fold over keys nested in the query map.
+
+    Tileable domains: ``fa_q`` (query block) and ``fa_kv`` (kv block).
+    """
+    q = ir.Tensor("q", (sq, d))
+    k = ir.Tensor("k", (sk, d))
+    v = ir.Tensor("v", (sk, d))
+    kv = ir.MultiFold(
+        domain=(sk,), range_shape=(d,), init=lambda: torch.zeros((d,)),
+        reads=(ir.Access(q, lambda i, kk: (i, 0), (1, d)),
+               ir.Access(k, lambda i, kk: (kk, 0), (1, d)),
+               ir.Access(v, lambda i, kk: (kk, 0), (1, d))),
+        out_index_map=lambda i, kk: (0,), update_shape=(d,),
+        fn=lambda s, acc, qe, ke, ve:
+            acc + (qe * ke).sum(-1, keepdim=True) * ve,
+        combine=operator.add, name="fa_kv")
+    return ir.Map(domain=(sq,), elem_shape=(d,), inner=kv, name="fa_q")
+
+
+def scan_program(seq: int, n: int, dh: int) -> ir.Pattern:
+    """The SSD chunked scan's sequence fold: per step read an x row, a
+    dt scalar and B/C rows, update the carried (n, dh) state.
+
+    Tileable domain: ``ssd`` (the chunk length).
+    """
+    x = ir.Tensor("x", (seq, dh))
+    dt = ir.Tensor("dt", (seq,))
+    B = ir.Tensor("B", (seq, n))
+    C = ir.Tensor("C", (seq, n))
+    return ir.MultiFold(
+        domain=(seq,), range_shape=(n, dh), init=lambda: torch.zeros((n, dh)),
+        reads=(ir.Access(x, lambda i: (i, 0), (1, dh)),
+               ir.elem(dt),
+               ir.Access(B, lambda i: (i, 0), (1, n)),
+               ir.Access(C, lambda i: (i, 0), (1, n))),
+        out_index_map=lambda i: (0, 0), update_shape=(n, dh),
+        fn=lambda s, acc, xe, dte, be, ce:
+            acc + be[..., :, None] * xe[..., None, :] * dte[..., None, None],
+        combine=operator.add, name="ssd")
+
+
 def filter_reduce_program(t: int) -> ir.Pattern:
     """TPC-H Q6 shape: fused filter + weighted-sum fold over one stream
     (tileable domain: ``fr``)."""
@@ -690,6 +733,28 @@ def select_gemm_blocks(m: int, n: int, k: int, *, tier: Optional[Tier] = None,
                    device=device, **tuning)
     (bm, bn), (bk,) = _one(plan, "gemm"), _one(plan, "gemm_k")
     return (bm, bn, bk), plan
+
+
+def select_attention_blocks(sq: int, sk: int, d: int, *,
+                            tier: Optional[Tier] = None,
+                            vmem_budget: Optional[int] = None, device=None,
+                            **tuning) -> Tuple[Tuple[int, int], TilePlan]:
+    """``(block_q, block_k)`` for ``kernels.flash_attention``."""
+    plan = explore(attention_program(sq, sk, d), tier=tier,
+                   vmem_budget=vmem_budget, device=device, **tuning)
+    (bq,), (bk,) = _one(plan, "fa_q"), _one(plan, "fa_kv")
+    return (bq, bk), plan
+
+
+def select_scan_blocks(seq: int, n: int, dh: int, *,
+                       tier: Optional[Tier] = None,
+                       vmem_budget: Optional[int] = None, device=None,
+                       **tuning) -> Tuple[int, TilePlan]:
+    """``chunk`` for ``kernels.ssd_scan``."""
+    plan = explore(scan_program(seq, n, dh), tier=tier,
+                   vmem_budget=vmem_budget, device=device, **tuning)
+    (chunk,) = _one(plan, "ssd")
+    return chunk, plan
 
 
 def select_filter_reduce_blocks(t: int, *, tier: Optional[Tier] = None,

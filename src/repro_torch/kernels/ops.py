@@ -10,12 +10,16 @@ selector table) instead of carrying a private selector call.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 from . import filter_reduce as _fr
+from . import flash_attention as _fa
 from . import groupby_fold as _gbf
 from . import matmul as _mm
 from . import ref
+from . import ssd_scan as _ssd
 from ..device import place
 
 # pattern-domain kind -> core.dse selector; every selector returns
@@ -34,8 +38,6 @@ _SELECTORS = {
 
 # kinds whose kernels and selectors arrive with a later slice of the port
 _LATER = {
-    "attention": "the LM-stack slice (flash_attention)",
-    "scan": "the LM-stack slice (ssd_scan)",
     "paged_decode": "the serving slice (lower_paged_decode)",
 }
 
@@ -85,6 +87,25 @@ def matmul(x, y, *, use_kernel: bool = True, block_m: int = 128,
                           block_k=block_k, device=device)
     x, y = place((x, y), device)
     return ref.matmul(x, y).to(x.dtype)
+
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              use_kernel: bool = True, block_q: int = 128,
+              block_k: int = 128, device=None):
+    if use_kernel:
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   block_q=block_q, block_k=block_k,
+                                   device=device)
+    q, k, v = place((q, k, v), device)
+    return ref.attention(q, k, v, causal=causal, window=window)
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 128, use_kernel: bool = True,
+        device=None):
+    if use_kernel:
+        return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk, device=device)
+    x, dt, A, B, C = place((x, dt, A, B, C), device)
+    return ref.ssd_scan(x, dt, A, B, C)
 
 
 def groupby(keys, values, num_keys: int, *, use_kernel: bool = True,

@@ -13,7 +13,10 @@ paths) are shared with the CPU parity tests.  The hand-written kernels
 of ``repro_torch.kernels`` are held against their plain versions:
 float32 products at 1e-4 (K <= 256), bfloat16 outputs at 2e-2, sums at
 1e-5 of their largest magnitude (the plain versions sum in float64),
-counts and assignments exactly.
+counts and assignments exactly.  ``flash_attention`` and ``ssd_scan``
+are held against their plain versions at 2e-4 in float32 (the reference
+tests' tolerance; the SSD's atol scaled by the output's largest
+magnitude) and 2e-2 in bfloat16.
 """
 import operator
 
@@ -27,11 +30,13 @@ from repro_torch.core import pipeline as pl
 from repro_torch.core.dse import PipelinePlan
 from repro_torch.core.strip_mine import tile
 from repro_torch.kernels import filter_reduce as fr
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_filter_fold as fff
 from repro_torch.kernels import fused_kmeans as fkm
 from repro_torch.kernels import groupby_fold as gbf
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.patterns import analytics as an
 
 NAMES = sorted(an.PIPELINES)
@@ -554,3 +559,129 @@ def test_fused_kmeans_matches_the_generated_megakernel():
                                          auto_tile=True)
     assert torch.equal(counts, gen["km_counts"])
     _sum_close(sums, gen["km_sums"])
+
+
+# (b, hq, hkv, sq, sk, d, block_q, block_k, causal, window): MHA, GQA, MQA,
+# a decode row, kv longer than q, sq > sk (rows that see no key), a window,
+# non-causal, head dims 16 and 80, a block_q of three 64-row sub-tiles and
+# an odd one, keys not a multiple of the kernel's 64-key chunk
+ATTENTION = [
+    (1, 4, 4, 128, 128, 64, 64, 64, True, None),
+    (2, 8, 2, 128, 128, 32, 128, 64, True, None),
+    (1, 4, 1, 64, 64, 32, 32, 32, True, None),
+    (2, 8, 2, 1, 512, 64, 1, 128, True, None),
+    (1, 2, 2, 64, 256, 32, 64, 64, True, None),
+    (1, 2, 1, 128, 32, 16, 64, 32, True, None),
+    (1, 4, 2, 256, 256, 128, 128, 64, True, 64),
+    (1, 2, 2, 64, 96, 32, 32, 32, False, None),
+    (1, 4, 2, 192, 192, 80, 192, 96, True, None),
+    (1, 2, 1, 96, 160, 16, 96, 160, False, 48),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTENTION, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(case, dtype):
+    _card()
+    b, hq, hkv, sq, sk, d, bq, bk, causal, window = case
+    q, k, v = (_randn(s, *shape, dtype=dtype) for s, shape in
+               enumerate([(b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)]))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    block_k=bk)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rows_without_a_key_are_the_mean_of_v():
+    _card()
+    q, k, v = _randn(0, 1, 2, 8, 16), _randn(1, 1, 1, 4, 16), \
+        _randn(2, 1, 1, 4, 16)
+    out = ops.attention(q, k, v, block_q=4, block_k=4)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out[0, :, :4], v[0, 0].mean(0).expand(2, 4, 16),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_auto_tile_and_ops_on_the_card():
+    _card()
+    q, k, v = _randn(0, 1, 4, 256, 64), _randn(1, 1, 2, 256, 64), \
+        _randn(2, 1, 2, 256, 64)
+    ops.clear_plan_memo()
+    blocks, _ = ops.resolve_plan("attention", 256, 256, 64, device=q.device)
+    assert blocks == (128, 128)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, auto_tile=True)
+    assert ops.attention(q, k, v).is_cuda
+    assert fa.flash_attention.launches == before + 2
+    torch.testing.assert_close(out, ops.attention(q, k, v, use_kernel=False),
+                               rtol=2e-4, atol=2e-4)
+
+
+def _ssd_inputs(b, s, h, dh, n, dtype=torch.float32):
+    rng = np.random.RandomState(s + n)
+    x = rng.randn(b, s, h, dh)
+    dt = np.log1p(np.exp(rng.randn(b, s, h))) * 0.1
+    A = -np.log1p(np.exp(rng.randn(h))) - 0.1
+    B, C = rng.randn(b, s, n), rng.randn(b, s, n)
+    return [torch.as_tensor(t.astype(np.float32)).cuda().to(
+        torch.float32 if t is A else dtype) for t in (x, dt, A, B, C)]
+
+
+# (b, s, h, dh, n, chunk): the reference's shapes, a chunk of two
+# sub-chunks, mamba2-370m's state width, head dims that slice unevenly
+SSD = [(1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32), (1, 32, 1, 8, 4, 32),
+       (1, 256, 2, 64, 128, 128), (2, 96, 3, 24, 12, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(case, dtype):
+    _card()
+    b, s, h, dh, n, chunk = case
+    x, dt, A, B, C = _ssd_inputs(b, s, h, dh, n, dtype)
+    before = ssd.ssd_scan.launches
+    y = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    want = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk).float()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(y.float(), want, rtol=tol,
+                               atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_ssd_auto_tile_and_ops_on_the_card():
+    _card()
+    x, dt, A, B, C = _ssd_inputs(1, 128, 2, 16, 8)
+    before = ssd.ssd_scan.launches
+    y = ssd.ssd_scan(x, dt, A, B, C, auto_tile=True)
+    assert ops.ssd(x, dt, A, B, C, chunk=32).is_cuda
+    assert ssd.ssd_scan.launches == before + 2
+    want = ops.ssd(x, dt, A, B, C, use_kernel=False)
+    torch.testing.assert_close(y, want, rtol=2e-4,
+                               atol=2e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_lm_kernels_refuse_what_they_cannot_take():
+    _card()
+    q = _randn(0, 1, 2, 64, 144)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    x, dt, A, B, C = _ssd_inputs(1, 64, 2, 16, 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd.ssd_scan(x, dt, A, B, C, chunk=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                     B, C, chunk=64)

@@ -147,6 +147,9 @@ def _port_files():
 
 
 def test_port_imports_neither_jax_nor_the_reference():
+    port = ROOT / "src" / "repro_torch"
+    covered = {p.relative_to(port).parts[0] for p in _port_files()[:-1]}
+    assert {"models", "configs", "kernels", "core"} <= covered
     for path in _port_files():
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):

@@ -28,10 +28,12 @@ from repro.kernels.matmul import matmul as jmatmul
 from repro_torch.core import cost
 from repro_torch.kernels import autotile, ops, ref
 from repro_torch.kernels.filter_reduce import filter_reduce
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_filter_fold import fused_filter_fold
 from repro_torch.kernels.fused_kmeans import fused_kmeans_step
 from repro_torch.kernels.groupby_fold import groupby_fold
 from repro_torch.kernels.matmul import k_chunk, matmul
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 
 def _r(seed, *shape):
@@ -298,9 +300,8 @@ def test_resolve_plan_refuses_unknown_later_and_tuning_kinds():
     assert sorted(ops._SELECTORS) == sorted(jops._SELECTORS)
     with pytest.raises(ValueError, match="unknown plan kind"):
         ops.resolve_plan("conv", 1)
-    for kind in ("attention", "scan", "paged_decode"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            ops.resolve_plan(kind, 128, 128, 64)
+    with pytest.raises(NotImplementedError, match="slice"):
+        ops.resolve_plan("paged_decode", 128, 128, 64)
     with pytest.raises(NotImplementedError, match="tuning-runtime"):
         ops.resolve_plan("gemm", 512, 512, 512, measure="top_k",
                          device="cpu")
@@ -320,6 +321,9 @@ def test_kernel_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     x = np.ones((8, 8), np.float32)
     v = np.ones(8, np.float32)
     k = np.zeros(8, np.int32)
+    q = np.ones((1, 2, 8, 4), np.float32)
+    x4, dt = np.ones((1, 8, 2, 4), np.float32), np.ones((1, 8, 2), np.float32)
+    bc = np.ones((1, 8, 4), np.float32)
     for fn in (lambda: matmul(x, x), lambda: autotile.tuned_matmul(x, x),
                lambda: ops.matmul(x, x), lambda: ops.matmul(
                    x, x, use_kernel=False),
@@ -327,6 +331,13 @@ def test_kernel_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
                lambda: fused_filter_fold(v, v, 0.0, 1.0),
                lambda: groupby_fold(k, v, 4), lambda: ops.groupby(k, v, 4),
                lambda: fused_kmeans_step(x, x),
-               lambda: ops.resolve_plan("gemm", 512, 512, 512)):
+               lambda: ops.resolve_plan("gemm", 512, 512, 512),
+               lambda: flash_attention(q, q, q), lambda: ops.attention(q, q, q),
+               lambda: ops.attention(q, q, q, use_kernel=False),
+               lambda: ops.resolve_plan("attention", 8, 8, 4),
+               lambda: ssd_scan(x4, dt, v[:2], bc, bc),
+               lambda: ops.ssd(x4, dt, v[:2], bc, bc),
+               lambda: ops.ssd(x4, dt, v[:2], bc, bc, use_kernel=False),
+               lambda: ops.resolve_plan("scan", 8, 4, 4)):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()

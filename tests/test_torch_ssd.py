@@ -1,0 +1,175 @@
+"""The port's SSD scan on the CPU against the JAX package's:
+``repro_torch.kernels.ssd_scan`` (its plain version, ``device="cpu"``)
+against the Pallas kernel in interpret mode at the shapes of
+``tests/test_kernels.py`` (float32 2e-4, the reference tests' tolerance),
+at chunks the kernel computes as several sub-chunks, and in bfloat16
+(2e-2); ``ref.ssd_scan`` and ``ops.ssd`` against the JAX ones; and
+``select_scan_blocks`` exactly as the reference's (``cache=False``) under
+``cost.TPU``, at the TPU's 16 MiB and the H100's 232,448 B, raising
+where it raises.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import codegen_jax as jex
+from repro.core import dse as jdse
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.ssd_scan import ssd_scan as jssd
+
+from repro_torch.core import codegen_torch as tex
+from repro_torch.core import cost, dse
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain, sub_chunk
+
+H100_BUDGET = cost.H100_SXM.onchip_bytes      # 232,448 B
+
+
+def _softplus(x):
+    return np.log1p(np.exp(x))
+
+
+def _inputs(b, s, h, dh, n, seed=0):
+    """The reference tests' inputs: x, B, C standard normal, dt =
+    softplus(randn) * 0.1, A = -softplus(randn) - 0.1."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, s, h, dh)
+    dt = _softplus(rng.randn(b, s, h)) * 0.1
+    A = -_softplus(rng.randn(h)) - 0.1
+    B, C = rng.randn(b, s, n), rng.randn(b, s, n)
+    return [t.astype(np.float32) for t in (x, dt, A, B, C)]
+
+
+@pytest.mark.parametrize("b,s,h,dh,n,chunk", [
+    (1, 64, 2, 16, 8, 16),
+    (2, 128, 4, 32, 16, 32),
+    (1, 32, 1, 8, 4, 32),       # single chunk
+    (1, 256, 2, 16, 32, 128),   # a chunk of two 64-step sub-chunks
+    (2, 96, 3, 24, 12, 48),
+])
+def test_ssd_scan_matches_jax(b, s, h, dh, n, chunk):
+    inp = _inputs(b, s, h, dh, n)
+    want = jssd(*inp, chunk=chunk)
+    got = ssd_scan(*inp, chunk=chunk, device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got.numpy(), jref.ssd_scan(*inp), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_ssd_scan_bfloat16_matches_jax():
+    x, dt, A, B, C = _inputs(2, 128, 4, 32, 16, seed=1)
+    bf = [jnp.asarray(t, jnp.bfloat16) for t in (x, dt, B, C)]
+    want = jssd(bf[0], bf[1], A, bf[2], bf[3], chunk=32)
+    tb = [torch.as_tensor(t).bfloat16() for t in (x, dt, B, C)]
+    got = ssd_scan(tb[0], tb[1], A, tb[2], tb[3], chunk=32, device="cpu")
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2 * np.abs(want).max())
+
+
+def test_ssd_scan_auto_tile_matches_jax():
+    inp = _inputs(1, 128, 2, 16, 8)
+    want = jssd(*inp, auto_tile=True)
+    got = ssd_scan(*inp, auto_tile=True, device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_sub_chunks_divide_the_chunk():
+    assert [sub_chunk(c) for c in (16, 48, 64, 96, 128, 1024)] == \
+        [16, 48, 64, 48, 64, 64]
+    inp = [torch.as_tensor(t) for t in _inputs(1, 384, 2, 8, 8, seed=2)]
+    torch.testing.assert_close(ssd_scan_plain(*inp, chunk=384),
+                               ssd_scan_plain(*inp, chunk=16),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("bad", ["chunk", "dtype", "shape"])
+def test_ssd_scan_refuses_what_it_cannot_take(bad):
+    x, dt, A, B, C = (torch.as_tensor(t) for t in _inputs(1, 64, 2, 8, 4))
+    kw = {"chunk": 16, "device": "cpu"}
+    if bad == "chunk":
+        kw["chunk"] = 24
+    elif bad == "dtype":
+        B = B.double()
+    else:
+        A = A[:1]
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, A, B, C, **kw)
+
+
+def test_ref_ssd_scan_matches_jax():
+    inp = _inputs(2, 48, 3, 8, 5, seed=3)
+    want = jref.ssd_scan(*inp)
+    got = ref.ssd_scan(*map(torch.as_tensor, inp))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    hi = ref.ssd_scan(*(torch.as_tensor(t).double() for t in inp))
+    assert hi.dtype == torch.float64
+    np.testing.assert_allclose(hi.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_ops_ssd_both_paths():
+    inp = _inputs(1, 64, 2, 16, 8, seed=4)
+    want = jops.ssd(*inp, chunk=16)
+    got = ops.ssd(*inp, chunk=16, device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    oracle = ops.ssd(*inp, use_kernel=False, device="cpu")
+    np.testing.assert_array_equal(
+        oracle.numpy(), ref.ssd_scan(*map(torch.as_tensor, inp)).numpy())
+    np.testing.assert_allclose(oracle.numpy(),
+                               jops.ssd(*inp, use_pallas=False),
+                               rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------------------ the DSE plan
+def _fields(plan):
+    d = plan.to_json()
+    d.pop("key")
+    return d
+
+
+# (shape, budget) -> chunk, or None where the reference raises
+PLANS = {
+    ((4096, 128, 64), None): 512,
+    ((4096, 128, 64), H100_BUDGET): None,       # mamba2-370m's state
+    ((4096, 64, 64), None): 1024,
+    ((4096, 64, 64), H100_BUDGET): 128,         # zamba2-2.7b's state
+    ((128, 8, 16), None): 128,
+    ((128, 8, 16), H100_BUDGET): 128,
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLANS, key=str), ids=str)
+def test_select_scan_blocks_matches_the_reference_exactly(case):
+    shape, budget = case
+    if PLANS[case] is None:
+        with pytest.raises(ValueError, match="no tile candidate fits"):
+            jdse.select_scan_blocks(*shape, cache=False, vmem_budget=budget)
+        with pytest.raises(ValueError, match="no tile candidate fits"):
+            dse.select_scan_blocks(*shape, tier=cost.TPU, vmem_budget=budget)
+        return
+    jchunk, jplan = jdse.select_scan_blocks(*shape, cache=False,
+                                            vmem_budget=budget)
+    chunk, plan = dse.select_scan_blocks(*shape, tier=cost.TPU,
+                                         vmem_budget=budget)
+    assert chunk == jchunk == PLANS[case]
+    assert _fields(plan) == _fields(jplan)
+
+
+@pytest.mark.parametrize("arg", ["cache", "measure", "policy", "options"])
+def test_select_scan_blocks_refuses_the_tuning_runtime(arg):
+    with pytest.raises(NotImplementedError, match="tuning-runtime"):
+        dse.select_scan_blocks(128, 8, 16, tier=cost.TPU, **{arg: "x"})
+
+
+def test_scan_proxy_evaluates_as_the_reference():
+    rng = np.random.RandomState(5)
+    inp = {"x": rng.randn(64, 4), "dt": rng.rand(64), "B": rng.randn(64, 3),
+           "C": rng.randn(64, 3)}
+    inp = {k: v.astype(np.float32) for k, v in inp.items()}
+    got = tex.execute(dse.scan_program(64, 3, 4), inp, device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(jex.execute(
+        jdse.scan_program(64, 3, 4), inp)), rtol=2e-3, atol=2e-3)
