@@ -41,7 +41,31 @@ Builds every kernel of the path from ``src/repro_torch/kernels/csrc``
     bfloat16.  Each limit is first proved to catch planted faults: a
     dropped kv block in the first and in the last query tile, the SSD's
     state carry zeroed at a chunk boundary, and, for float32, the
-    oracle's output rounded to bfloat16.
+    oracle's output rounded to bfloat16;
+  * runs ``lower_paged_decode`` (the paged KV append and attention) at
+    granite-3-2b's widths: 32 requests of seeded lengths up to 8,191
+    tokens (page-boundary lengths among them) over bf16 pools with
+    shuffled, disjoint page tables, page sizes 8 and 64, split and fused
+    layouts.  The pools are held bitwise against the plain version, the
+    float32 output against it and a float64 gather-and-softmax oracle
+    at rtol SSD_F32_TOL and a per-row atol of SSD_F32_TOL x the oracle
+    row's root mean square, after proving that limit catches the longest
+    request's last live page dropped, the append skipped, p rounded to
+    bfloat16 before PV and the output rounded to bfloat16;
+  * serves granite-3-2b at full width through ``serve_continuous`` (40
+    layers, 16 requests of seeded prompts up to 960 tokens over 8 slots,
+    64 tokens each, the DSE's paged plan, the kernel certified first),
+    in bfloat16 and in float32.  It counts one kernel launch per layer
+    and decode step, every request admitted and evicted, fewer modeled
+    words than a dense cache, and holds the tokens against the dense
+    ``decode_step`` oracle, teacher-forced: in float32 every token is
+    the oracle's greedy token; in bfloat16, whose logits tie at the top
+    in some steps, every token is one the oracle scores within the bf16
+    tolerance of its best, a limit first proved to reject another
+    request's tokens and a served run with the kernel's append skipped
+    (which certification must also refuse).  One decode step is profiled
+    (host clock, device busy time), and the kernel is timed at the
+    serving shapes.
 
 Each run resets the kernel's launch count just before, reads it just
 after, and fails if the kernel did not run.  Each result is held
@@ -1003,6 +1027,510 @@ def run_lm_kernels(tier, torch, dev) -> list:
     return rows
 
 
+# ------------------------------------------- paged decode and paged serving
+PD_TPU = f"{REPLACES}:893"
+PD_SRC = f"{CSRC}/paged_decode.cuh"
+PD_CTX = 8192                # the kernel phase: context bound per request
+PD_BATCH = 32
+PD_TOL = SSD_F32_TOL         # float32 output from the same bf16 K and V
+SERVE_SLOTS, SERVE_GEN, SERVE_REQUESTS = 8, 64, 16
+SERVE_PROMPTS = (64, 960)    # seeded prompt lengths; one is 960
+PD_LIBRARY = "none: no one PyTorch call appends and attends over a page table"
+
+
+def pd_inputs(cfg, lens, ps: int, npm: int, layout: str, seed: int, torch,
+              dev):
+    """One paged-decode step at ``cfg``'s attention widths: bf16 q, new K
+    and V and pools made on the card from ``seed``, a page table of
+    shuffled, disjoint page ids (page 0 reserved), lengths ``lens``."""
+    b = len(lens)
+    hkv, group, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf16 = torch.bfloat16
+    n_phys = 1 + b * npm
+    heads = 2 * hkv if layout == "fused" else hkv
+    pools = tuple(torch.randn((n_phys, ps, heads, dh), generator=gen,
+                              device=dev, dtype=bf16)
+                  for _ in range(1 if layout == "fused" else 2))
+    table = (1 + torch.randperm(n_phys - 1, generator=gen, device=dev)
+             ).to(torch.int32).reshape(b, npm)
+    q = torch.randn((b, hkv, group, dh), generator=gen, device=dev,
+                    dtype=bf16)
+    k, v = (torch.randn((b, hkv, dh), generator=gen, device=dev, dtype=bf16)
+            for _ in range(2))
+    lens = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
+    return q, k, v, pools, table, lens
+
+
+def pd_oracle(q, pools, table, lens, layout: str, torch, keep=None,
+              p_type=None):
+    """Float64 gather-and-softmax oracle of one paged-decode step over
+    ``pools`` (after the append): request b attends over positions
+    0..lens[b] through its page table.  Planted faults: ``keep(b, n)``,
+    when given, is the number of leading positions request b keeps;
+    ``p_type``, when given, is the type p is rounded to before PV."""
+    b, hkv, group, dh = q.shape
+    ps = pools[0].shape[1]
+    kpool, vpool = pools[0], pools[-1]
+    kh = torch.arange(hkv, device=q.device) * (2 if layout == "fused" else 1)
+    vh = kh + (1 if layout == "fused" else 0)
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for r in range(b):
+        n = int(lens[r]) + 1
+        if keep is not None:
+            n = keep(r, n)
+        pos = torch.arange(n, device=q.device)
+        pages, slots = table[r, pos // ps].long(), pos % ps
+        kk = kpool[pages, slots][:, kh].double().transpose(0, 1)  # (H, n, D)
+        vv = vpool[pages, slots][:, vh].double().transpose(0, 1)
+        s = q[r].double() @ kk.transpose(-1, -2) * dh ** -0.5
+        p = torch.softmax(s, -1)
+        if p_type is not None:
+            p = p.to(p_type).double()
+        out[r] = p @ vv
+    return out
+
+
+def run_paged(label: str, cfg, lens, ps: int, npm: int, layout: str,
+              seed: int, tier, torch, dev) -> dict:
+    """``lower_paged_decode`` at ``cfg``'s widths: pools bitwise against
+    ``paged_decode_plain``; the float32 output against the plain version
+    and the float64 oracle at rtol PD_TOL and a per-row atol of PD_TOL x
+    the oracle row's root mean square, after proving that limit catches
+    the longest request's last live page dropped, the append skipped, p
+    rounded to bfloat16 before PV and the output rounded to bfloat16;
+    timed beside the plain version, with the byte bound of the live
+    pages, q, the new K/V and the output."""
+    from repro_torch.core import codegen_cuda as cc
+
+    q, k, v, pools, table, lens_t = pd_inputs(cfg, lens, ps, npm, layout,
+                                              seed, torch, dev)
+    b, hkv, group, dh = q.shape
+    before_pools = tuple(p.clone() for p in pools)
+    plain_pools = tuple(p.clone() for p in pools)
+    kern = cc.lower_paged_decode(batch=b, kv_heads=hkv, group=group,
+                                 head_dim=dh, page_size=ps, n_pages_max=npm,
+                                 layout=layout)
+    torch.cuda.synchronize()
+    cc.lower_paged_decode.launches = 0
+    out, _ = kern(q, k, v, pools, table, lens_t)
+    torch.cuda.synchronize()
+    launches = cc.lower_paged_decode.launches
+    live = [-(-(int(n) + 1) // ps) for n in lens]
+    print(f"[{label}] {cfg.name}: {b} requests x {hkv} kv heads x group "
+          f"{group} x head dim {dh}, {layout} bf16 pools of page size {ps}, "
+          f"{npm} pages per request, seq_len {min(lens)}..{max(lens)} "
+          f"({sum(live)} live pages); lower_paged_decode launches="
+          f"{launches}")
+    if launches < 1:
+        fail(f"{label}: the paged_decode kernel was not launched")
+
+    def plain():
+        return cc.paged_decode_plain(q, k, v, plain_pools, table, lens_t,
+                                     layout=layout)
+    p_out = plain()
+    for i, (got, want_pool) in enumerate(zip(pools, plain_pools)):
+        if not torch.equal(got, want_pool):
+            fail(f"{label}: pool {i} differs from the plain version's")
+    want = pd_oracle(q, pools, table, lens_t, layout, torch)
+    atol = PD_TOL * want.pow(2).mean(-1, keepdim=True).sqrt()
+    longest = int(np.argmax(lens))
+    n_top = int(lens[longest]) + 1
+    last = (-(-n_top // ps) - 1) * ps
+    dropped = pd_oracle(q, pools, table, lens_t, layout, torch,
+                        keep=lambda r, n: last if r == longest else n)
+    stale = pd_oracle(q, before_pools, table, lens_t, layout, torch)
+    p_bf16 = pd_oracle(q, pools, table, lens_t, layout, torch,
+                       p_type=torch.bfloat16)
+    faults = []
+    for what, faulted in (
+            (f"request {longest}'s last live page dropped", dropped),
+            ("the append skipped", stale),
+            ("p rounded to bfloat16 before PV", p_bf16)):
+        shift = float((faulted - want).abs().max())
+        if not catches(faulted, want, PD_TOL, atol):
+            fail(f"{label}: rtol {PD_TOL} / atol {fmt_atol(atol)} would not "
+                 f"catch {what} (shift {shift:.4g})")
+        faults.append(f"{what} shifts it by {shift:.4g}")
+    faults.append("the output rounded to bfloat16 shifts it by "
+                  f"{rounding_fault(want, PD_TOL, atol, torch, label):.4g}")
+    del dropped, stale, p_bf16, before_pools
+    e_plain = check_close(out, p_out, PD_TOL, atol, torch, f"{label} vs plain")
+    e_ref = check_close(out, want, PD_TOL, atol, torch, f"{label} vs float64")
+    e_pref = check_close(p_out, want, PD_TOL, atol, torch,
+                         f"{label}: plain vs float64")
+    print(f"[{label}] pools bitwise equal to plain; max abs err vs plain "
+          f"{e_plain:.4g}, vs float64 {e_ref:.4g} (plain {e_pref:.4g}); rtol "
+          f"{PD_TOL}, atol {fmt_atol(atol)}; planted faults caught: "
+          + "; ".join(faults))
+    del want, atol, p_out
+
+    def run():
+        return kern(q, k, v, pools, table, lens_t)
+    ms = median_ms(run, torch, LM_REPS, LM_BATCH)
+    plain_ms = median_ms(plain, torch, LM_REPS, LM_BATCH)
+    kv_bytes = 2 * sum(live) * ps * hkv * dh * pools[0].element_size()
+    nbytes = kv_bytes + nbytes_of(q, k, v, out)
+    keys = sum(int(n) + 1 for n in lens)
+    flops = 4 * keys * hkv * group * dh
+    bound_ms, by = bound(nbytes, flops, tier)
+    print(f"[{label}] paged_decode {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s"
+          f" of live pages and operands), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}: {nbytes} B); library {PD_LIBRARY}",
+          flush=True)
+    print(f"[{label}] device time per call: " + device_breakdown(run, torch))
+    return {"name": f"paged_decode[{label[13:-1]}]", "route": "cuda",
+            "source": PD_SRC, "replaces": PD_TPU, "launches": launches,
+            "max_abs_err": e_plain, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+
+
+def paged_lens(ps: int, rng) -> list:
+    """PD_BATCH seeded lengths in [1, PD_CTX - 1] with page-boundary
+    values: the table's last slot, a page's last and first slots."""
+    lens = rng.randint(1, PD_CTX, PD_BATCH)
+    lens[:5] = [PD_CTX - 1, ps - 1, ps, 37 * ps - 1, 37 * ps]
+    return [int(n) for n in rng.permutation(np.minimum(lens, PD_CTX - 1))]
+
+
+def run_paged_kernels(tier, torch, dev) -> list:
+    """lower_paged_decode at granite-3-2b's widths: page sizes 8 (the
+    card's plan) and 64, both layouts, 32 requests of up to 8192 tokens."""
+    from repro_torch.configs import get_config
+
+    granite = get_config("granite-3-2b")
+    rows = []
+    for ps in (8, 64):
+        lens = paged_lens(ps, np.random.RandomState(40 + ps))
+        for layout in ("split", "fused"):
+            rows.append(run_paged(
+                f"paged_decode[granite,{layout},p{ps}]", granite, lens, ps,
+                PD_CTX // ps, layout, 41, tier, torch, dev))
+    return rows
+
+
+def forced_oracle(cfg, params, prompt, toks, cmax: int, torch, dev):
+    """The dense ``decode_step`` oracle's logits for each token the
+    server returned for one request, teacher-forced: the prompt's greedy
+    token as the server prefills it (one block into a cache of the
+    prompt's length), then one block over the prompt, that token and the
+    server's tokens but the last, from position 0, into a no-wrap cache
+    of the page-padded extent.  Row t scores the server's token t (pad
+    vocab masked).  Returns (gen, vocab) float32 logits."""
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model
+
+    ln = prompt.shape[1]
+    dc = model.init_cache(cfg, 1, ln, device=dev)
+    first, _ = serve._prefill(steps.make_cache_prefill_step(cfg), params, dc,
+                              prompt, ln)
+    seq = torch.cat([prompt, first.reshape(1, 1),
+                     torch.as_tensor(toks[None, :-1], dtype=torch.int32,
+                                     device=dev)], 1)
+    cache = model.init_cache(cfg, 1, cmax, device=dev)
+    logits, _ = model.decode_step(params, cfg, cache, seq, 0)
+    return model.mask_vocab_pad(logits, cfg)[0, ln:].float()
+
+
+def serve_once(cfg, lens, dtype: str, torch, dev):
+    """``serve_continuous`` of granite-3-2b in ``dtype`` with the kernel,
+    certified first, its launch count reset just before and read just
+    after; fails unless it launched once per layer and step (plus the
+    certification's), admitted and evicted every request and modeled
+    fewer words than a dense cache.  Returns (tokens, stats, params,
+    launches)."""
+    from repro_torch.core import codegen_cuda as cc
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    what = f"serving[{dtype}]"
+    t0 = time.perf_counter()
+    params = model.init_params(cfg.with_(dtype=dtype), 0, dev)
+    torch.cuda.synchronize()
+    print(f"[{what}] {sum(t.numel() for t in params.values())} random "
+          f"{dtype} weights made on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    cc.lower_paged_decode.launches = 0
+    toks, stats = serve.serve_continuous(
+        cfg.name, False, SERVE_SLOTS, SERVE_GEN, prompt_lens=lens,
+        use_kernel=True, certify=True, params=params, device=dev,
+        dtype=dtype)
+    torch.cuda.synchronize()
+    launches = cc.lower_paged_decode.launches
+    cert = cfg.n_layers * (5 + 4 - 1)        # _certify_paged_decode's steps
+    print(f"[{what}] prefill {stats['prefill_s']:.3f} s, decode "
+          f"{stats['decode_s']:.3f} s over {stats['steps']} steps "
+          f"({stats['ms_per_token']:.3f} ms per token, "
+          f"{stats['decode_s'] / stats['steps'] * 1e3:.3f} ms per step), "
+          f"occupancy {stats['occupancy']:.4f}; lower_paged_decode launches="
+          f"{launches} ({cfg.n_layers} x {stats['steps']} steps + {cert} "
+          f"certifying)")
+    if launches != cfg.n_layers * stats["steps"] + cert:
+        fail(f"{what}: {launches} kernel launches, expected "
+             f"{cfg.n_layers * stats['steps'] + cert}")
+    if not stats["certified"] or not stats["use_pallas"]:
+        fail(f"{what}: the fused kernel was not certified and used")
+    if stats["admitted"] != SERVE_REQUESTS or \
+            stats["evicted"] != SERVE_REQUESTS:
+        fail(f"{what}: admitted {stats['admitted']}, evicted "
+             f"{stats['evicted']} of {SERVE_REQUESTS}")
+    if not 0 < stats["modeled_paged_traffic_words"] \
+            < stats["modeled_dense_traffic_words"]:
+        fail(f"{what}: modeled paged words not below dense words")
+    if toks.shape != (SERVE_REQUESTS, SERVE_GEN) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab:
+        fail(f"{what}: tokens of shape {toks.shape} in "
+             f"[{toks.min()}, {toks.max()}]")
+    return toks, stats, params, launches
+
+
+def forced_rows(cfg, params, lens, toks, cmax: int, torch, dev) -> list:
+    """The teacher-forced dense oracle's logits (``forced_oracle``) for
+    every request's served tokens ``toks``."""
+    pool = np.random.RandomState(0).randint(0, cfg.vocab,
+                                            (SERVE_REQUESTS, max(lens)))
+    rows = []
+    for r, ln in enumerate(lens):
+        prompt = torch.as_tensor(pool[r:r + 1, :ln], dtype=torch.int32,
+                                 device=dev)
+        rows.append(forced_oracle(cfg, params, prompt, toks[r], cmax, torch,
+                                  dev))
+    return rows
+
+
+def first_misses(rows, toks, dtype: str) -> list:
+    """Per request, the first step whose served token the check refuses,
+    or None.  float32: the token must be the oracle's greedy token;
+    bfloat16: one the oracle scores within the bf16 tolerance of its
+    best (``serve.near_best``), since two summation orders break its
+    ties differently.  Also returns how many served tokens pass."""
+    from repro_torch.launch import serve
+
+    misses, passed = [], 0
+    for r, logits in enumerate(rows):
+        best = logits.argmax(-1).cpu().numpy()
+        miss = None
+        for t in range(toks.shape[1]):
+            tok = int(toks[r, t])
+            ok = tok == best[t] if dtype == "float32" else \
+                serve.near_best(logits[t], tok, dtype)
+            passed += ok
+            if not ok and miss is None:
+                miss = (t, f"request {r} token {t}: {tok} scores "
+                           f"{float(logits[t, tok]):.4g}, the oracle's "
+                           f"{int(best[t])} {float(logits[t].max()):.4g}")
+        misses.append(miss)
+    return misses, passed
+
+
+def check_tokens(cfg, params, lens, toks, cmax: int, dtype: str, torch, dev):
+    """Hold the server's tokens against the teacher-forced dense oracle
+    (``first_misses``); in bfloat16, first prove the limit rejects
+    another request's tokens."""
+    what = f"serving[{dtype}]"
+    t0 = time.perf_counter()
+    rows = forced_rows(cfg.with_(dtype=dtype), params, lens, toks, cmax,
+                       torch, dev)
+    same = ties = 0
+    worst = 0.0
+    for r, logits in enumerate(rows):
+        top = torch.topk(logits, 2, dim=-1)
+        ties += int((top.values[:, 0] == top.values[:, 1]).sum())
+        same += int((top.indices[:, 0].cpu().numpy() == toks[r]).sum())
+        served = logits.gather(1, torch.as_tensor(
+            toks[r], device=logits.device)[:, None])[:, 0]
+        worst = max(worst, float((top.values[:, 0] - served).max()))
+    n = SERVE_REQUESTS * SERVE_GEN
+    print(f"[{what}] teacher-forced dense oracle ({cmax}-slot cache) in "
+          f"{time.perf_counter() - t0:.1f} s: {same} of {n} tokens the "
+          f"oracle's greedy token, {ties} steps with a tie at the top, "
+          f"largest deficit of a served token's logit {worst:.4g}")
+    if dtype != "float32":
+        other = np.roll(toks, -1, axis=0)
+        caught = sum(m is not None for m in first_misses(rows, other,
+                                                         dtype)[0])
+        if caught != len(rows):
+            fail(f"{what}: the tolerance would not catch another request's "
+                 f"tokens in {len(rows) - caught} of {len(rows)} requests")
+        print(f"[{what}] planted fault caught: another request's tokens fail"
+              f" the tolerance in {caught} of {len(rows)} requests")
+    misses = [m for m in first_misses(rows, toks, dtype)[0] if m]
+    if misses:
+        fail(f"{what}: tokens differ from the dense oracle: "
+             + "; ".join(text for _, text in misses))
+    print(f"[{what}] all {SERVE_REQUESTS} requests "
+          + ("token-identical to" if dtype == "float32" else
+             "within the bf16 tolerance of") + " the dense oracle",
+          flush=True)
+
+
+def append_skipped(cc, torch):
+    """A planted kernel fault on the serving path: ``paged_decode`` with
+    the append skipped (each request's slot rewritten with what it held,
+    which the attention then reads in place of the new K and V).
+    Returns a function that undoes it."""
+    real = cc.paged_decode
+
+    def faulted(q, new_k, new_v, pools, page_table, seq_lens, *, layout):
+        ki, vi, _, mul, k_off, v_off = cc._pd_heads(layout, q.shape[1])
+        kpool, vpool = pools[ki], pools[vi]
+        n_phys, ps = kpool.shape[0], kpool.shape[1]
+        rows = torch.arange(q.shape[0], device=q.device)
+        lens = seq_lens.long()
+        page = page_table.long()[rows, (lens // ps).clamp(
+            0, page_table.shape[1] - 1)].clamp(0, n_phys - 1)
+        heads = torch.arange(q.shape[1], device=q.device) * mul
+        old_k = kpool[page, lens % ps][:, heads + k_off]
+        old_v = vpool[page, lens % ps][:, heads + v_off]
+        return real(q, old_k, old_v, pools, page_table, seq_lens,
+                    layout=layout)
+
+    cc.paged_decode = faulted
+
+    def undo():
+        cc.paged_decode = real
+    return undo
+
+
+def faulted_serving(cfg, params, lens, cmax: int, stats, torch,
+                    dev) -> None:
+    """Prove the bfloat16 checks reject a real kernel fault on the
+    serving path (``append_skipped``): certification raises, and the
+    tokens of an uncertified faulted run fail ``first_misses`` in at
+    least one request (it reports how many tokens still pass)."""
+    from repro_torch.core import codegen_cuda as cc
+    from repro_torch.launch import serve
+
+    what = "serving[bfloat16,append skipped]"
+    undo = append_skipped(cc, torch)
+    try:
+        try:
+            serve._certify_paged_decode(cfg, params, layout=stats["layout"],
+                                        page_size=stats["page_size"],
+                                        device=dev)
+        except RuntimeError as e:
+            print(f"[{what}] certification raised: {e}")
+        else:
+            fail(f"{what}: certification passed the faulted kernel")
+        toks, _ = serve.serve_continuous(
+            cfg.name, False, SERVE_SLOTS, SERVE_GEN, prompt_lens=lens,
+            use_kernel=True, certify=False, params=params, device=dev,
+            dtype=cfg.dtype)
+    finally:
+        undo()
+    rows = forced_rows(cfg, params, lens, toks, cmax, torch, dev)
+    misses, passed = first_misses(rows, toks, cfg.dtype)
+    caught = sum(m is not None for m in misses)
+    print(f"[{what}] the bf16 check rejects {caught} of {len(rows)} "
+          f"requests; {passed} of {toks.size} faulted tokens lie within "
+          f"the bf16 tolerance of the oracle's best (first misses at steps "
+          f"{sorted(m[0] for m in misses if m)})", flush=True)
+    if not caught:
+        fail(f"{what}: the bf16 tolerance passes every faulted token")
+
+
+def device_busy(fn, torch, calls: int = 3) -> tuple:
+    """(wall ms per call on the host clock, device-busy ms per call, the
+    five costliest CUDA kernels) of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if "CUDA" in str(getattr(e, "device_type", ""))]
+    def us(e):
+        return getattr(e, "self_device_time_total", None) or \
+            getattr(e, "device_time_total", 0.0)
+    busy = sum(us(e) for e in kernels) / calls / 1e3
+    top = sorted(kernels, key=us, reverse=True)[:5]
+    names = ", ".join(f"{e.key.split('(')[0][:40]} {us(e) / calls / 1e3:.3f}"
+                      f" ms x{e.count // calls}" for e in top)
+    return wall, busy, names or "not measured"
+
+
+def run_serving(tier, torch, dev) -> dict:
+    """``serve_continuous`` on granite-3-2b at full width (40 layers, 16
+    requests over 8 slots, 64 tokens each, prompts up to 960 tokens, the
+    kernel certified first), in bfloat16 (the model's type) and in
+    float32, each held against the teacher-forced dense oracle
+    (``check_tokens``), the bfloat16 check also against a faulted run
+    (``faulted_serving``); then one decode step at the serving shapes
+    profiled, and the kernel timed there.  Returns the kernel row at the
+    serving shapes with the bfloat16 run's launch count."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import paged
+
+    cfg = get_config("granite-3-2b")
+    rng = np.random.RandomState(50)
+    lens = rng.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
+                       SERVE_REQUESTS)
+    lens[rng.randint(SERVE_REQUESTS)] = SERVE_PROMPTS[1]
+    lens = [int(n) for n in lens]
+    max_ctx = max(lens) + SERVE_GEN
+    blocks, plan = ops.resolve_plan("paged_decode", max_ctx, cfg.head_dim,
+                                    device=dev)
+    print(f"[serving] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}; "
+          f"{SERVE_REQUESTS} requests, prompts {lens}, {SERVE_SLOTS} slots, "
+          f"{SERVE_GEN} tokens each; DSE plan for paged_decode({max_ctx}, "
+          f"{cfg.head_dim}): (layout, page size, block, depth) = {blocks}, "
+          f"on-chip bytes {plan.vmem_bytes}", flush=True)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        toks, stats, params, launches = serve_once(cfg, lens, dtype, torch,
+                                                   dev)
+        ps = stats["page_size"]
+        cmax = -(-max_ctx // ps) * ps
+        check_tokens(cfg, params, lens, toks, cmax, dtype, torch, dev)
+        if dtype == "bfloat16":
+            faulted_serving(cfg, params, lens, cmax, stats, torch, dev)
+        out[dtype] = (stats, launches)
+        if dtype == "bfloat16":
+            # one decode step at the serving shapes: the first 8 requests
+            # halfway through their generation
+            mid = [lens[i % len(lens)] + SERVE_GEN // 2
+                   for i in range(SERVE_SLOTS)]
+            cache = paged.PagedKVCache.init(cfg, SERVE_SLOTS, cmax,
+                                            page_size=ps,
+                                            layout=stats["layout"],
+                                            device=dev)
+            cache.seq_lens.copy_(torch.as_tensor(mid, device=dev))
+            tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32,
+                              device=dev)
+            wall, busy, names = device_busy(
+                lambda: paged.paged_decode_step(params, cfg, cache, tok,
+                                                use_kernel=True), torch)
+            print(f"[serving] one decode step of {SERVE_SLOTS} requests at "
+                  f"seq_len {min(mid)}..{max(mid)}: {wall:.3f} ms on the "
+                  f"host clock, device busy {busy:.3f} ms (idle share "
+                  f"{1 - busy / wall:.4f}); costliest kernels: {names}",
+                  flush=True)
+            del cache
+        del params
+        torch.cuda.empty_cache()
+    stats, launches = out["bfloat16"]
+    row = run_paged(f"paged_decode[granite,serving,{stats['layout']},"
+                    f"p{stats['page_size']}]", cfg,
+                    [lens[i % len(lens)] + SERVE_GEN // 2
+                     for i in range(SERVE_SLOTS)],
+                    stats["page_size"], cmax // stats["page_size"],
+                    stats["layout"], 51, tier, torch, dev)
+    row["launches"] = launches
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1075,7 +1603,8 @@ def main() -> int:
         labels.append(f"lower_auto[{name}]")
         autos[name] = (call, make_inputs, reference)
     # the hand-written kernels: one fixed translation unit each
-    for lib in (mm.LIB, fr.LIB, gbf.LIB, fkm.LIB, fa.LIB, ssd.LIB):
+    for lib in (mm.LIB, fr.LIB, gbf.LIB, fkm.LIB, fa.LIB, ssd.LIB,
+                cc.PAGED_DECODE_LIB):
         sources.append((lib.name, lib.source))
         labels.append(lib.name)
     paths = build.compile_all(sources)
@@ -1211,6 +1740,8 @@ def main() -> int:
     kernels.extend(run_hand_kernels(kmeans_call.group_calls[0].kernel, cc,
                                     tier, torch, dev))
     kernels.extend(run_lm_kernels(tier, torch, dev))
+    kernels.extend(run_paged_kernels(tier, torch, dev))
+    kernels.append(run_serving(tier, torch, dev))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -17,6 +17,10 @@ place of MaxJ ones, for an NVIDIA Hopper card (``sm_90a``):
     shared-memory scratch, fold terminals in registers, CAM terminals in
     a per-block shared table, Map terminals streamed out once; per-block
     partials are summed by a second small launch
+  * one serving decode step of one layer over a paged KV cache
+    (``lower_paged_decode``)             -> ``csrc/paged_decode.cuh``,
+    one block per (request, kv head) appending its token, then streaming
+    the request's live pages with an online softmax
 
 ``lower`` picks the template for a tiled pattern and ``lower_auto``
 tiles an untiled one with the single-pattern DSE first.  The generator
@@ -42,6 +46,7 @@ from . import ir
 from .affine import AffineMap
 from ..device import resolve
 from ..kernels import build
+from .dse import PAGED_LAYOUTS
 
 
 def _f32(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
@@ -1801,3 +1806,248 @@ def lower_auto(p: ir.Pattern, *, plan=None,
                  device=dev, depth=plan.depth)
     call.tile_plan = plan
     return call
+
+
+# --------------------------------------------------------------------
+# paged decode (serving): KV append + attention over a request's pages
+# --------------------------------------------------------------------
+
+PD_NEG = -1e30                  # the TPU kernel's finite mask value
+_PD_TYPES = (torch.float32, torch.bfloat16)   # pools and q the kernel reads
+
+PAGED_DECODE_SOURCE = '''// paged decode: paged_decode.cuh's kernel per pool and q type
+#include "paged_decode.cuh"
+
+extern "C" int paged_decode_launch(
+    const void* q, const void* new_k, const void* new_v, void* kpool,
+    void* vpool, const void* page_table, const void* seq_lens, void* out,
+    int batch, int hkv, int group, int d, int ps, int npm, int n_phys,
+    int heads, int head_mul, int k_off, int v_off, float scale,
+    int pool_bf16, int q_bf16, void* stream) {
+  using bf16 = __nv_bfloat16;
+  using Launch = int (*)(const void*, const void*, const void*, void*, void*,
+                         const int*, const int*, float*, int, int, int, int,
+                         int, int, int, int, int, int, int, float,
+                         cudaStream_t);
+  const Launch run = pool_bf16 ? (q_bf16 ? &pdec::launch<bf16, bf16>
+                                         : &pdec::launch<bf16, float>)
+                               : (q_bf16 ? &pdec::launch<float, bf16>
+                                         : &pdec::launch<float, float>);
+  return run(q, new_k, new_v, kpool, vpool, (const int*)page_table,
+             (const int*)seq_lens, (float*)out, batch, hkv, group, d, ps, npm,
+             n_phys, heads, head_mul, k_off, v_off, scale,
+             (cudaStream_t)stream);
+}
+
+extern "C" int paged_decode_limits(int* limits) {
+  limits[0] = pdec::DMAX;
+  limits[1] = pdec::GMAX;
+  limits[2] = pdec::KC;
+  limits[3] = pdec::BMAX;
+  return 0;
+}
+'''
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+PAGED_DECODE_LIB = build.Library("paged_decode", PAGED_DECODE_SOURCE, {
+    "paged_decode_launch": [_VP] * 8 + [_INT] * 11 + [ctypes.c_float]
+    + [_INT] * 2 + [_VP],
+    "paged_decode_limits": [_VP]})
+_pd_limits: List[int] = []
+
+
+def _pd_refuse(b: int, group: int, dh: int, ps: int) -> None:
+    """Raise ``ValueError`` for a shape past the kernel's limits, which
+    the library reports (``pdec::DMAX``, ``GMAX``, ``KC``, ``BMAX``)."""
+    if not _pd_limits:
+        out = (ctypes.c_int * 4)()
+        PAGED_DECODE_LIB("paged_decode_limits", ctypes.addressof(out))
+        _pd_limits.extend(out)
+    dmax, gmax, kc, bmax = _pd_limits
+    if dh > dmax or group > gmax or ps > kc or b > bmax:
+        raise ValueError(f"head dim {dh}, group {group}, page size {ps}, "
+                         f"{b} requests: the kernel takes at most {dmax}, "
+                         f"{gmax}, {kc}, {bmax}")
+
+
+def _pd_heads(layout: str, kv_heads: int):
+    """(K pool index, V pool index, heads of a pool row, head multiplier,
+    K offset, V offset) of a layout: split pools hold head h at h, the
+    fused pool K at 2h and V at 2h + 1."""
+    if layout == "fused":
+        return 0, 0, 2 * kv_heads, 2, 0, 1
+    return 0, 1, kv_heads, 1, 0, 0
+
+
+def paged_decode_plain(q: torch.Tensor, new_k: torch.Tensor,
+                       new_v: torch.Tensor, pools: Sequence[torch.Tensor],
+                       page_table: torch.Tensor, seq_lens: torch.Tensor, *,
+                       layout: str = "split",
+                       pages_per_step: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of the paged-decode kernel, step for step
+    as the TPU kernel does it, every (request, kv head, query row) at
+    once: the append into ``pools`` (in place), then the online softmax
+    over all ``n_pages_max`` pages, page by page, in float32 (masked
+    positions -1e30, page ids clipped into the pool, p not rounded).
+    Returns the float32 output ``(B, Hkv, group, dh)``."""
+    b, hkv, group, dh = q.shape
+    npm = page_table.shape[1]
+    if npm % pages_per_step:
+        raise ValueError(f"pages_per_step {pages_per_step} must divide the "
+                         f"static page bound {npm}")
+    ki, vi, _, mul, k_off, v_off = _pd_heads(layout, hkv)
+    kpool, vpool = pools[ki], pools[vi]
+    n_phys, ps = kpool.shape[0], kpool.shape[1]
+    dev = q.device
+    rows = torch.arange(b, device=dev)
+    kh = torch.arange(hkv, device=dev) * mul + k_off
+    vh = torch.arange(hkv, device=dev) * mul + v_off
+    lens = seq_lens.long()
+    page_table = page_table.long()
+    # the append: lax.dynamic_update_slice clamps an index past the table
+    # or the pool, and so does this
+    page = page_table[rows, (lens // ps).clamp(0, npm - 1)]
+    page = page.clamp(0, n_phys - 1)
+    slot = lens % ps
+    kpool[page[:, None], slot[:, None], kh[None, :]] = new_k.to(kpool.dtype)
+    vpool[page[:, None], slot[:, None], vh[None, :]] = new_v.to(vpool.dtype)
+
+    qf = q.float()
+    scale = dh ** -0.5
+    m = torch.full((b, hkv, group), PD_NEG, device=dev)
+    el = torch.zeros((b, hkv, group), device=dev)
+    acc = torch.zeros((b, hkv, group, dh), device=dev)
+    for p in range(npm):
+        pid = page_table[:, p].clamp(0, n_phys - 1)
+        kpg = kpool[pid][:, :, kh].float().transpose(1, 2)  # (B,Hkv,ps,dh)
+        vpg = vpool[pid][:, :, vh].float().transpose(1, 2)
+        s = (qf @ kpg.transpose(-1, -2)) * scale              # (B, Hkv, g, ps)
+        pos = p * ps + torch.arange(ps, device=dev)
+        s = torch.where(pos[None, :] <= lens[:, None], s.permute(1, 2, 0, 3),
+                        PD_NEG).permute(2, 0, 1, 3)
+        m_new = torch.maximum(m, s.amax(-1))
+        pexp = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        el = el * alpha + pexp.sum(-1)
+        acc = acc * alpha[..., None] + pexp @ vpg
+        m = m_new
+    return acc / el[..., None]
+
+
+def _pd_check(q, new_k, new_v, pools, page_table, seq_lens, *, batch: int,
+              kv_heads: int, group: int, head_dim: int, page_size: int,
+              n_pages_max: int, layout: str):
+    want = {"q": (batch, kv_heads, group, head_dim),
+            "new_k": (batch, kv_heads, head_dim),
+            "new_v": (batch, kv_heads, head_dim),
+            "page_table": (batch, n_pages_max), "seq_lens": (batch,)}
+    for name, t in (("q", q), ("new_k", new_k), ("new_v", new_v),
+                    ("page_table", page_table), ("seq_lens", seq_lens)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"'{name}' has shape {tuple(t.shape)}, "
+                             f"expected {want[name]}")
+    heads = 2 * kv_heads if layout == "fused" else kv_heads
+    n_pools = 1 if layout == "fused" else 2
+    if len(pools) != n_pools:
+        raise ValueError(f"layout {layout!r} takes {n_pools} pools, got "
+                         f"{len(pools)}")
+    for t in pools:
+        if t.dim() != 4 or tuple(t.shape[1:]) != (page_size, heads,
+                                                  head_dim) \
+                or t.dtype != pools[0].dtype or t.shape != pools[0].shape:
+            raise ValueError(f"pool {t.dtype} {tuple(t.shape)}: expected "
+                             f"(P, {page_size}, {heads}, {head_dim}), "
+                             "one type")
+    if page_table.is_floating_point() or seq_lens.is_floating_point():
+        raise ValueError("page_table and seq_lens must be integers")
+
+
+def paged_decode(q, new_k, new_v, pools, page_table, seq_lens, *,
+                 layout: str = "split") -> torch.Tensor:
+    """Launch the paged-decode kernel on CUDA tensors (shapes checked by
+    the caller): the pools are updated in place; returns the float32
+    output.  Raises for what the kernel does not take."""
+    b, hkv, group, dh = q.shape
+    kpool = pools[0]
+    n_phys, ps = kpool.shape[0], kpool.shape[1]
+    if kpool.dtype not in _PD_TYPES:
+        raise ValueError(f"paged_decode pools are float32 or bfloat16, got "
+                         f"{kpool.dtype}")
+    _pd_refuse(b, group, dh, ps)
+    if not all(t.is_contiguous() for t in pools):
+        raise ValueError("paged_decode updates contiguous pools in place")
+    if q.dtype not in _PD_TYPES:
+        q = q.float()
+    q = q.contiguous()
+    new_k = new_k.to(kpool.dtype).contiguous()
+    new_v = new_v.to(kpool.dtype).contiguous()
+    page_table = page_table.to(torch.int32).contiguous()
+    seq_lens = seq_lens.to(torch.int32).contiguous()
+    ki, vi, heads, mul, k_off, v_off = _pd_heads(layout, hkv)
+    out = torch.empty((b, hkv, group, dh), dtype=torch.float32,
+                      device=q.device)
+    PAGED_DECODE_LIB(
+        "paged_decode_launch", q.data_ptr(), new_k.data_ptr(),
+        new_v.data_ptr(), pools[ki].data_ptr(), pools[vi].data_ptr(),
+        page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b, hkv,
+        group, dh, ps, page_table.shape[1], n_phys, heads, mul, k_off, v_off,
+        float(dh ** -0.5), int(kpool.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def lower_paged_decode(*, batch: int, kv_heads: int, group: int,
+                       head_dim: int, page_size: int, n_pages_max: int,
+                       layout: str = "split",
+                       pages_per_step: int = 1) -> Callable:
+    """The fused decode kernel over a paged KV cache
+    (``csrc/paged_decode.cuh``): the KV-append producer writes the step's
+    token into its page slot, then the attention fold streams the
+    request's pages with an online softmax.  The streaming domain is
+    ragged (``ir.RaggedExtent``): positions past ``seq_lens`` are masked
+    to -1e30, so the result does not depend on what the unallocated tail
+    of the page table points at.
+
+    Layouts: ``split`` takes two pools ``(P, ps, Hkv, dh)``, ``fused``
+    one head-interleaved pool ``(P, ps, 2 Hkv, dh)`` (K at head 2h, V at
+    2h + 1).  ``pages_per_step`` (the TPU kernel's grid step) must
+    divide ``n_pages_max``; the CUDA kernel stages 64 keys at a time
+    whatever it is.
+
+    Returns ``call(q, new_k, new_v, pools, page_table, seq_lens) ->
+    (out, pools)``: ``q`` ``(B, Hkv, group, dh)``, ``new_k`` / ``new_v``
+    ``(B, Hkv, dh)`` (already rotated; cast to the pools' type), ``out``
+    the float32 ``(B, Hkv, group, dh)`` output.  The pools are updated in
+    place and returned (the TPU kernel returns new ones).  CUDA tensors
+    launch the kernel (``lower_paged_decode.launches`` counts it); CPU
+    tensors take ``paged_decode_plain``.
+    """
+    if layout not in PAGED_LAYOUTS:
+        raise ValueError(f"layout {layout!r}; one of {PAGED_LAYOUTS}")
+    if n_pages_max % pages_per_step:
+        raise ValueError(
+            f"pages_per_step {pages_per_step} must divide the static "
+            f"page bound {n_pages_max}")
+    dims = dict(batch=batch, kv_heads=kv_heads, group=group,
+                head_dim=head_dim, page_size=page_size,
+                n_pages_max=n_pages_max, layout=layout)
+
+    def call(q, new_k, new_v, pools, page_table, seq_lens):
+        pools = tuple(pools)
+        dev = _on([q, new_k, new_v, *pools, page_table, seq_lens])
+        _pd_check(q, new_k, new_v, pools, page_table, seq_lens, **dims)
+        if dev.type == "cpu":
+            out = paged_decode_plain(q, new_k, new_v, pools, page_table,
+                                     seq_lens, layout=layout,
+                                     pages_per_step=pages_per_step)
+            return out, pools
+        out = paged_decode(q, new_k, new_v, pools, page_table, seq_lens,
+                           layout=layout)
+        lower_paged_decode.launches += 1
+        return out, pools
+
+    return call
+
+
+lower_paged_decode.launches = 0

@@ -229,3 +229,31 @@ def stream_seconds(words: int, *, bytes_per_word: int = 4,
 def stage_seconds_compute(flops: float,
                           tier: Tier = DEFAULT_TIER) -> float:
     return flops / tier.peak_flops
+
+
+# ------------------------------------------------- serving decode traffic
+def dense_decode_traffic_words(batch: int, cache_len: int, kv_heads: int,
+                               head_dim: int) -> int:
+    """Modeled main-memory words one decode step streams through a
+    *dense* (unpaged) KV cache: every request reads its full
+    ``cache_len`` extent of K and V regardless of how many tokens are
+    live, plus the new token's K/V write and the query read."""
+    kv = 2 * batch * cache_len * kv_heads * head_dim
+    token = 2 * batch * kv_heads * head_dim      # K/V append
+    q = batch * kv_heads * head_dim
+    return kv + token + q
+
+
+def paged_decode_traffic_words(seq_lens, page_size: int, kv_heads: int,
+                               head_dim: int) -> int:
+    """Modeled main-memory words one decode step streams through the
+    paged cache: each request touches only its live pages (``seq_len``
+    rounded up to page granularity), plus its K/V append and query.  The
+    two layouts (split and head-interleaved fused K/V) move the same
+    words."""
+    total = 0
+    for ln in seq_lens:
+        pages = -(-int(ln) // page_size)
+        total += 2 * pages * page_size * kv_heads * head_dim
+        total += 3 * kv_heads * head_dim         # K/V append + query
+    return total

@@ -803,3 +803,142 @@ def select_fused_kmeans_blocks(n: int, k: int, d: int, *,
                             device=device, **tuning)
     return plan.block, plan
 
+
+
+# --------------------------------------------------------------------
+# Paged serving decode: layout x page_size x block as joint DSE axes
+# --------------------------------------------------------------------
+
+PAGED_LAYOUTS = ("split", "fused")   # split K/V pools vs head-interleaved
+PAGE_SIZES = (8, 16, 32, 64)
+
+
+def _append_fn(s, pagerow, new, ln):
+    pagerow, new = pagerow.reshape(-1), new.reshape(-1)
+    return torch.where(s[0] == ln.reshape(()), new, pagerow)
+
+
+def paged_decode_pipeline(max_len: int, page_size: int, d: int,
+                          layout: str = "split"):
+    """One decode step as the ``decode_attention`` pipeline DAG: a
+    KV-append producer Map (the step's token merged at the ``seq_len``
+    slot) feeding a flash-attention MultiFold terminal, over a *ragged*
+    streaming domain (``ir.RaggedExtent``: the static extent is the
+    page-padded context bound, the live extent the run-time ``seq_len``,
+    masked at page granularity).
+
+    ``split`` streams separate K and V rows through two producer
+    stages; ``fused`` one head-interleaved ``2d`` row through a single
+    stage: the same words in half the streams, which the metapipeline
+    model prices differently.  Analysed, never lowered (the kernel is
+    ``codegen_cuda.lower_paged_decode``).
+    """
+    if layout not in PAGED_LAYOUTS:
+        raise ValueError(f"layout {layout!r}; one of {PAGED_LAYOUTS}")
+    padded = -(-max_len // page_size) * page_size
+    rag = ir.RaggedExtent(max=padded, length_name="seq_len",
+                          granularity=page_size)
+    q = ir.Tensor("q", (1, d))
+    seq_len = ir.Tensor("seq_len", (1,), "int32")
+    scale = d ** -0.5
+
+    def weight(s, krow, qv, ln):
+        live = s[0] <= ln.reshape(())
+        return torch.where(live, torch.exp((qv * krow).sum() * scale), 0.0)
+
+    if layout == "fused":
+        pages = ir.Tensor("kv_pages", (padded, 2 * d))
+        new_kv = ir.Tensor("new_kv", (1, 2 * d))
+        append = ir.Map(
+            domain=(padded,), elem_shape=(2 * d,),
+            reads=(ir.Access(pages, lambda i: (i, 0), (1, 2 * d)),
+                   ir.whole(new_kv), ir.whole(seq_len)),
+            fn=_append_fn, name="pd_append", ragged=rag)
+
+        def fold_fn(s, acc, kvrow, qv, ln):
+            kvrow, qv = kvrow.reshape(-1), qv.reshape(-1)
+            return acc + weight(s, kvrow[:d], qv, ln) * kvrow[d:]
+
+        fold = ir.MultiFold(
+            domain=(padded,), range_shape=(d,),
+            init=lambda: torch.zeros((d,)),
+            reads=(ir.Access(ir.Tensor("pd_append", (padded, 2 * d)),
+                             lambda i: (i, 0), (1, 2 * d)),
+                   ir.whole(q), ir.whole(seq_len)),
+            out_index_map=lambda i: (0,), update_shape=(d,),
+            fn=fold_fn, combine=operator.add, name="pd_kv", ragged=rag)
+        return plmod.Pipeline(name="paged_decode_fused",
+                              stages=(append, fold))
+
+    k_pages = ir.Tensor("k_pages", (padded, d))
+    v_pages = ir.Tensor("v_pages", (padded, d))
+    new_k = ir.Tensor("new_k", (1, d))
+    new_v = ir.Tensor("new_v", (1, d))
+    app_k = ir.Map(
+        domain=(padded,), elem_shape=(d,),
+        reads=(ir.Access(k_pages, lambda i: (i, 0), (1, d)),
+               ir.whole(new_k), ir.whole(seq_len)),
+        fn=_append_fn, name="pd_append_k", ragged=rag)
+    app_v = ir.Map(
+        domain=(padded,), elem_shape=(d,),
+        reads=(ir.Access(v_pages, lambda i: (i, 0), (1, d)),
+               ir.whole(new_v), ir.whole(seq_len)),
+        fn=_append_fn, name="pd_append_v", ragged=rag)
+
+    def fold_fn_split(s, acc, krow, vrow, qv, ln):
+        krow, vrow, qv = krow.reshape(-1), vrow.reshape(-1), qv.reshape(-1)
+        return acc + weight(s, krow, qv, ln) * vrow
+
+    fold = ir.MultiFold(
+        domain=(padded,), range_shape=(d,),
+        init=lambda: torch.zeros((d,)),
+        reads=(ir.Access(ir.Tensor("pd_append_k", (padded, d)),
+                         lambda i: (i, 0), (1, d)),
+               ir.Access(ir.Tensor("pd_append_v", (padded, d)),
+                         lambda i: (i, 0), (1, d)),
+               ir.whole(q), ir.whole(seq_len)),
+        out_index_map=lambda i: (0,), update_shape=(d,),
+        fn=fold_fn_split, combine=operator.add, name="pd_kv", ragged=rag)
+    return plmod.Pipeline(name="paged_decode_split",
+                          stages=(app_k, app_v, fold))
+
+
+def select_paged_decode_blocks(
+        max_len: int, d: int, *, tier: Optional[Tier] = None,
+        vmem_budget: Optional[int] = None, device=None, **tuning
+        ) -> Tuple[Tuple[str, int, int, int], TilePlan]:
+    """``(layout, page_size, block, depth)`` for
+    ``codegen_cuda.lower_paged_decode``: a joint search over KV layout x
+    page size x streaming block x buffer depth.
+
+    Every (layout, page_size) pair prices its own ``decode_attention``
+    proxy DAG through ``explore_pipeline`` (block x depth inside); the
+    argmin on modeled seconds wins.  ``plan`` is a summary ``TilePlan``
+    recording the joint axes: ``sizes["pd_kv"]`` the streaming block,
+    ``sizes["pd_page"]`` the page size, ``sizes["pd_layout"]`` the
+    layout's ``PAGED_LAYOUTS`` index, ``depths["pd_kv"]`` the depth.
+    Raises ``ValueError`` when no candidate of any pair fits the
+    budget, as the reference does.
+    """
+    _refuse_tuning_runtime(tuning)
+    tier = tier_of(tier, device)
+    page_sizes = [p for p in PAGE_SIZES if p <= max(max_len, PAGE_SIZES[0])]
+    best = None
+    explored = pruned = 0
+    for layout in PAGED_LAYOUTS:
+        for ps in page_sizes:
+            pipe = paged_decode_pipeline(max_len, ps, d, layout)
+            plan = explore_pipeline(pipe, tier=tier, vmem_budget=vmem_budget)
+            explored += plan.explored
+            pruned += plan.pruned
+            if best is None or (plan.modeled_seconds
+                                < best[2].modeled_seconds):
+                best = (layout, ps, plan)
+    layout, ps, pplan = best
+    summary = TilePlan(
+        sizes={"pd_kv": (int(pplan.block),), "pd_page": (int(ps),),
+               "pd_layout": (PAGED_LAYOUTS.index(layout),)},
+        traffic_words=pplan.traffic_words, vmem_bytes=pplan.vmem_bytes,
+        modeled_seconds=pplan.modeled_seconds, explored=explored,
+        pruned=pruned, depths={"pd_kv": int(pplan.depth)})
+    return (layout, int(ps), int(pplan.block), int(pplan.depth)), summary

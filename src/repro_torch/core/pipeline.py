@@ -178,6 +178,17 @@ def output_words(pipe: Pipeline) -> int:
     return total
 
 
+def ragged_extent(pipe: Pipeline) -> Optional[ir.RaggedExtent]:
+    """The pipeline's shared ragged extent, or None when every stage
+    streams the full static domain (``validate`` already enforced that
+    all ragged stages agree)."""
+    for s in pipe.stages:
+        rag = getattr(s, "ragged", None)
+        if rag is not None:
+            return rag
+    return None
+
+
 def _is_stream_row_access(a: ir.Access, domain_rank: int) -> bool:
     """True iff the access reads the *current* row along the shared
     streaming domain (base 0, dim 0 advancing 1:1 with the index)."""

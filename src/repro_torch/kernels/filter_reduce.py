@@ -68,17 +68,19 @@ def _auto_blocks(t: int, device) -> int:
 
 
 def inputs(x, weight, lo, hi, block_t: int, device):
-    """The checked inputs of a filter-fold: ``x`` and ``weight`` as (t,)
-    float32 tensors on one device, the bounds rounded to float32 (as the
-    reference rounds them), and ``block_t`` clipped to t; raises unless
-    block_t divides t."""
+    """The checked inputs of a filter-fold: ``x`` and ``weight`` (any
+    floating types) as (t,) float32 tensors on one device, the bounds
+    rounded to float32 (as the reference rounds them), and ``block_t``
+    clipped to t; raises unless block_t divides t."""
     x, weight = place((x, weight), device)
     if x.dim() != 1 or weight.shape != x.shape:
         raise ValueError(f"x {tuple(x.shape)} and weight "
                          f"{tuple(weight.shape)}: two (t,) vectors")
-    if x.dtype != torch.float32 or weight.dtype != torch.float32:
-        raise ValueError(f"x and weight must be float32, got {x.dtype} and "
-                         f"{weight.dtype}")
+    if not (x.is_floating_point() and weight.is_floating_point()):
+        raise ValueError(f"x and weight must be floating point, got "
+                         f"{x.dtype} and {weight.dtype}")
+    # read as float32, as the reference's kernel reads them
+    x, weight = x.float(), weight.float()
     lo, hi = float(np.float32(lo)), float(np.float32(hi))
     block_t = min(block_t, x.shape[0])
     if x.shape[0] % block_t:
@@ -125,9 +127,9 @@ def filter_reduce_plain(x: torch.Tensor, weight: torch.Tensor, lo,
 def filter_reduce(x, weight, lo, hi, *, block_t: int = 1024,
                   auto_tile: bool = False, device=None) -> torch.Tensor:
     """``sum(where(lo <= x < hi, x * weight, 0))`` as a float32 scalar,
-    the bounds rounded to float32 first.  x and weight are (t,) float32;
-    ``block_t`` rows per grid step must divide t.  ``auto_tile=True``
-    takes the DSE's block for the fused filter+fold proxy
+    the bounds rounded to float32 first.  x and weight are (t,) floating
+    point, read as float32; ``block_t`` rows per grid step must divide t.
+    ``auto_tile=True`` takes the DSE's block for the fused filter+fold proxy
     (``dse.select_filter_reduce_blocks``) for the tier of the device the
     inputs are on.  Replaces the TPU kernel ``filter_reduce`` (reference
     kernels/filter_reduce.py)."""

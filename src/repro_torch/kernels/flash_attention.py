@@ -119,9 +119,14 @@ def _inputs(q, k, v, device):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: (B, Hq, Sq, D) and (B, Hkv, Sk, "
                          f"D) with Hkv dividing Hq")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention takes float32 or bfloat16 inputs "
-                         f"of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not all(t.is_floating_point() for t in (q, k, v)):
+        raise ValueError(f"flash_attention takes floating-point inputs, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    # the reference's kernel takes any floating types (float32 scores, p
+    # rounded to V's type); here three bfloat16 inputs run as they are and
+    # any other mix in float32
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        q, k, v = q.float(), k.float(), v.float()
     return q, k, v
 
 
@@ -134,8 +139,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
     GQA: head h reads kv head h // (Hq // Hkv).  Query row i sits at
     position i + Sk - Sq; ``causal`` masks keys after it, ``window`` keys
-    at or before ``i - window``.  float32 or bfloat16 inputs of one type;
-    the result has their type.  The blocks must divide Sq and Sk, as the
+    at or before ``i - window``.  Inputs of any floating types: three
+    bfloat16 inputs run as they are, any other mix in float32; the result
+    has q's type.  The blocks must divide Sq and Sk, as the
     TPU kernel requires.  ``block_q`` is the query rows of one CUDA block;
     ``block_k`` sets the kv block of the plain version only: the CUDA
     kernel stages K and V 64 keys at a time whatever ``block_k`` (the
@@ -144,6 +150,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``auto_tile=True`` replaces the blocks with the DSE plan.  Replaces
     the TPU kernel ``flash_attention`` (reference
     kernels/flash_attention.py)."""
+    out_dtype = torch.as_tensor(q).dtype
     q, k, v = _inputs(q, k, v, device)
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
@@ -157,7 +164,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                          f"(sq, sk) = ({sq}, {sk})")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, block_k=block_k)
+                                     scale=scale,
+                                     block_k=block_k).to(out_dtype)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous inputs")
     if d > D_MAX:
@@ -172,7 +180,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         0 if window is None else int(window), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 flash_attention.launches = 0

@@ -34,9 +34,9 @@ def fused_filter_fold(x, weight, lo, hi, *, block_t: int = 1024,
                       auto_tile: bool = False, device=None) -> torch.Tensor:
     """``sum(where(lo <= x < hi, x * weight, 0))`` as a fused two-stage
     kernel, the bounds rounded to float32 first.  x and weight are (t,)
-    float32; ``block_t`` rows per grid step must divide t, and on the
-    card ``block_t`` floats must fit a block's shared memory (else
-    ``ValueError`` before any launch).  ``auto_tile=True`` takes the
+    floating point, read as float32; ``block_t`` rows per grid step must
+    divide t, and on the card ``block_t`` floats must fit a block's
+    shared memory (else ``ValueError`` before any launch).  ``auto_tile=True`` takes the
     joint DSE's block for the filter -> fold pipeline
     (``dse.select_fused_filter_fold_blocks``) for the tier of the device
     the inputs are on.  Replaces the TPU kernel ``fused_filter_fold``

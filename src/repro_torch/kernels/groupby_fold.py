@@ -58,9 +58,14 @@ def _auto_blocks(t: int, num_keys: int, ew: int, device) -> int:
 
 def _inputs(keys, values, device) -> Tuple[torch.Tensor, torch.Tensor]:
     keys, values = place((keys, values), device)
-    if keys.dtype != torch.int32 or values.dtype != torch.float32:
-        raise ValueError(f"keys must be int32 and values float32, got "
-                         f"{keys.dtype} and {values.dtype}")
+    if keys.is_floating_point() or keys.is_complex() \
+            or not values.is_floating_point():
+        raise ValueError(f"keys must be integers and values floating point, "
+                         f"got {keys.dtype} and {values.dtype}")
+    # as the reference's kernel sums float32 values, and as MoE routing
+    # hands it int32 expert ids (int64 keys are cast, as moe.router_counts
+    # casts them)
+    keys, values = keys.to(torch.int32), values.float()
     if keys.dim() != 1 or values.dim() not in (1, 2) \
             or values.shape[0] != keys.shape[0]:
         raise ValueError(f"keys {tuple(keys.shape)} and values "
@@ -85,8 +90,9 @@ def groupby_fold(keys, values, num_keys: int, *, block_t: int = 256,
                  auto_tile: bool = False, device=None) -> torch.Tensor:
     """out[k] = sum over i with keys[i] == k of values[i].
 
-    keys (t,) int32; values (t,) or (t, E) float32 -> out (num_keys,) or
-    (num_keys, E) float32.  Keys outside ``[0, num_keys)`` are dropped.
+    keys (t,) integers, cast to int32; values (t,) or (t, E) floating
+    point, summed in float32 -> out (num_keys,) or (num_keys, E) float32.
+    Keys outside ``[0, num_keys)`` are dropped.
     ``block_t`` rows per grid step must divide t; on the card a block's
     (num_keys, E) table must fit its shared memory (else ``ValueError``
     before any launch).  ``auto_tile=True`` takes the DSE's block for

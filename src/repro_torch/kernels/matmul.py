@@ -69,8 +69,10 @@ def matmul(x, y, *, block_m: int = 128, block_n: int = 128,
            auto_tile: bool = False, device=None) -> torch.Tensor:
     """``x @ y`` with explicit tiling; the blocks must divide the shape.
 
-    x (m, k) and y (k, n), both float32 or both bfloat16; the result is
-    ``out_dtype`` (float32 or bfloat16, default ``x.dtype``).  Runs on
+    x (m, k) and y (k, n) of any floating type: two bfloat16 inputs run
+    as they are, any other pair in float32, as the reference's kernel
+    accumulates whatever it is given in float32.  The result is
+    ``out_dtype`` (default ``x.dtype``), rounded once.  Runs on
     ``device`` (default: where the tensors are, CUDA for arrays).
     ``auto_tile=True`` replaces the blocks with the DSE plan.  Replaces
     the TPU kernel ``matmul`` (reference kernels/matmul.py).
@@ -78,12 +80,16 @@ def matmul(x, y, *, block_m: int = 128, block_n: int = 128,
     x, y = place((x, y), device)
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[0]:
         raise ValueError(f"matmul of {tuple(x.shape)} and {tuple(y.shape)}")
-    if x.dtype not in _DTYPES or y.dtype != x.dtype:
-        raise ValueError(f"matmul takes float32 or bfloat16 inputs of one "
-                         f"type, got {x.dtype} and {y.dtype}")
+    if not (x.is_floating_point() and y.is_floating_point()):
+        raise ValueError(f"matmul takes floating-point inputs, got "
+                         f"{x.dtype} and {y.dtype}")
     out_dtype = out_dtype or x.dtype
-    if out_dtype not in _DTYPES:
-        raise ValueError(f"out_dtype {out_dtype}: float32 or bfloat16")
+    # the reference's kernel multiplies whatever it is given with a
+    # float32 accumulator; here bfloat16 pairs run as they are and every
+    # other pair runs in float32
+    if not x.dtype == y.dtype == torch.bfloat16:
+        x, y = x.float(), y.float()
+    kernel_out = out_dtype if out_dtype in _DTYPES else torch.float32
     (m, k), n = x.shape, y.shape[1]
     if auto_tile:
         block_m, block_n, block_k = _auto_blocks(m, n, k, x.device)
@@ -98,12 +104,12 @@ def matmul(x, y, *, block_m: int = 128, block_n: int = 128,
         raise ValueError("matmul takes contiguous inputs")
     if m // block_m > 65535:
         raise ValueError(f"{m // block_m} row blocks: at most 65535")
-    out = torch.empty(m, n, dtype=out_dtype, device=x.device)
+    out = torch.empty(m, n, dtype=kernel_out, device=x.device)
     LIB("matmul_launch", x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
         block_m, block_n, k_chunk(block_k), _DTYPES[x.dtype],
-        _DTYPES[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        _DTYPES[kernel_out], torch.cuda.current_stream(x.device).cuda_stream)
     matmul.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 matmul.launches = 0

@@ -36,11 +36,6 @@ _SELECTORS = {
     "paged_decode": "select_paged_decode_blocks",
 }
 
-# kinds whose kernels and selectors arrive with a later slice of the port
-_LATER = {
-    "paged_decode": "the serving slice (lower_paged_decode)",
-}
-
 _PLAN_MEMO: dict = {}
 
 
@@ -62,10 +57,6 @@ def resolve_plan(kind: str, *shape: int, tier=None, device=None, **tuning):
     if kind not in _SELECTORS:
         raise ValueError(f"unknown plan kind {kind!r}; "
                          f"one of {sorted(_SELECTORS)}")
-    if kind in _LATER:
-        raise NotImplementedError(
-            f"plan kind {kind!r}: its kernel and selector arrive with "
-            f"{_LATER[kind]}")
     select = getattr(dse, _SELECTORS[kind])
     if tuning:
         return select(*shape, tier=tier, device=device, **tuning)

@@ -3,8 +3,13 @@
 Each function is the mathematical definition, as the JAX package's
 ``kernels/ref.py`` writes it: float32 arithmetic, written for clarity,
 not speed.  ``ops.*(use_kernel=False)`` returns these; the kernel tests
-hold the kernels against them.  Inputs of a wider type (float64, for
-a check on the card) are computed and returned in that type.
+hold the kernels against them.  What each computes in:
+
+* ``attention`` and ``ssd_scan``: float32, or float64 for float64
+  inputs (the float64 oracles of the checks on the card); the result
+  has q's (x's) type.
+* ``matmul``, ``groupby_fold`` and ``filter_reduce``: float32 whatever
+  the inputs, as the reference's do; the result is float32.
 """
 from __future__ import annotations
 

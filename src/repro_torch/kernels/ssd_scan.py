@@ -115,12 +115,15 @@ def _inputs(x, dt, A, B, C, device):
             f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
             f"B {tuple(B.shape)}, C {tuple(C.shape)}: dt (batch, seq, heads),"
             f" A (heads,), B and C (batch, seq, n)")
-    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (dt, B, C)):
-        raise ValueError(f"ssd_scan takes x, dt, B and C as float32 or "
-                         f"bfloat16 of one type, got {x.dtype}, {dt.dtype}, "
-                         f"{B.dtype}, {C.dtype}")
-    if not A.is_floating_point():
-        raise ValueError(f"A must be floating point, got {A.dtype}")
+    if not all(t.is_floating_point() for t in (x, dt, A, B, C)):
+        raise ValueError(f"ssd_scan takes floating-point inputs, got "
+                         f"{x.dtype}, {dt.dtype}, {A.dtype}, {B.dtype}, "
+                         f"{C.dtype}")
+    # the reference's kernel reads every input as float32 (bfloat16 x, B
+    # and C beside float32 dt and A, as Mamba-2's block passes them); here
+    # x, dt, B and C all bfloat16 run as they are, any other mix in float32
+    if not x.dtype == dt.dtype == B.dtype == C.dtype == torch.bfloat16:
+        x, dt, B, C = x.float(), dt.float(), B.float(), C.float()
     return x, dt, A, B, C
 
 
@@ -129,11 +132,13 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, auto_tile: bool = False,
     """Mamba-2 SSD scan; see ``ref.ssd_scan`` for the semantics.
 
     x (batch, seq, heads, dh), dt (batch, seq, heads), B and C (batch,
-    seq, n), all float32 or all bfloat16; A (heads,) floating point.  The
-    result has x's type; the state is float32.  ``chunk`` must divide seq.
+    seq, n) and A (heads,) of any floating types: x, dt, B and C all
+    bfloat16 run as they are, any other mix in float32.  The result has
+    x's type; the state is float32.  ``chunk`` must divide seq.
     Runs on ``device`` (default: where the tensors are, CUDA for arrays).
     ``auto_tile=True`` replaces the chunk with the DSE plan.  Replaces the
     TPU kernel ``ssd_scan`` (reference kernels/ssd_scan.py)."""
+    out_dtype = torch.as_tensor(x).dtype
     x, dt, A, B, C = _inputs(x, dt, A, B, C, device)
     bsz, seq, h, dh = x.shape
     n = B.shape[-1]
@@ -143,7 +148,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, auto_tile: bool = False,
     if seq % chunk:
         raise ValueError(f"chunk {chunk} must divide seq = {seq}")
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk).to(out_dtype)
     if not all(t.is_contiguous() for t in (x, dt, A, B, C)):
         raise ValueError("ssd_scan takes contiguous inputs")
     if h > 65535 or bsz > 65535:
@@ -161,7 +166,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, auto_tile: bool = False,
         B.data_ptr(), C.data_ptr(), y.data_ptr(), bsz, seq, h, dh, n, ls, ds,
         _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     ssd_scan.launches += 1
-    return y
+    return y.to(out_dtype)
 
 
 ssd_scan.launches = 0

@@ -1,3 +1,6 @@
-"""Model definitions of the port.  So far ``config`` (``ModelConfig``,
-with its analytic parameter and FLOP counts): the layers and models
-arrive with the LM-stack slice."""
+"""Model definitions of the port: ``config`` (``ModelConfig``, with its
+analytic parameter and FLOP counts), the dense decoder family
+(``layers``, ``transformer``, ``model``), the paged KV cache and its
+decode step (``paged``), the no-op sharding hints (``sharding``) and the
+carrying of the reference's weights (``convert``).  MoE, SSM, hybrid,
+audio and VLM families arrive with ROADMAP §1 step 4."""

@@ -1,0 +1,329 @@
+"""Decoder-only transformer, dense GQA family (the reference's
+``models/transformer.py`` in PyTorch).
+
+Params are a dict of tensors with a stacked leading layer axis, as in
+the reference, and the layer loop walks that axis (``layers.
+scan_layers``).  Supports GQA / MQA attention with RoPE, optional QKV
+bias (Qwen-2), optional sliding window, and the swiglu, squared-ReLU
+and gelu FFNs; full-sequence forward and single-token (or block) decode
+with a preallocated KV cache (sliding-window configs keep a ring buffer
+of ``min(window, max_len)``).
+
+The decode cache is written in place and returned (the reference's
+serving steps donate it).  MoE layers, multi-codebook heads and the VLM
+prefix wait for ROADMAP §1 step 4; their configs raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from . import layers as L
+from .config import ModelConfig
+from .sharding import hint, hint_first
+
+Params = Dict[str, Any]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    """Raise for the families this slice of the port does not run (MoE,
+    SSM, hybrid, audio, VLM)."""
+    if cfg.family != "dense" or cfg.n_experts or cfg.n_codebooks:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family arrives with the "
+            "LM-model slice (ROADMAP §1 step 4)")
+
+
+# ----------------------------------------------------------------- shapes
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """name -> (shape, init_kind); init_kind in {embed, dense, zeros}."""
+    check_dense(cfg)
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    nl = cfg.n_layers
+    qk, kv = cfg.qk_dim, cfg.kv_dim
+    shapes: Dict[str, Tuple[Tuple[int, ...], str]] = {
+        "embed": ((v, d), "embed"),
+        "lm_head": ((d, v), "dense"),
+        "final_norm": ((d,), "zeros"),
+        "ln1": ((nl, d), "zeros"),
+        "ln2": ((nl, d), "zeros"),
+        "wq": ((nl, d, qk), "dense"),
+        "wk": ((nl, d, kv), "dense"),
+        "wv": ((nl, d, kv), "dense"),
+        "wo": ((nl, qk, d), "dense"),
+    }
+    if cfg.qkv_bias:
+        shapes.update({"bq": ((nl, qk), "zeros"),
+                       "bk": ((nl, kv), "zeros"),
+                       "bv": ((nl, kv), "zeros")})
+    shapes.update({"w1": ((nl, d, f), "dense"), "w2": ((nl, f, d), "dense")})
+    if cfg.activation == "swiglu":
+        shapes["w3"] = ((nl, d, f), "dense")
+    return shapes
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+    """Random weights from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``, drawn in sorted parameter order (other numbers than the
+    reference's ``jax.random`` gives; the tests carry the reference's
+    weights across with ``convert.params_from_numpy``)."""
+    from ..device import resolve
+
+    dev = resolve(device)
+    dt = dtype_of(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, (shape, kind) in sorted(param_shapes(cfg).items()):
+        if kind == "zeros":
+            out[name] = torch.zeros(shape, dtype=dt, device=dev)
+        elif kind == "embed":
+            out[name] = L.embed_init(gen, shape, dt, dev)
+        else:
+            in_axis = -2 if len(shape) >= 2 else 0
+            out[name] = L.dense_init(gen, shape, in_axis, dt, dev)
+    return out
+
+
+# -------------------------------------------------------------- attention
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dq->bsq")`` in the inputs' type (float32
+    accumulation inside the product)."""
+    return x @ w
+
+
+def _qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+         positions: torch.Tensor):
+    """Rotated q (B, S, Hq, dh), rotated k and plain v (B, S, Hkv, dh)."""
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = L.rope(q.reshape(b, s, hq, dh), positions, cfg.rope_theta)
+    k = L.rope(k.reshape(b, s, hkv, dh), positions, cfg.rope_theta)
+    return q, k, v.reshape(b, s, hkv, dh)
+
+
+def _attn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+          positions: torch.Tensor,
+          kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+          cache_index: Optional[int] = None):
+    """x: (B, S, D).  With kv_cache=(k, v) of (B, Hkv, C, dh), performs
+    decode: writes this step's k/v at ``cache_index`` (mod C: ring
+    buffer for sliding windows) into the cache, in place, and attends
+    over the cache."""
+    b, s, d = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _qkv(p, x, cfg, positions)
+    q = hint(q, "data", None, "model", None)
+    k = hint(k, "data", None, "model", None)
+    group = hq // hkv
+
+    if kv_cache is None:
+        out = _sdpa_chunked(q, k, v, positions, cfg)
+        return _proj(out.reshape(b, s, hq * dh), p["wo"]), None
+
+    ck, cv = kv_cache                                   # (B, Hkv, C, dh)
+    c = ck.shape[2]
+    widx = int(cache_index) % c
+    # lax.dynamic_update_slice clamps the start so the block fits
+    w0 = min(widx, c - s)
+    ck[:, :, w0:w0 + s] = k.transpose(1, 2).to(ck.dtype)
+    cv[:, :, w0:w0 + s] = v.transpose(1, 2).to(cv.dtype)
+    qg = q.reshape(b, s, hkv, group, dh)
+    scores = torch.einsum("bskgh,bkch->bskgc", qg.float(),
+                          ck.float()) * dh ** -0.5
+    slotpos = torch.arange(c, device=x.device)
+    # ring semantics relative to the LAST slot this block wrote: slot j
+    # holds absolute position last - ((wlast - j) mod C); query row i
+    # sits at cache_index + i; abspos < 0 marks never-written slots
+    last = int(cache_index) + s - 1
+    wlast = widx + s - 1
+    abspos = last - torch.remainder(wlast - slotpos, c)
+    qpos = int(cache_index) + torch.arange(s, device=x.device)
+    valid = (abspos[None, :] <= qpos[:, None]) & (abspos >= 0)[None, :]
+    if cfg.sliding_window is not None:
+        valid &= abspos[None, :] > qpos[:, None] - cfg.sliding_window
+    scores = scores.masked_fill(~valid[None, :, None, None, :],
+                                float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bskgc,bkch->bskgh", probs, cv.float())
+    out = out.reshape(b, s, hq * dh).to(x.dtype)
+    return _proj(out, p["wo"]), (ck, cv)
+
+
+ATTN_CHUNK = 1024  # q-block size for the tiled softmax
+
+
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Tiled softmax attention over query blocks of ``ATTN_CHUNK`` with
+    an online softmax over key blocks of the same size: the reference's
+    XLA-level flash attention, eagerly.  Masked scores are -1e30; p is
+    rounded to V's type before the PV product; float32 statistics.
+
+    q: (B, S, Hq, dh); k, v: (B, S, Hkv, dh) -> (B, S, Hq, dh)
+    """
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    group = hq // hkv
+    kq = k.repeat_interleave(group, dim=2)
+    vq = v.repeat_interleave(group, dim=2)
+    head = [("data", None, "model", None)]
+    q, kq, vq = (hint_first(t, head) for t in (q, kq, vq))
+
+    bq = min(ATTN_CHUNK, s)
+    if s % bq != 0:
+        bq = s
+    scale = dh ** -0.5
+    outs = []
+    for q0 in range(0, s, bq):
+        qb = q[:, q0:q0 + bq].float()
+        pb = positions[q0:q0 + bq]
+        m_run = torch.full((b, hq, bq), -1e30, device=q.device)
+        l_run = torch.zeros((b, hq, bq), device=q.device)
+        acc = torch.zeros((b, hq, bq, dh), device=q.device)
+        for k0 in range(0, s, bq):
+            kb, vb = kq[:, k0:k0 + bq], vq[:, k0:k0 + bq]
+            kp = positions[k0:k0 + bq]
+            s_ = torch.einsum("bshd,bthd->bhst", qb, kb.float()) * scale
+            mask = kp[None, :] <= pb[:, None]
+            if cfg.sliding_window is not None:
+                mask &= kp[None, :] > pb[:, None] - cfg.sliding_window
+            s_ = torch.where(mask[None, None], s_, -1e30)
+            m_new = torch.maximum(m_run, s_.amax(-1))
+            p = torch.exp(s_ - m_new[..., None])
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhst,bthd->bhsd", p.to(vb.dtype).float(), vb.float())
+            m_run = m_new
+        denom = torch.where(l_run == 0.0, 1.0, l_run)
+        out = (acc / denom[..., None]).to(vq.dtype)
+        outs.append(hint_first(out.transpose(1, 2), head))  # (b, bq, h, dh)
+    return torch.cat(outs, dim=1)
+
+
+def _dense_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    act = L.activation("silu" if cfg.activation == "swiglu"
+                       else cfg.activation)
+    h = _proj(x, p["w1"])
+    if cfg.activation == "swiglu":
+        h = act(h) * _proj(x, p["w3"])
+    else:
+        h = act(h)
+    h = hint(h, "data", None, "model")
+    return _proj(h, p["w2"])
+
+
+def _block(slc: Dict, x, cfg: ModelConfig, positions, kv_cache=None,
+           cache_index=None):
+    a, new_cache = _attn(slc, L.rms_norm(x, slc["ln1"]), cfg, positions,
+                         kv_cache, cache_index)
+    x = x + a
+    x = x + _dense_ffn(slc, L.rms_norm(x, slc["ln2"]), cfg)
+    x = hint(x, "data", "model", None)
+    return x, new_cache
+
+
+_ATTN_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "bq", "bk", "bv")
+_DENSE_KEYS = ("w1", "w2", "w3")
+
+
+def _layer_stacks(params: Params, cfg: ModelConfig):
+    """The per-layer stacks: attention (all layers) and the dense FFN."""
+    attn = {k: params[k] for k in _ATTN_KEYS if k in params}
+    dense = {k: params[k] for k in _DENSE_KEYS if k in params}
+    return attn, dense
+
+
+def _embed_tokens(params: Params, cfg: ModelConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()]
+
+
+def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return _proj(L.rms_norm(x, params["final_norm"]), params["lm_head"])
+
+
+def forward(params: Params, cfg: ModelConfig,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence forward.  tokens: (B, S) integers -> logits (B, S,
+    padded vocab) in the model's type."""
+    check_dense(cfg)
+    x = hint(_embed_tokens(params, cfg, tokens), "data", None, None)
+    positions = torch.arange(x.shape[1], device=x.device)
+    attn, dense = _layer_stacks(params, cfg)
+
+    def body(x, slices):
+        a_slc, d_slc = slices
+        x, _ = _block({**a_slc, **d_slc}, x, cfg, positions)
+        return x, None
+
+    x, _ = L.scan_layers(body, x, (attn, dense))
+    return _head(params, x)
+
+
+# ------------------------------------------------------------------ decode
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def _cache_shape(cfg: ModelConfig, batch: int, max_len: int):
+    check_dense(cfg)
+    return (cfg.n_layers, batch, cfg.n_kv_heads, cache_len(cfg, max_len),
+            cfg.head_dim)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> Dict[str, torch.Tensor]:
+    from ..device import resolve
+
+    dev = resolve(device)
+    dt = dtype or dtype_of(cfg)
+    shp = _cache_shape(cfg, batch, max_len)
+    return {"k": torch.zeros(shp, dtype=dt, device=dev),
+            "v": torch.zeros(shp, dtype=dt, device=dev)}
+
+
+def cache_specs(cfg: ModelConfig, batch: int,
+                max_len: int) -> Dict[str, torch.Tensor]:
+    """The cache's shapes and types as tensors on the ``meta`` device
+    (no memory)."""
+    shp = _cache_shape(cfg, batch, max_len)
+    return {n: torch.empty(shp, dtype=dtype_of(cfg), device="meta")
+            for n in ("k", "v")}
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
+                tokens: torch.Tensor, index: int):
+    """One decode step.  tokens: (B, S); index: the current position
+    (number of tokens already in the cache).  ``S > 1`` is block decode
+    (the whole-prompt prefill): the S tokens are written to the cache
+    contiguously at ``index`` and attend causally among themselves and
+    over the cache; the block must not wrap the ring buffer.  The cache
+    is updated in place; returns ``(logits, cache)``."""
+    check_dense(cfg)
+    x = _embed_tokens(params, cfg, tokens)
+    index = int(index)
+    positions = index + torch.arange(x.shape[1], device=x.device)
+    attn, dense = _layer_stacks(params, cfg)
+
+    def body(x, slices):
+        a_slc, d_slc, kc, vc = slices
+        x, _ = _block({**a_slc, **d_slc}, x, cfg, positions,
+                      kv_cache=(kc, vc), cache_index=index)
+        return x, None
+
+    x, _ = L.scan_layers(body, x, (attn, dense, cache["k"], cache["v"]))
+    return _head(params, x), cache

@@ -91,6 +91,26 @@ def test_flash_attention_bfloat16_matches_jax(window):
                                rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("types", [("float16",) * 3,
+                                   ("bfloat16", "float32", "float32"),
+                                   ("float32", "bfloat16", "bfloat16")])
+def test_flash_attention_takes_the_reference_kernels_input_types(types):
+    """The reference's kernel takes any floating types (float32 scores, p
+    rounded to V's type) and returns q's type; the port computes a mix
+    in float32 and returns q's type."""
+    q, k, v = _qkv(1, 4, 2, 128, 128, 64, seed=7)
+    want = jflash(*(jnp.asarray(t, dt) for t, dt in zip((q, k, v), types)),
+                  causal=True, block_q=64, block_k=32)
+    got = flash_attention(*(torch.as_tensor(t).to(getattr(torch, dt))
+                            for t, dt in zip((q, k, v), types)),
+                          causal=True, block_q=64, block_k=32, device="cpu")
+    assert str(got.dtype) == f"torch.{want.dtype}" == f"torch.{types[0]}"
+    tol = 2e-2 if "bfloat16" in types else 2e-3
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
 def test_rows_without_a_visible_key_are_the_mean_of_v():
     """Causal with sq > sk: rows 0..sq-sk-1 see no key.  The Pallas
     kernel's finite -1e30 mask makes them the mean of V (the oracle gives
@@ -133,8 +153,8 @@ def test_flash_attention_refuses_what_it_cannot_take(bad):
     kw = {"device": "cpu"}
     if bad == "blocks":
         kw["block_q"] = 48
-    elif bad == "dtype":
-        k = k.double()
+    elif bad == "dtype":        # any floating types are taken; not ints
+        k = k.int()
     else:
         k, v = k[:, :1].repeat(1, 3, 1, 1), v[:, :1].repeat(1, 3, 1, 1)
     with pytest.raises(ValueError):

@@ -685,3 +685,154 @@ def test_lm_kernels_refuse_what_they_cannot_take():
     with pytest.raises(ValueError, match="contiguous"):
         ssd.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
                      B, C, chunk=64)
+
+
+def paged_case(b, hkv, group, d, ps, npm, layout, dtype, seed=0,
+               device="cuda"):
+    """Inputs of one paged-decode step: shuffled, disjoint page tables
+    over a pool with spare pages, lengths crossing page boundaries and
+    reaching the last page of the table.  Shared with the CPU tests."""
+    rng = np.random.RandomState(seed)
+    n_phys = 1 + b * npm + 3
+    heads = 2 * hkv if layout == "fused" else hkv
+    pools = tuple(torch.as_tensor(rng.randn(n_phys, ps, heads, d)
+                                  .astype(np.float32)).to(device, dtype)
+                  for _ in range(1 if layout == "fused" else 2))
+    table = rng.permutation(np.arange(1, n_phys))[:b * npm]
+    table = torch.as_tensor(table.reshape(b, npm).astype(np.int32),
+                            device=device)
+    top = npm * ps - 1
+    lens = np.minimum(np.array([top, ps, 0, 2 * ps + 1, ps - 1] * b)[:b],
+                      top)
+    lens = torch.as_tensor(lens.astype(np.int32), device=device)
+    q = torch.as_tensor(rng.randn(b, hkv, group, d).astype(np.float32),
+                        device=device).to(dtype)
+    k, v = (torch.as_tensor(rng.randn(b, hkv, d).astype(np.float32),
+                            device=device) for _ in range(2))
+    return q, k, v, pools, table, lens
+
+
+# (b, hkv, group, d, ps, npm): granite's widths (group 4, head dim 64) at
+# page sizes 8 and 64, MQA, a group of 12 over 3 warps' rows, head dims
+# 16 and 128, a page size that does not divide the 64-key chunk
+PAGED = [(4, 8, 4, 64, 8, 16), (3, 2, 4, 64, 64, 3), (2, 1, 8, 32, 16, 5),
+         (5, 2, 12, 16, 4, 9), (2, 2, 2, 128, 32, 4), (3, 2, 4, 64, 24, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED, ids=str)
+@pytest.mark.parametrize("layout", ["split", "fused"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_matches_plain(case, layout, dtype):
+    _card()
+    b, hkv, group, d, ps, npm = case
+    q, k, v, pools, table, lens = paged_case(*case, layout, dtype)
+    plain_pools = tuple(p.clone() for p in pools)
+    kern = cc.lower_paged_decode(batch=b, kv_heads=hkv, group=group,
+                                 head_dim=d, page_size=ps, n_pages_max=npm,
+                                 layout=layout)
+    before = cc.lower_paged_decode.launches
+    out, new_pools = kern(q, k, v, pools, table, lens)
+    torch.cuda.synchronize()
+    assert cc.lower_paged_decode.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert all(a is b_ for a, b_ in zip(new_pools, pools))   # in place
+    want = cc.paged_decode_plain(q, k, v, plain_pools, table, lens,
+                                 layout=layout)
+    for got, exp in zip(pools, plain_pools):
+        assert torch.equal(got, exp)
+    torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_refuses_what_it_cannot_take():
+    _card()
+    q, k, v, pools, table, lens = paged_case(2, 2, 4, 144, 8, 4, "split",
+                                             torch.float32)
+    kern = cc.lower_paged_decode(batch=2, kv_heads=2, group=4, head_dim=144,
+                                 page_size=8, n_pages_max=4)
+    with pytest.raises(ValueError, match="head dim"):
+        kern(q, k, v, pools, table, lens)
+    q, k, v, pools, table, lens = paged_case(2, 2, 4, 64, 8, 4, "split",
+                                             torch.float16)
+    kern = cc.lower_paged_decode(batch=2, kv_heads=2, group=4, head_dim=64,
+                                 page_size=8, n_pages_max=4)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kern(q, k, v, pools, table, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "fused"])
+def test_paged_serving_on_the_card_matches_the_dense_oracle(layout):
+    """Continuous serving of granite-3-2b SMOKE through the kernel,
+    token-identical to the port's dense ``decode_step`` on the card."""
+    _card()
+    from repro_torch.launch import serve, steps
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    lens, gen, slots = (3, 5, 9, 4), 3, 2
+    before = cc.lower_paged_decode.launches
+    toks, stats = serve.serve_continuous("granite-3-2b", True, slots, gen,
+                                         prompt_lens=lens, layout=layout)
+    cfg = get_config("granite-3-2b", smoke=True)
+    assert stats["certified"] and stats["use_pallas"]
+    assert cc.lower_paged_decode.launches - before \
+        == cfg.n_layers * (stats["steps"] + 5 + 4 - 1)
+    params = model.init_params(cfg, 0, "cuda")
+    pool = np.random.RandomState(0).randint(0, cfg.vocab, (len(lens),
+                                                           max(lens)))
+    ps = stats["page_size"]
+    cmax = -(-(max(lens) + gen) // ps) * ps
+    step = steps.make_serve_step(cfg)
+    for r, ln in enumerate(lens):
+        cache = model.init_cache(cfg, 1, cmax, device="cuda")
+        nxt, want = None, []
+        for i in range(ln + gen):
+            tok = (torch.as_tensor(pool[r:r + 1, i:i + 1], dtype=torch.int32,
+                                   device="cuda") if i < ln
+                   else nxt.reshape(1, 1))
+            nxt, cache = step(params, cache, tok, i)
+            if i >= ln:
+                want.append(int(nxt[0]))
+        assert list(toks[r]) == want, f"request {r} diverged"
+
+
+@pytest.mark.cuda
+def test_kernels_take_the_reference_kernels_input_types_on_the_card():
+    """The wrappers cast as the reference's kernels cast inside: the
+    result has the reference's type and the plain version's value."""
+    _card()
+    x, y = _randn(0, 64, 64), _randn(1, 64, 64)
+    got = mm.matmul(x.half(), y.half(), block_m=32, block_n=32, block_k=32)
+    assert got.dtype == torch.float16
+    torch.testing.assert_close(got.float(), x.half().float()
+                               @ y.half().float(), rtol=2e-3, atol=2e-3)
+    q, k, v = _randn(2, 1, 4, 64, 32), _randn(3, 1, 2, 64, 32), \
+        _randn(4, 1, 2, 64, 32)
+    out = fa.flash_attention(q.half(), k.half(), v.half(), block_q=64,
+                             block_k=64)
+    assert out.dtype == torch.float16
+    torch.testing.assert_close(out.float(), fa.flash_attention_plain(
+        q.half().float(), k.half().float(), v.half().float(), block_k=64),
+        rtol=2e-3, atol=2e-3)
+    xs, dt, A, B, C = _ssd_inputs(1, 64, 2, 16, 8)
+    bf = [t.bfloat16() for t in (xs, B, C)]
+    y = ssd.ssd_scan(bf[0], dt, A, bf[1], bf[2], chunk=32)
+    assert y.dtype == torch.bfloat16
+    want = ssd.ssd_scan_plain(bf[0].float(), dt, A, bf[1].float(),
+                              bf[2].float(), chunk=32)
+    torch.testing.assert_close(y.float(), want, rtol=2e-2,
+                               atol=2e-2 * float(want.abs().max()))
+    keys = torch.randint(0, 8, (256,), device="cuda")        # int64
+    vals = _randn(5, 256, 4).half()
+    torch.testing.assert_close(gbf.groupby_fold(keys, vals, 8, block_t=64),
+                               gbf.groupby_fold_plain(keys.int(),
+                                                      vals.float(), 8),
+                               rtol=1e-5, atol=1e-5)
+    xv, wv = _randn(6, 1024).half(), _randn(7, 1024).half()
+    torch.testing.assert_close(fr.filter_reduce(xv, wv, -0.5, 0.8,
+                                                block_t=256),
+                               fr.filter_reduce_plain(xv.float(), wv.float(),
+                                                      -0.5, 0.8),
+                               rtol=1e-4, atol=1e-4)

@@ -95,12 +95,31 @@ def test_matmul_refuses_what_the_kernel_does_not_take():
     x = torch.zeros(64, 64)
     with pytest.raises(ValueError, match="must divide"):
         matmul(x, x, block_m=48, device="cpu")
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        matmul(x.double(), x.double(), device="cpu")
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        matmul(x, x.bfloat16(), device="cpu")
+    with pytest.raises(ValueError, match="floating-point"):
+        matmul(x.int(), x.int(), device="cpu")
+    with pytest.raises(ValueError, match="floating-point"):
+        matmul(x, x.bool(), device="cpu")
     with pytest.raises(ValueError, match="matmul of"):
         matmul(x, torch.zeros(32, 8), device="cpu")
+
+
+# the reference's kernels multiply, fold and sum whatever floating types
+# they are given in float32; the port's wrappers cast the same way and
+# return the reference's type (x's for matmul, float32 for the folds)
+@pytest.mark.parametrize("xt,yt", [("float16", "float16"),
+                                   ("bfloat16", "float32"),
+                                   ("float32", "bfloat16")])
+def test_matmul_takes_the_reference_kernels_input_types(xt, yt):
+    x, y = _r(6, 64, 64), _r(7, 64, 64)
+    want = jmatmul(jnp.asarray(x, xt), jnp.asarray(y, yt), block_m=32,
+                   block_n=32, block_k=32)
+    got = matmul(torch.as_tensor(x).to(getattr(torch, xt)),
+                 torch.as_tensor(y).to(getattr(torch, yt)), block_m=32,
+                 block_n=32, block_k=32, device="cpu")
+    assert str(got.dtype) == f"torch.{want.dtype}"
+    tol = 2e-3 if "bfloat16" not in (xt, want.dtype) else 2e-2
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("block_k,kc", [(128, 32), (16, 16), (4096, 32),
@@ -152,12 +171,30 @@ def test_groupby_fold_drops_keys_outside_the_table():
 
 def test_groupby_fold_refuses_what_the_kernel_does_not_take():
     keys = np.zeros(64, np.int32)
-    with pytest.raises(ValueError, match="int32"):
-        groupby_fold(keys.astype(np.int64), np.ones(64, np.float32), 4,
+    with pytest.raises(ValueError, match="integers"):
+        groupby_fold(keys.astype(np.float32), np.ones(64, np.float32), 4,
                      device="cpu")
+    with pytest.raises(ValueError, match="floating point"):
+        groupby_fold(keys, np.ones(64, np.int32), 4, device="cpu")
     with pytest.raises(ValueError, match="must divide"):
         groupby_fold(keys, np.ones(64, np.float32), 4, block_t=48,
                      device="cpu")
+
+
+@pytest.mark.parametrize("kt,vt", [(np.int64, np.float32),
+                                   (np.int32, np.float16),
+                                   (np.int64, np.float16)])
+def test_groupby_fold_takes_the_reference_kernels_input_types(kt, vt):
+    """int64 keys (torch's index type) are cast to int32, as
+    ``moe.router_counts`` casts them; float16 values are summed in
+    float32; the result is float32, as the reference's."""
+    keys, vals = _keys(8, 512, -2, 18).astype(kt), _r(9, 512, 4).astype(vt)
+    want = jgroupby_fold(keys.astype(np.int32), vals, 16, block_t=128)
+    for got in (groupby_fold(keys, vals, 16, block_t=128, device="cpu"),
+                ops.groupby(torch.as_tensor(keys), torch.as_tensor(vals), 16,
+                            block_t=128, device="cpu")):
+        assert got.dtype == torch.float32 and want.dtype == jnp.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 # ------------------------------------------------------ filter kernels
@@ -219,6 +256,18 @@ def test_filter_where_fails_adds_zero_even_for_nan(name):
     want = float(jfn(x, w, 0.0, 1.0, block_t=2))
     got = float(fn(x, w, 0.0, 1.0, block_t=2, device="cpu"))
     assert got == want == 2.0
+
+
+@pytest.mark.parametrize("name", sorted(FILTERS))
+def test_filter_kernels_take_the_reference_kernels_input_types(name):
+    """float16 rows are read as float32, as the reference's kernels read
+    them; the sum is float32."""
+    jfn, fn = FILTERS[name]
+    x, w = _r(10, 1024).astype(np.float16), _r(11, 1024).astype(np.float16)
+    want = jfn(x, w, -0.5, 0.8, block_t=256)
+    got = fn(x, w, -0.5, 0.8, block_t=256, device="cpu")
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-4, atol=1e-4)
 
 
 # ----------------------------------------------------- fused k-means
@@ -300,8 +349,11 @@ def test_resolve_plan_refuses_unknown_later_and_tuning_kinds():
     assert sorted(ops._SELECTORS) == sorted(jops._SELECTORS)
     with pytest.raises(ValueError, match="unknown plan kind"):
         ops.resolve_plan("conv", 1)
-    with pytest.raises(NotImplementedError, match="slice"):
-        ops.resolve_plan("paged_decode", 128, 128, 64)
+    # every kind resolves: paged_decode (the serving slice) as the
+    # reference plans it
+    from repro.core import dse as jdse
+    assert ops.resolve_plan("paged_decode", 128, 64, tier=cost.TPU)[0] \
+        == jdse.select_paged_decode_blocks(128, 64, cache=False)[0]
     with pytest.raises(NotImplementedError, match="tuning-runtime"):
         ops.resolve_plan("gemm", 512, 512, 512, measure="top_k",
                          device="cpu")

@@ -71,6 +71,31 @@ def test_ssd_scan_bfloat16_matches_jax():
                                atol=2e-2 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("mix", ["bf16 x/B/C, f32 dt/A", "f16 x, f32 rest",
+                                 "f32 x, bf16 dt"])
+def test_ssd_scan_takes_the_reference_kernels_input_types(mix):
+    """The reference's kernel reads every input as float32 and returns
+    x's type: bfloat16 x, B and C beside float32 dt and A (the types
+    Mamba-2's block passes) give a bfloat16 result within 2e-2."""
+    x, dt, A, B, C = _inputs(2, 128, 4, 32, 16, seed=2)
+    types = {"bf16 x/B/C, f32 dt/A": ("bfloat16", "float32", "bfloat16"),
+             "f16 x, f32 rest": ("float16", "float32", "float32"),
+             "f32 x, bf16 dt": ("float32", "bfloat16", "float32")}[mix]
+    xt, dtt, bct = types
+    want = jssd(jnp.asarray(x, xt), jnp.asarray(dt, dtt), A,
+                jnp.asarray(B, bct), jnp.asarray(C, bct), chunk=32)
+    got = ssd_scan(torch.as_tensor(x).to(getattr(torch, xt)),
+                   torch.as_tensor(dt).to(getattr(torch, dtt)), A,
+                   torch.as_tensor(B).to(getattr(torch, bct)),
+                   torch.as_tensor(C).to(getattr(torch, bct)), chunk=32,
+                   device="cpu")
+    assert str(got.dtype) == f"torch.{want.dtype}" == f"torch.{xt}"
+    want = np.asarray(want, np.float32)
+    tol = 2e-2 if "bfloat16" in types else 2e-3
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                               atol=tol * np.abs(want).max())
+
+
 def test_ssd_scan_auto_tile_matches_jax():
     inp = _inputs(1, 128, 2, 16, 8)
     want = jssd(*inp, auto_tile=True)
@@ -93,8 +118,8 @@ def test_ssd_scan_refuses_what_it_cannot_take(bad):
     kw = {"chunk": 16, "device": "cpu"}
     if bad == "chunk":
         kw["chunk"] = 24
-    elif bad == "dtype":
-        B = B.double()
+    elif bad == "dtype":        # any floating types are taken; not ints
+        B = B.int()
     else:
         A = A[:1]
     with pytest.raises(ValueError):
