@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Builds every kernel of the path from ``src/repro_torch/kernels/csrc``
-(one nvcc per translation unit, all at once), then:
+(one nvcc per translation unit, all at once) and counts HGMMA (wgmma),
+UTMALDG (TMA), LDGSTS (cp.async) and FFMA in the SASS of each variant of
+``matmul`` and ``flash_attention`` (``cuobjdump -sass``; a tensor-core
+variant without HGMMA, or no cuobjdump, fails), then:
 
   * runs ``lower_pipeline(pipe)`` -- the port's own DSE on the card's
     budget, then the fused-DAG CUDA megakernel -- for each of the five
@@ -21,7 +24,8 @@ Builds every kernel of the path from ``src/repro_torch/kernels/csrc``
   * runs the hand-written kernels of ``repro_torch.kernels`` through
     their entry points, each at the DSE's plan for the card unless said
     otherwise: ``matmul`` at 4096^3 in float32 at its default blocks and
-    through ``autotile.tuned_matmul``, and in bfloat16; ``filter_reduce``
+    through ``autotile.tuned_matmul`` (the FFMA kernel), and in bfloat16
+    (the wgmma kernel; the per-variant counts show which ran); ``filter_reduce``
     and ``fused_filter_fold`` on TPC-H Q6 (6,000,000 rows of discount and
     extended price, ``0.05 <= discount < 0.075``); ``ops.groupby`` on
     4,194,304 rows into 64 keys of 8 values (about 1% of the keys
@@ -40,8 +44,10 @@ Builds every kernel of the path from ``src/repro_torch/kernels/csrc``
     float32 attention, SSD_F32_TOL for the float32 SSD, 2e-2 for
     bfloat16.  Each limit is first proved to catch planted faults: a
     dropped kv block in the first and in the last query tile, the SSD's
-    state carry zeroed at a chunk boundary, and, for float32, the
-    oracle's output rounded to bfloat16;
+    state carry zeroed at a chunk boundary, for float32 the oracle's
+    output rounded to bfloat16, and, where the keys are split (decode),
+    one split's partial dropped from the combine.  Every bfloat16
+    attention phase must run the wgmma kernel, by the per-variant counts;
   * runs ``lower_paged_decode`` (the paged KV append and attention) at
     granite-3-2b's widths: 32 requests of seeded lengths up to 8,191
     tokens (page-boundary lengths among them) over bf16 pools with
@@ -427,6 +433,61 @@ def run_filter(call, make_inputs, reference, cc, tier, torch) -> dict:
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
 
 
+# ------------------------------------------------ what the kernels compiled to
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "FFMA")
+# the kernels of each library by variant: (label, function-name key, whether
+# it must run on the tensor cores)
+SASS_VARIANTS = {
+    "matmul": (("matmul[wgmma]", "wgmma_kernel", True),
+               ("matmul[ffma]", "ffma_kernel", False)),
+    "flash_attention": (("flash_attention[wgmma]", "wgmma_kernel", True),
+                        ("flash_attention[ffma]", "ffma_kernel", False),
+                        ("flash_attention[combine]", "combine_kernel",
+                         False)),
+}
+
+
+def sass_check(paths: dict) -> None:
+    """Counts HGMMA (wgmma), UTMALDG (TMA loads), LDGSTS (cp.async) and
+    FFMA in the SASS of each variant of the libraries in ``paths`` (name
+    -> built library), read with ``cuobjdump -sass``; fails if cuobjdump
+    is missing or a tensor-core variant has no HGMMA."""
+    import os
+    import re
+
+    exe = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" \
+        / "cuobjdump"
+    if not exe.exists():
+        fail(f"SASS check: {exe} not found")
+    op = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
+    for lib, variants in SASS_VARIANTS.items():
+        text = subprocess.run([str(exe), "-sass", str(paths[lib])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts = {label: dict.fromkeys(SASS_OPS, 0) for label, _, _ in
+                  variants}
+        functions = {label: 0 for label, _, _ in variants}
+        current = None
+        for line in text.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :", 1)[1].strip()
+                current = next((label for label, key, _ in variants
+                                if key in name), None)
+                if current:
+                    functions[current] += 1
+            elif current:
+                for hit in op.findall(line):
+                    counts[current][hit] += 1
+        for label, _, tensor_cores in variants:
+            c = counts[label]
+            print(f"[sass] {label}: {functions[label]} instantiations; "
+                  + ", ".join(f"{k} {v}" for k, v in c.items()), flush=True)
+            if not functions[label]:
+                fail(f"SASS check: no {label} kernel in {paths[lib]}")
+            if tensor_cores and not c["HGMMA"]:
+                fail(f"SASS check: {label} has no HGMMA instruction")
+
+
 # ------------------------------------------------ hand-written kernels
 def show_plan(label: str, kind: str, *shape, dev) -> None:
     from repro_torch.kernels import ops
@@ -444,15 +505,22 @@ def run_matmul(label: str, run, x, y, tol: float, peak, tier, torch) -> dict:
     torch.matmul (TF32 off) and a float64 product of 64 rows."""
     from repro_torch.kernels import matmul as mm
 
+    which = mm.variant(x.dtype, y.dtype, x.shape[1], y.shape[1])
     torch.cuda.synchronize()
-    mm.matmul.launches = 0
+    mm.matmul.launches = mm.matmul.wgmma_launches = 0
+    mm.matmul.ffma_launches = 0
     out = run()
     torch.cuda.synchronize()
     launches = mm.matmul.launches
+    ran = {"wgmma": mm.matmul.wgmma_launches,
+           "ffma": mm.matmul.ffma_launches}
     print(f"[{label}] {tuple(x.shape)} x {tuple(y.shape)} {x.dtype} -> "
-          f"{out.dtype}; matmul launches={launches}")
+          f"{out.dtype}; matmul launches={launches} (wgmma {ran['wgmma']}, "
+          f"ffma {ran['ffma']})")
     if launches < 1:
         fail(f"{label}: the matmul kernel was not launched")
+    if ran[which] != launches:
+        fail(f"{label}: expected every launch to run the {which} kernel")
     e_plain = max_err(out, mm.matmul_plain(x, y, out.dtype), torch,
                       f"{label} vs plain", tol)
     e_lib = max_err(out, torch.matmul(x, y), torch,
@@ -775,6 +843,43 @@ def dropped_block_fault(q, k, v, want, causal, window, q0: int, rows: int,
     return j, shift, catches(faulted, ref_rows, tol, atol)
 
 
+def dropped_split_fault(q, k, v, want, causal, window, tile_q: int,
+                        splits: int, tol: float, atol, torch):
+    """The planted fault of a split launch: the combine loses the partial
+    of one split (the one holding the most softmax mass) of the first
+    tile of packed rows of (batch 0, kv head 0), as a combine that
+    skipped it would give (float64, over the keys the other splits
+    cover).  Returns (the split, the largest shift, whether the limit
+    catches it)."""
+    from repro_torch.kernels.flash_attention import (BC, NEG_INF, _visible,
+                                                     live_chunks)
+
+    hq, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    hkv, sk = k.shape[1], k.shape[2]
+    rows = min(tile_q, hq // hkv * sq)
+    heads = torch.arange(rows, device=q.device) // sq
+    pos = torch.arange(rows, device=q.device) % sq
+    qr = q[0, heads, pos].double()
+    kk, vv = k[0, 0].double(), v[0, 0].double()
+    logits = (qr @ kk.T) * d ** -0.5
+    mask = _visible(pos + sk - sq, torch.arange(sk, device=q.device),
+                    causal, window)
+    logits = logits.masked_fill(~mask, NEG_INF)
+    mass = torch.softmax(logits, -1).sum(0)
+    spans = [live_chunks(0, rows, sq, sk, causal, window, s, splits)
+             for s in range(splits)]
+    weight = [float(mass[f * BC:(f + c) * BC].sum()) for f, c in spans]
+    split = max(range(splits), key=weight.__getitem__)
+    first, count = spans[split]
+    keep = torch.ones(sk, dtype=torch.bool, device=q.device)
+    keep[first * BC:(first + count) * BC] = False
+    faulted = torch.softmax(logits[:, keep], -1) @ vv[keep]
+    ref_rows = want[0, heads, pos]
+    shift = float((faulted - ref_rows).abs().max())
+    return split, shift, catches(faulted, ref_rows, tol,
+                                 atol[0, heads, pos])
+
+
 def sdpa_call(q, k, v, causal: bool, window, torch):
     """One PyTorch call computing the same attention:
     ``scaled_dot_product_attention`` with ``enable_gqa``.  Its
@@ -840,16 +945,34 @@ def run_attention(label: str, cfg, b: int, sq: int, sk: int, dtype, *,
             return fa.flash_attention(q, k, v, block_q=block_q,
                                       block_k=block_k, **kw)
     tol = BF16_TOL if dtype == torch.bfloat16 else RTOL
+    which = fa.variant(q.dtype, k.dtype, v.dtype, d)
+    if dtype == torch.bfloat16 and which != "wgmma":
+        fail(f"{label}: bfloat16 attention at head dim {d} would not run "
+             "the wgmma kernel")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile_q, tiles, splits = fa.launch_plan(b, hkv, hq // hkv, sq, sk, which,
+                                           sms)
     torch.cuda.synchronize()
-    fa.flash_attention.launches = 0
+    counters = ("launches", "wgmma_launches", "ffma_launches",
+                "combine_launches")
+    for name in counters:
+        setattr(fa.flash_attention, name, 0)
     out = run()
     torch.cuda.synchronize()
     launches = fa.flash_attention.launches
+    ran = {name: getattr(fa.flash_attention, name) for name in counters}
     print(f"[{label}] {cfg.name}: q {tuple(q.shape)}, k/v {tuple(k.shape)} "
           f"{dtype}, causal={causal}, window={window}, blocks ({block_q}, "
-          f"{block_k}); flash_attention launches={launches}")
+          f"{block_k}); the {which} kernel, {tiles} tiles of {tile_q} packed "
+          f"rows per kv head, keys in {splits} split(s); launches: " + ", "
+          .join(f"{name} {n}" for name, n in ran.items()))
     if launches < 1:
         fail(f"{label}: the flash_attention kernel was not launched")
+    if ran[f"{which}_launches"] != launches:
+        fail(f"{label}: expected every launch to run the {which} kernel")
+    if (ran["combine_launches"] > 0) != (splits > 1):
+        fail(f"{label}: {splits} split(s) but {ran['combine_launches']} "
+             "combine launches")
 
     def plain():
         return fa.flash_attention_plain(q, k, v, block_k=block_k, **kw)
@@ -870,6 +993,15 @@ def run_attention(label: str, cfg, b: int, sq: int, sk: int, dtype, *,
                  f"(shift {shift:.4g})")
         faults.append(f"kv block {j} dropped from the q tile at row {q0} "
                       f"shifts it by {shift:.4g}")
+    if splits > 1:
+        split, shift, caught = dropped_split_fault(
+            q, k, v, want, causal, window, tile_q, splits, tol, atol, torch)
+        if not caught:
+            fail(f"{label}: rtol {tol} / atol {fmt_atol(atol)} would not "
+                 f"catch split {split} of {splits} dropped from the combine "
+                 f"(shift {shift:.4g})")
+        faults.append(f"split {split} of {splits} dropped from the combine "
+                      f"shifts the first tile by {shift:.4g}")
     if dtype == torch.float32:
         faults.append("the output rounded to bfloat16 by " + format(
             rounding_fault(want, tol, atol, torch, label), ".4g"))
@@ -1614,6 +1746,8 @@ def main() -> int:
         for line in p.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {label}: {line.strip()}")
+    sass_check({lib: p for lib, p in zip(labels, paths)
+                if lib in SASS_VARIANTS})
 
     kernels = []
 

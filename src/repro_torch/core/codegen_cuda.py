@@ -82,7 +82,7 @@ def _staged(t, dev: torch.device) -> torch.Tensor:
     """``t`` as a kernel input on ``dev``: contiguous and, on the card,
     16-byte aligned (a view at another offset is copied)."""
     t = torch.as_tensor(t).to(dev).contiguous()
-    return t.clone() if dev.type == "cuda" and t.data_ptr() % 16 else t
+    return build.aligned(t) if dev.type == "cuda" else t
 
 
 def _persistent_ctas(library: Callable, fn: str, smem_bytes: int,

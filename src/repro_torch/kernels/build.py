@@ -114,6 +114,12 @@ def load(name: str, source: str) -> ctypes.CDLL:
     return _LIBS[key]
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it in fresh storage when it starts off a
+    16-byte boundary (16-byte loads, ``cp.async`` and TMA need one)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def pointers(ptrs: Sequence[int]):
     """A C array of device pointers, kept alive by the caller."""
     return (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)

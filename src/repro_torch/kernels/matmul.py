@@ -1,13 +1,23 @@
 """Tiled GEMM -- the paper's Table 3 worked example, hand-written.
 
 ``matmul`` computes ``x @ y`` with a float32 accumulator, cast to
-``out_dtype``, through the CUDA kernel ``csrc/matmul.cuh`` for CUDA
+``out_dtype``, through a CUDA kernel of ``csrc/matmul.cuh`` for CUDA
 tensors and through its plain PyTorch version, ``matmul_plain``, for CPU
-tensors.  Each block of the kernel owns one ``(block_m, block_n)``
-output tile and loops over K itself; ``block_k`` is the grain K is
-staged in.  Block sizes default to 128; ``auto_tile=True`` takes the
-DSE's plan for this (m, n, k) instead (``ops.resolve_plan("gemm")``),
-for the tier of the device the inputs are on.
+tensors.  Two kernels, chosen by ``variant``:
+
+* ``wgmma``: two bfloat16 inputs with ``k % 8 == 0`` and ``n % 8 == 0``
+  (TMA's 16-byte stride rule) run on the tensor cores, 128 x 256 tiles
+  fed by TMA;
+* ``ffma``: every other input, widened to float32, runs on FFMA (no TF32:
+  the float32 tolerance rules it out), 128 x 128 tiles staged by
+  ``cp.async``.
+
+A view off a 16-byte boundary is copied first.  The kernels' tiles are
+their own: ``(block_m, block_n, block_k)`` keep the reference's meaning
+(they must divide the shape, and the wrapper raises where the reference
+asserts) but do not change the grid.  Block sizes default to 128;
+``auto_tile=True`` takes the DSE's plan for this (m, n, k) instead
+(``ops.resolve_plan("gemm")``), for the tier of the inputs' device.
 """
 from __future__ import annotations
 
@@ -19,29 +29,32 @@ import torch
 from . import build
 from ..device import place
 
-KC_MAX = 32          # hmm::KC_MAX: K words the kernel stages per step
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-SOURCE = '''// hand-tiled matmul: matmul.cuh's kernel per input and output type
+SOURCE = '''// hand-tiled matmul: matmul.cuh's kernels per variant and output type
 #include "matmul.cuh"
 
-extern "C" int matmul_launch(const void* x, const void* y, void* out, int m,
-                             int n, int k, int bm, int bn, int kc,
-                             int in_bf16, int out_bf16, void* stream) {
-  using bf16 = __nv_bfloat16;
-  using Launch = int (*)(const void*, const void*, void*, int, int, int, int,
-                         int, int, cudaStream_t);
-  const Launch run = in_bf16 ? (out_bf16 ? &hmm::launch<bf16, bf16>
-                                         : &hmm::launch<bf16, float>)
-                             : (out_bf16 ? &hmm::launch<float, bf16>
-                                         : &hmm::launch<float, float>);
-  return run(x, y, out, m, n, k, bm, bn, kc, (cudaStream_t)stream);
+extern "C" int matmul_wgmma(const void* x, const void* y, void* out, int m,
+                            int n, int k, int out_bf16, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  return out_bf16 ? hmm::launch_wgmma<__nv_bfloat16>(x, y, out, m, n, k, s)
+                  : hmm::launch_wgmma<float>(x, y, out, m, n, k, s);
+}
+
+extern "C" int matmul_ffma(const void* x, const void* y, void* out, int m,
+                           int n, int k, int vec4, int out_bf16,
+                           void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  return out_bf16
+             ? hmm::launch_ffma<__nv_bfloat16>(x, y, out, m, n, k, vec4, s)
+             : hmm::launch_ffma<float>(x, y, out, m, n, k, vec4, s);
 }
 '''
 
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
 LIB = build.Library("matmul", SOURCE, {
-    "matmul_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-    + [ctypes.c_void_p]})
+    "matmul_wgmma": [_VP] * 3 + [_INT] * 4 + [_VP],
+    "matmul_ffma": [_VP] * 3 + [_INT] * 5 + [_VP]})
 
 
 def _auto_blocks(m: int, n: int, k: int, device) -> Tuple[int, int, int]:
@@ -50,11 +63,20 @@ def _auto_blocks(m: int, n: int, k: int, device) -> Tuple[int, int, int]:
     return blocks
 
 
-def k_chunk(block_k: int) -> int:
-    """K words the kernel stages per step: the largest divisor of
-    ``block_k`` up to ``KC_MAX``."""
-    return max(c for c in range(1, min(block_k, KC_MAX) + 1)
-               if block_k % c == 0)
+def variant(x_dtype: torch.dtype, y_dtype: torch.dtype, k: int,
+            n: int) -> str:
+    """The kernel a product of (m, k) x (k, n) inputs of these types
+    runs: ``"wgmma"`` for two bfloat16 inputs whose rows are whole 16-byte
+    pieces (``k % 8 == 0 and n % 8 == 0``), else ``"ffma"``."""
+    if x_dtype == y_dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0:
+        return "wgmma"
+    return "ffma"
+
+
+def ffma_vec(k: int, n: int) -> int:
+    """Words per ``cp.async`` of the ffma kernel: 4 (16 bytes) when the
+    float32 rows of x and y are whole 16-byte pieces, else 1."""
+    return 4 if k % 4 == 0 and n % 4 == 0 else 1
 
 
 def matmul_plain(x: torch.Tensor, y: torch.Tensor,
@@ -73,7 +95,9 @@ def matmul(x, y, *, block_m: int = 128, block_n: int = 128,
     as they are, any other pair in float32, as the reference's kernel
     accumulates whatever it is given in float32.  The result is
     ``out_dtype`` (default ``x.dtype``), rounded once.  Runs on
-    ``device`` (default: where the tensors are, CUDA for arrays).
+    ``device`` (default: where the tensors are, CUDA for arrays), by the
+    kernel ``variant`` names; the blocks are checked, not used, by the
+    kernels (their own tiles mask ragged edges).
     ``auto_tile=True`` replaces the blocks with the DSE plan.  Replaces
     the TPU kernel ``matmul`` (reference kernels/matmul.py).
     """
@@ -84,12 +108,6 @@ def matmul(x, y, *, block_m: int = 128, block_n: int = 128,
         raise ValueError(f"matmul takes floating-point inputs, got "
                          f"{x.dtype} and {y.dtype}")
     out_dtype = out_dtype or x.dtype
-    # the reference's kernel multiplies whatever it is given with a
-    # float32 accumulator; here bfloat16 pairs run as they are and every
-    # other pair runs in float32
-    if not x.dtype == y.dtype == torch.bfloat16:
-        x, y = x.float(), y.float()
-    kernel_out = out_dtype if out_dtype in _DTYPES else torch.float32
     (m, k), n = x.shape, y.shape[1]
     if auto_tile:
         block_m, block_n, block_k = _auto_blocks(m, n, k, x.device)
@@ -98,18 +116,35 @@ def matmul(x, y, *, block_m: int = 128, block_n: int = 128,
     if m % block_m or n % block_n or k % block_k:
         raise ValueError(f"blocks ({block_m}, {block_n}, {block_k}) must "
                          f"divide ({m}, {n}, {k})")
+    which = variant(x.dtype, y.dtype, k, n)
+    # the reference's kernel multiplies whatever it is given with a
+    # float32 accumulator; here the wgmma kernel takes bfloat16 pairs as
+    # they are and the ffma kernel everything else in float32
+    if which == "ffma":
+        x, y = x.float(), y.float()
     if x.device.type == "cpu":
         return matmul_plain(x, y, out_dtype)
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("matmul takes contiguous inputs")
-    if m // block_m > 65535:
-        raise ValueError(f"{m // block_m} row blocks: at most 65535")
+    if (n + 127) // 128 > 65535:
+        raise ValueError(f"{(n + 127) // 128} column tiles: at most 65535")
+    x, y = build.aligned(x), build.aligned(y)
+    kernel_out = out_dtype if out_dtype in _DTYPES else torch.float32
     out = torch.empty(m, n, dtype=kernel_out, device=x.device)
-    LIB("matmul_launch", x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
-        block_m, block_n, k_chunk(block_k), _DTYPES[x.dtype],
-        _DTYPES[kernel_out], torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    out_bf16 = int(kernel_out == torch.bfloat16)
+    if which == "wgmma":
+        LIB("matmul_wgmma", x.data_ptr(), y.data_ptr(), out.data_ptr(), m,
+            n, k, out_bf16, stream)
+        matmul.wgmma_launches += 1
+    else:
+        LIB("matmul_ffma", x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n,
+            k, int(ffma_vec(k, n) == 4), out_bf16, stream)
+        matmul.ffma_launches += 1
     matmul.launches += 1
     return out.to(out_dtype)
 
 
-matmul.launches = 0
+matmul.launches = 0          # every kernel launch
+matmul.wgmma_launches = 0    # of which the bfloat16 tensor-core kernel
+matmul.ffma_launches = 0     # of which the float32 FFMA kernel

@@ -3,7 +3,11 @@
 against the Pallas kernel in interpret mode at the shapes of
 ``tests/test_kernels.py`` (float32 2e-4, the reference tests' tolerance),
 in bfloat16 (2e-2), at a decode row, at head dim 80 and with ``sq > sk``,
-whose rows that see no key are the mean of V in both; ``ref.attention``
+whose rows that see no key are the mean of V in both; the plain version
+with the kernels' chunk skipping and key splits (``skip_masked``,
+``splits``) against the same Pallas kernel, with the rule's exception
+for tiles holding a keyless row shown to matter, and the kernels'
+dispatch and launch plans; ``ref.attention``
 and ``ops.attention`` against the JAX ones; ``select_attention_blocks``
 exactly as the reference's (``cache=False``) under ``cost.TPU``, at the
 TPU's 16 MiB and the H100's 232,448 B, raising where it raises; and the
@@ -11,6 +15,7 @@ model configurations (``repro_torch.configs``) field by field, with their
 parameter and FLOP counts.
 """
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +32,7 @@ from repro.kernels.flash_attention import flash_attention as jflash
 from repro_torch import configs
 from repro_torch.core import codegen_torch as tex
 from repro_torch.core import cost, dse
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
@@ -159,6 +165,149 @@ def test_flash_attention_refuses_what_it_cannot_take(bad):
         k, v = k[:, :1].repeat(1, 3, 1, 1), v[:, :1].repeat(1, 3, 1, 1)
     with pytest.raises(ValueError):
         flash_attention(q, k, v, **kw)
+
+
+# ------------------------------------- the kernels' chunk skipping and splits
+# (b, hq, hkv, sq, sk, d, causal, window, block_q, block_k): causal prefill,
+# a window, decode rows at group 1, 4 and 8, sq > sk (rows that see no
+# key, in tiles of their own at 64 rows and mixed with keyed rows at 128),
+# and a non-causal window
+SKIP_CASES = [
+    (1, 4, 2, 128, 128, 32, True, None, 64, 64),
+    (1, 4, 2, 192, 192, 32, True, 48, 64, 64),
+    (2, 2, 2, 1, 200, 32, True, None, 1, 40),
+    (2, 8, 2, 1, 200, 32, True, None, 1, 40),
+    (1, 8, 1, 1, 256, 16, True, None, 1, 64),
+    (1, 4, 2, 160, 96, 32, True, None, 32, 32),
+    (1, 2, 1, 64, 160, 16, False, 40, 32, 32),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_flash(case, dtype):
+    b, hq, hkv, sq, sk, d, causal, window, bq, bk = case
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, seed=17)
+    return np.asarray(jflash(*(jnp.asarray(t, dtype) for t in (q, k, v)),
+                             causal=causal, window=window, block_q=bq,
+                             block_k=bk), np.float32)
+
+
+@pytest.mark.parametrize("case", SKIP_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits,tile_q", [(1, 64), (3, 64), (2, 128)])
+def test_skipping_and_splitting_match_jax(case, dtype, splits, tile_q):
+    """The plain version with the kernels' two steps -- each tile of
+    packed rows over its live chunks only, its keys split and merged --
+    against the Pallas kernel in interpret mode."""
+    b, hq, hkv, sq, sk, d, causal, window, bq, bk = case
+    q, k, v = (torch.as_tensor(t).to(getattr(torch, dtype))
+               for t in _qkv(b, hq, hkv, sq, sk, d, seed=17))
+    got = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                block_k=fa.BC, skip_masked=True,
+                                splits=splits, tile_q=tile_q)
+    assert got.dtype == q.dtype
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    np.testing.assert_allclose(got.float().numpy(),
+                               _jax_flash(case, getattr(jnp, dtype)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("splits,tile_q", [(4, 64), (3, 128)])
+def test_keyless_rows_are_the_mean_of_v_under_splits(splits, tile_q):
+    """Causal with sq > sk: rows 0..63 see no key.  Their tiles run every
+    chunk, and the merge weighs every split by 1, so they stay the mean
+    of all of V, as in the Pallas kernel."""
+    q, k, v = _qkv(1, 2, 1, 192, 128, 16, seed=19)
+    want = np.asarray(jflash(q, k, v, causal=True, block_q=64, block_k=64))
+    got = flash_attention_plain(*map(torch.as_tensor, (q, k, v)),
+                                block_k=16, skip_masked=True, splits=splits,
+                                tile_q=tile_q).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got[0, :, :64],
+                               np.broadcast_to(v[0, 0].mean(0), (2, 64, 16)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_skipping_in_a_tile_with_a_keyless_row_would_change_it(monkeypatch):
+    """Why a tile holding a row that sees no key runs every chunk: a
+    128-row tile of positions -64..63 over 128 keys, chunks of 16.  Its
+    keyed rows need chunks 0..3 only; run over those, its keyless rows
+    would average keys 0..63, not all of V.  The keyed rows are the same
+    either way."""
+    q, k, v = map(torch.as_tensor, _qkv(1, 1, 1, 192, 128, 16, seed=23))
+    kw = dict(block_k=16, skip_masked=True, tile_q=128)
+    assert fa.live_chunks(0, 128, 192, 128, True, None, bc=16) == (0, 8)
+    assert fa.live_chunks(64, 64, 192, 128, True, None, bc=16) == (0, 4)
+    right = flash_attention_plain(q, k, v, **kw)
+    monkeypatch.setattr(fa, "live_chunks",
+                        lambda r0, *args: (0, 4) if r0 == 0 else (0, 8))
+    wrong = flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(right[0, 0, :64],
+                               v[0, 0].mean(0).expand(64, 16), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(wrong[0, 0, :64],
+                               v[0, 0, :64].mean(0).expand(64, 16),
+                               rtol=1e-5, atol=1e-5)
+    assert (wrong[0, 0, :64] - right[0, 0, :64]).abs().max() > 1e-2
+    assert torch.equal(wrong[0, 0, 64:128], right[0, 0, 64:128])
+
+
+@pytest.mark.parametrize("causal,window", [(True, 40), (False, 40),
+                                           (True, None)])
+def test_skipping_changes_no_bit_of_a_row_that_sees_a_key(causal, window,
+                                                          monkeypatch):
+    """The same tiles over their live chunks, then over all ten: equal
+    bit for bit, as a skipped chunk adds exactly 0 to such a row."""
+    q, k, v = map(torch.as_tensor, _qkv(1, 4, 2, 96, 160, 16, seed=29))
+    kw = dict(causal=causal, window=window, block_k=16, skip_masked=True,
+              tile_q=32)
+    live = flash_attention_plain(q, k, v, **kw)
+    monkeypatch.setattr(fa, "live_chunks", lambda *args: (0, 10))
+    assert torch.equal(live, flash_attention_plain(q, k, v, **kw))
+
+
+# (r0, rows, sq, sk, causal, window, split, splits) -> (first, count), in
+# chunks of 64 keys
+LIVE = [
+    ((0, 64, 4096, 4096, True, None, 0, 1), (0, 1)),       # first causal tile
+    ((4032, 64, 4096, 4096, True, None, 0, 1), (0, 64)),   # last one: all
+    ((4032, 64, 4096, 4096, True, 256, 0, 1), (59, 5)),    # a window of 256
+    ((0, 4, 1, 32768, True, None, 1, 2), (256, 256)),      # decode, split 1
+    ((0, 64, 128, 32, True, None, 0, 1), (0, 1)),          # keyless: all
+    ((64, 64, 96, 200, False, 16, 0, 5), (1, 0)),          # empty split
+    ((0, 128, 64, 512, True, 64, 0, 1), (6, 2)),           # two heads wrap
+]
+
+
+@pytest.mark.parametrize("args,want", LIVE, ids=str)
+def test_live_chunks(args, want):
+    r0, rows, sq, sk, causal, window, split, splits = args
+    assert fa.live_chunks(r0, rows, sq, sk, causal, window, split,
+                          splits) == want
+
+
+@pytest.mark.parametrize("types,d,which", [
+    (("bfloat16",) * 3, 64, "wgmma"), (("bfloat16",) * 3, 80, "wgmma"),
+    (("bfloat16",) * 3, 20, "ffma"), (("float32",) * 3, 64, "ffma"),
+    (("bfloat16", "bfloat16", "float32"), 64, "ffma"),
+    (("float16",) * 3, 64, "ffma")])
+def test_attention_dispatch_rule(types, d, which):
+    assert fa.variant(*(getattr(torch, t) for t in types), d) == which
+
+
+# granite-3-2b on an H100 (132 SMs): prefill fills the card, decode's 256
+# blocks (under 2 per SM) split into 3 parts, for 4 x 132 blocks or more;
+# a mixtral window; one tiny head, split at most once per chunk
+@pytest.mark.parametrize("args,want", [
+    ((2, 8, 4, 4096, 4096, "wgmma"), (128, 128, 1)),
+    ((2, 8, 4, 4096, 4096, "ffma"), (64, 256, 1)),
+    ((32, 8, 4, 1, 32768, "wgmma"), (64, 1, 3)),
+    ((33, 8, 4, 1, 32768, "wgmma"), (64, 1, 1)),
+    ((1, 8, 6, 8192, 8192, "wgmma"), (128, 384, 1)),
+    ((1, 1, 1, 1, 100, "ffma"), (64, 1, 2)),
+])
+def test_launch_plan(args, want):
+    assert fa.launch_plan(*args, sms=132) == want
 
 
 # ------------------------------------------------------------ oracles, ops

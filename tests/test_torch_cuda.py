@@ -16,7 +16,9 @@ float32 products at 1e-4 (K <= 256), bfloat16 outputs at 2e-2, sums at
 counts and assignments exactly.  ``flash_attention`` and ``ssd_scan``
 are held against their plain versions at 2e-4 in float32 (the reference
 tests' tolerance; the SSD's atol scaled by the output's largest
-magnitude) and 2e-2 in bfloat16.
+magnitude) and 2e-2 in bfloat16.  The per-variant launch counts show
+which kernel of ``matmul`` and ``flash_attention`` ran (wgmma or FFMA,
+and the combine of split keys).
 """
 import operator
 
@@ -429,6 +431,34 @@ def test_matmul_auto_tile_and_ops_on_the_card():
                                rtol=1e-4, atol=1e-4)
 
 
+# (m, k, n): bfloat16 products whose m and n are not multiples of the
+# 128 x 128 tile, and whose k is or is not a multiple of 8 (TMA's rule)
+BF16_MATMULS = [(200, 136, 72, "wgmma"), (8, 16, 8, "wgmma"),
+                (130, 4096, 264, "wgmma"), (96, 60, 40, "ffma"),
+                (72, 64, 36, "ffma")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,which", BF16_MATMULS)
+def test_matmul_bfloat16_variants(m, k, n, which):
+    _card()
+    x, y = (_randn(s, *shape, dtype=torch.bfloat16)
+            for s, shape in ((4, (m, k)), (5, (k, n))))
+    assert mm.variant(x.dtype, y.dtype, k, n) == which
+    before = (mm.matmul.wgmma_launches, mm.matmul.ffma_launches)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        out = mm.matmul(x, y, block_m=m, block_n=n, block_k=k,
+                        out_dtype=out_dtype)
+        assert out.dtype == out_dtype and out.shape == (m, n)
+        torch.testing.assert_close(
+            out.float(), mm.matmul_plain(x, y, out_dtype).float(),
+            rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()
+    ran = (mm.matmul.wgmma_launches - before[0],
+           mm.matmul.ffma_launches - before[1])
+    assert ran == ((2, 0) if which == "wgmma" else (0, 2))
+
+
 FILTERS = [(fr.filter_reduce, fr.filter_reduce_plain),
            (fff.fused_filter_fold, fff.fused_filter_fold_plain)]
 
@@ -597,6 +627,80 @@ def test_flash_attention_kernel_matches_plain(case, dtype):
                                     block_k=bk)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+# (b, hq, hkv, sq, sk, d, causal, window): tiles mixing rows that see no
+# key with rows that do, over several chunks (sq > sk); a window whose
+# early chunks every late tile skips; decode at group 1, 4 and 8 over a
+# key count that does not divide into the splits; and a batch wide
+# enough (512+ blocks) that the keys are not split
+SKIPS = [(8, 16, 8, 512, 512, 64, True, None),
+         (1, 2, 1, 384, 256, 64, True, None),
+         (1, 2, 1, 384, 320, 64, True, None),
+         (1, 4, 2, 384, 352, 80, True, None),
+         (1, 4, 2, 512, 512, 64, True, 64),
+         (1, 2, 2, 512, 512, 128, False, 64),
+         (2, 2, 2, 1, 1000, 64, True, None),
+         (2, 8, 2, 1, 1000, 64, True, None),
+         (2, 16, 2, 1, 1000, 128, True, None),
+         (3, 8, 1, 2, 777, 64, True, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SKIPS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_skips_masked_chunks_and_splits_keys(case, dtype):
+    """The kernels' chunk ranges and key splits against the plain
+    version run with the same tiles and splits, and against the plain
+    version without them; rows that see no key are the mean of V."""
+    _card()
+    b, hq, hkv, sq, sk, d, causal, window = case
+    q, k, v = (_randn(s, *shape, dtype=dtype) for s, shape in
+               enumerate([(b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)]))
+    which = fa.variant(q.dtype, k.dtype, v.dtype, d)
+    assert which == ("wgmma" if dtype == torch.bfloat16 else "ffma")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile_q, _, splits = fa.launch_plan(b, hkv, hq // hkv, sq, sk, which, sms)
+    assert (splits == 1) == (b == 8)
+    counts = (fa.flash_attention.wgmma_launches,
+              fa.flash_attention.ffma_launches,
+              fa.flash_attention.combine_launches)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             block_q=sq, block_k=sk)
+    torch.cuda.synchronize()
+    ran = (fa.flash_attention.wgmma_launches - counts[0],
+           fa.flash_attention.ffma_launches - counts[1],
+           fa.flash_attention.combine_launches - counts[2])
+    assert ran == (int(which == "wgmma"), int(which == "ffma"),
+                   int(splits > 1))
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    for kw in ({"skip_masked": True, "splits": splits, "tile_q": tile_q,
+                "block_k": fa.BC}, {"block_k": sk}):
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, **kw)
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    if causal and sq > sk:
+        mean = v.float().mean(2).repeat_interleave(hq // hkv, 1)
+        torch.testing.assert_close(
+            out[:, :, :sq - sk].float(),
+            mean[:, :, None].expand(b, hq, sq - sk, d), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_a_view_off_a_16_byte_boundary(dtype):
+    """A view one element past a 16-byte boundary is copied before TMA
+    reads it: the result equals the aligned inputs' bit for bit."""
+    _card()
+    q, k, v = _randn(0, 1, 4, 128, 64, dtype=dtype), \
+        _randn(1, 1, 2, 192, 64, dtype=dtype), \
+        _randn(2, 1, 2, 192, 64, dtype=dtype)
+    views = [_offset_view(t) for t in (q, k, v)]
+    assert all(t.data_ptr() % 16 for t in views)
+    got = fa.flash_attention(*views, block_q=64, block_k=64)
+    want = fa.flash_attention(q, k, v, block_q=64, block_k=64)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@ kernel's plain version -- against the JAX package's Pallas kernels in
 interpret mode and its ``ref`` oracles, on the same seeded numpy inputs.
 The cases mirror ``tests/test_kernels.py`` and the kernel tests of
 ``tests/test_pipeline.py``, with the reference tests' tolerances:
-matmul float32 2e-5 and bfloat16 2e-2, groupby 1e-5, filters 1e-4,
+matmul float32 2e-5 and bfloat16 2e-2 (with the rule that picks its
+wgmma or FFMA kernel on the card), groupby 1e-5, filters 1e-4,
 kmeans sums 1e-4 and counts exact.  ``auto_tile`` plans differ between
 the packages (the reference plans for its TPU budget, the port for the
 card's), so those cases compare values only.
@@ -26,13 +27,14 @@ from repro.kernels.groupby_fold import groupby_fold as jgroupby_fold
 from repro.kernels.matmul import matmul as jmatmul
 
 from repro_torch.core import cost
-from repro_torch.kernels import autotile, ops, ref
+from repro_torch.kernels import autotile, build, ops, ref
 from repro_torch.kernels.filter_reduce import filter_reduce
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_filter_fold import fused_filter_fold
 from repro_torch.kernels.fused_kmeans import fused_kmeans_step
 from repro_torch.kernels.groupby_fold import groupby_fold
-from repro_torch.kernels.matmul import k_chunk, matmul
+from repro_torch.kernels import matmul as mm
+from repro_torch.kernels.matmul import matmul
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 
@@ -122,10 +124,49 @@ def test_matmul_takes_the_reference_kernels_input_types(xt, yt):
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("block_k,kc", [(128, 32), (16, 16), (4096, 32),
-                                        (48, 24), (7, 7)])
-def test_matmul_stages_k_in_divisors_of_block_k(block_k, kc):
-    assert k_chunk(block_k) == kc
+# which kernel each input takes on the card: bfloat16 pairs whose rows are
+# whole 16-byte pieces run wgmma, everything else FFMA, 16 bytes a copy
+# when its float32 rows allow
+@pytest.mark.parametrize("xt,yt,k,n,which,vec", [
+    ("bfloat16", "bfloat16", 4096, 4096, "wgmma", 4),
+    ("bfloat16", "bfloat16", 136, 72, "wgmma", 4),
+    ("bfloat16", "bfloat16", 60, 40, "ffma", 4),
+    ("bfloat16", "bfloat16", 64, 36, "ffma", 4),
+    ("bfloat16", "bfloat16", 64, 30, "ffma", 1),
+    ("float32", "float32", 4096, 4096, "ffma", 4),
+    ("float32", "float32", 63, 64, "ffma", 1),
+    ("bfloat16", "float32", 64, 64, "ffma", 4),
+    ("float16", "float16", 64, 64, "ffma", 4),
+])
+def test_matmul_dispatch_rule(xt, yt, k, n, which, vec):
+    assert mm.variant(getattr(torch, xt), getattr(torch, yt), k, n) == which
+    assert mm.ffma_vec(k, n) == vec
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_a_view_off_a_16_byte_boundary_is_copied(dtype):
+    """What ``matmul`` and ``flash_attention`` do to such a view before
+    TMA or 16-byte ``cp.async`` reads it."""
+    view = torch.arange(65, dtype=dtype)[1:].view(8, 8)
+    assert view.data_ptr() % 16
+    copy = build.aligned(view)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
+    assert build.aligned(copy) is copy
+
+
+# shapes whose m and n are not multiples of the kernels' 128 x 128 tile,
+# k that is (wgmma) and is not (ffma) a multiple of 8
+@pytest.mark.parametrize("m,k,n", [(200, 136, 72), (96, 60, 40),
+                                   (8, 16, 8)])
+def test_matmul_ragged_bfloat16_matches_jax(m, k, n):
+    x, y = _r(8, m, k), _r(9, k, n)
+    want = jmatmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(y, jnp.bfloat16),
+                   block_m=m, block_n=n, block_k=k)
+    got = matmul(torch.as_tensor(x).bfloat16(), torch.as_tensor(y).bfloat16(),
+                 block_m=m, block_n=n, block_k=k, device="cpu")
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-2)
 
 
 # ------------------------------------------------------- groupby fold
