@@ -6,15 +6,21 @@
 Builds every kernel of the path from ``src/repro_torch/kernels/csrc``
 (one nvcc per translation unit, all at once) and counts HGMMA (wgmma),
 UTMALDG (TMA), LDGSTS (cp.async) and FFMA in the SASS of each variant of
-``matmul`` and ``flash_attention`` (``cuobjdump -sass``; a tensor-core
-variant without HGMMA, or no cuobjdump, fails), then:
+``matmul``, ``flash_attention``, ``paged_decode`` and the tiled GEMM
+(``cuobjdump -sass``; it fails without cuobjdump, when a tensor-core
+variant has no HGMMA, the GEMM no LDGSTS or FFMA or any HGMMA, or the
+paged attend kernel no LDGSTS), then:
 
   * runs ``lower_pipeline(pipe)`` -- the port's own DSE on the card's
     budget, then the fused-DAG CUDA megakernel -- for each of the five
     analytics pipelines at full size: tpchq6 at 6,000,000 rows (TPC-H
     SF1 lineitem, 6,001,215 rows, cut to a multiple of 128), the others
     at 4,194,304 rows with the pipelines' own widths;
-  * runs ``lower(tile(gemm))`` at m = n = k = 4096 in float32;
+  * runs ``lower(tile(gemm), depth=d)`` at m = n = k = 4096 in float32
+    at the analytics tile 64x64x64, depth 2, and at 128x128x32, depth 3
+    (the template at the plan's tile, a ``d``-slot ``cp.async`` ring),
+    held at RTOL/ATOL after proving that limit catches a dropped K slab
+    and a stale ring slot;
   * runs ``lower_auto(p)`` -- the port's single-pattern DSE on the
     card's budget, then the template it picks -- for three programs:
     the outer product at m = n = 16,384 (the tiled-Map kernel, a 1 GiB
@@ -57,7 +63,9 @@ variant without HGMMA, or no cuobjdump, fails), then:
     at rtol SSD_F32_TOL and a per-row atol of SSD_F32_TOL x the oracle
     row's root mean square, after proving that limit catches the longest
     request's last live page dropped, the append skipped, p rounded to
-    bfloat16 before PV and the output rounded to bfloat16;
+    bfloat16 before PV, the output rounded to bfloat16 and one split's
+    partial dropped in the combine (the kernel splits each request's
+    context across blocks: the splits and blocks are printed);
   * serves granite-3-2b at full width through ``serve_continuous`` (40
     layers, 16 requests of seeded prompts up to 960 tokens over 8 slots,
     64 tokens each, the DSE's paged plan, the kernel certified first),
@@ -70,8 +78,8 @@ variant without HGMMA, or no cuobjdump, fails), then:
     tolerance of its best, a limit first proved to reject another
     request's tokens and a served run with the kernel's append skipped
     (which certification must also refuse).  One decode step is profiled
-    (host clock, device busy time), and the kernel is timed at the
-    serving shapes.
+    (host clock, device busy time, the paged kernels' share), and the
+    kernel is timed at the serving shapes.
 
 Each run resets the kernel's launch count just before, reads it just
 after, and fails if the kernel did not run.  Each result is held
@@ -223,6 +231,8 @@ def device_breakdown(fn, torch, calls: int = 3) -> str:
     "not measured" when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
@@ -433,25 +443,115 @@ def run_filter(call, make_inputs, reference, cc, tier, torch) -> dict:
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
 
 
+# ------------------------------------------------ the tiled GEMM template
+GEMM_TPU = f"{REPLACES}:177"
+GEMM_PR12_MS = 4.468         # 64x64x64 before the metapipeline (PERF.md)
+
+
+def gemm_faults(x, y, want, bk: int, depth: int, torch) -> list:
+    """The GEMM's planted faults on the float64 reference rows ``want``
+    (``x``'s first rows times ``y``): the middle K slab dropped, and a
+    stale ring slot (slab ``depth`` computed from the slot of slab 0,
+    the one it reuses).  Fails unless rtol = atol = RTOL catches each;
+    returns their descriptions with the shift."""
+    rows = want.shape[0]
+    xd, yd = x[:rows].double(), y.double()
+
+    def slab(i):
+        return xd[:, i * bk:(i + 1) * bk] @ yd[i * bk:(i + 1) * bk]
+    mid = x.shape[1] // bk // 2
+    out = []
+    for what, faulted in (
+            (f"K slab {mid} dropped", want - slab(mid)),
+            (f"slab {depth} read from slab 0's slot",
+             want - slab(depth) + slab(0))):
+        shift = float((faulted - want).abs().max())
+        if torch.allclose(faulted, want, rtol=RTOL, atol=ATOL):
+            fail(f"gemm: rtol/atol {RTOL}/{ATOL} would not catch {what}")
+        out.append(f"{what} shifts it by {shift:.4g}")
+    return out
+
+
+def run_tiled_gemm(label: str, call, x, y, host, gtile, depth: int, cc,
+                   tier, torch) -> dict:
+    """``lower(tile(gemm), depth=...)`` at 4096^3 float32 through the
+    GEMM template: its layout, against the plain version, torch.matmul
+    (TF32 off) and the float64 reference on 64 rows after proving that
+    limit catches the planted faults; timed beside both."""
+    bm, bn, bk = gtile
+    lay = cc.gemm_layout(bm, bn, bk, depth)
+    torch.cuda.synchronize()
+    cc.tiled_gemm.launches = 0
+    out = call(x=x, y=y)
+    torch.cuda.synchronize()
+    launches = cc.tiled_gemm.launches
+    print(f"[{label}] m=n=k={GEMM_N} tile_plan={call.tile_plan}: "
+          f"{lay.tm}x{lay.tn} micro-tile, {lay.threads} threads, "
+          f"{lay.smem_bytes} B of shared memory ({lay.pad_bytes} B of it "
+          f"padding); tiled_gemm launches={launches}")
+    if launches < 1:
+        fail(f"{label}: tiled_gemm was not launched")
+    e_plain = max_err(out, cc.tiled_gemm_plain(x, y, bm=bm, bn=bn, bk=bk),
+                      torch, f"{label} vs plain")
+    e_lib = max_err(out, torch.matmul(x, y), torch,
+                    f"{label} vs torch.matmul")
+    want = torch.as_tensor(host["x"][:64].astype("float64")
+                           @ host["y"].astype("float64"), device=x.device)
+    faults = gemm_faults(x, y, want, bk, depth, torch)
+    e_ref = max_err(out[:64], want, torch, f"{label} vs reference rows")
+    print(f"[{label}] max abs err vs plain {e_plain:.3e}, vs torch.matmul "
+          f"{e_lib:.3e}, vs float64 reference (64 rows) {e_ref:.3e} "
+          f"(rtol/atol {RTOL}/{ATOL}); planted faults caught: "
+          + "; ".join(faults))
+
+    def run():
+        return cc.tiled_gemm(x, y, bm=bm, bn=bn, bk=bk, depth=depth)
+    ms = median_ms(run, torch)
+    plain_ms = median_ms(
+        lambda: cc.tiled_gemm_plain(x, y, bm=bm, bn=bn, bk=bk), torch)
+    lib_ms = median_ms(lambda: torch.matmul(x, y), torch)
+    flops = 2 * GEMM_N ** 3
+    bound_ms, by = bound(nbytes_of(x, y, out), flops, tier)
+    print(f"[{label}] device time per call: " + device_breakdown(run, torch))
+    print(f"[{label}] tiled_gemm {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+          f"TFLOP/s; 64x64x64 before the metapipeline: {GEMM_PR12_MS} ms), "
+          f"plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by})", flush=True)
+    return {"name": label, "route": "cuda", "source": f"{CSRC}/tiled_gemm.cuh",
+            "replaces": GEMM_TPU, "launches": launches,
+            "max_abs_err": e_plain, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
+
+
 # ------------------------------------------------ what the kernels compiled to
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "FFMA")
-# the kernels of each library by variant: (label, function-name key, whether
-# it must run on the tensor cores)
+# the kernels of each library by variant: (label, function-name key, the
+# instructions it must have, the instructions it must not have)
+HGMMA = ("HGMMA",)
 SASS_VARIANTS = {
-    "matmul": (("matmul[wgmma]", "wgmma_kernel", True),
-               ("matmul[ffma]", "ffma_kernel", False)),
-    "flash_attention": (("flash_attention[wgmma]", "wgmma_kernel", True),
-                        ("flash_attention[ffma]", "ffma_kernel", False),
-                        ("flash_attention[combine]", "combine_kernel",
-                         False)),
+    "matmul": (("matmul[wgmma]", "wgmma_kernel", HGMMA, ()),
+               ("matmul[ffma]", "ffma_kernel", (), ())),
+    "flash_attention": (("flash_attention[wgmma]", "wgmma_kernel", HGMMA, ()),
+                        ("flash_attention[ffma]", "ffma_kernel", (), ()),
+                        ("flash_attention[combine]", "combine_kernel", (),
+                         ())),
+    "paged_decode": (("paged_decode[attend,bf16 pool]",
+                      "attend_kernelI13__nv_bfloat16", ("LDGSTS",), ()),
+                     ("paged_decode[attend,f32 pool]", "attend_kernelIf",
+                      ("LDGSTS",), ()),
+                     ("paged_decode[combine]", "combine_kernel", (), ())),
 }
+# the GEMM template, one library per tile: cp.async slabs into FFMA
+GEMM_SASS = (("LDGSTS", "FFMA"), HGMMA)
 
 
 def sass_check(paths: dict) -> None:
     """Counts HGMMA (wgmma), UTMALDG (TMA loads), LDGSTS (cp.async) and
     FFMA in the SASS of each variant of the libraries in ``paths`` (name
     -> built library), read with ``cuobjdump -sass``; fails if cuobjdump
-    is missing or a tensor-core variant has no HGMMA."""
+    is missing, or a variant lacks an instruction it must have or has
+    one it must not (``SASS_VARIANTS``; a ``tiled_gemm[...]`` library:
+    ``GEMM_SASS``)."""
     import os
     import re
 
@@ -460,32 +560,38 @@ def sass_check(paths: dict) -> None:
     if not exe.exists():
         fail(f"SASS check: {exe} not found")
     op = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
-    for lib, variants in SASS_VARIANTS.items():
-        text = subprocess.run([str(exe), "-sass", str(paths[lib])],
+    for lib, path in paths.items():
+        variants = SASS_VARIANTS.get(lib) or (
+            (lib, "tiled_gemm_kernel") + GEMM_SASS,)
+        text = subprocess.run([str(exe), "-sass", str(path)],
                               capture_output=True, text=True,
                               check=True).stdout
-        counts = {label: dict.fromkeys(SASS_OPS, 0) for label, _, _ in
+        counts = {label: dict.fromkeys(SASS_OPS, 0) for label, *_ in
                   variants}
-        functions = {label: 0 for label, _, _ in variants}
+        functions = {label: 0 for label, *_ in variants}
         current = None
         for line in text.splitlines():
             if "Function :" in line:
                 name = line.split("Function :", 1)[1].strip()
-                current = next((label for label, key, _ in variants
+                current = next((label for label, key, *_ in variants
                                 if key in name), None)
                 if current:
                     functions[current] += 1
             elif current:
                 for hit in op.findall(line):
                     counts[current][hit] += 1
-        for label, _, tensor_cores in variants:
+        for label, _, must, must_not in variants:
             c = counts[label]
             print(f"[sass] {label}: {functions[label]} instantiations; "
                   + ", ".join(f"{k} {v}" for k, v in c.items()), flush=True)
             if not functions[label]:
-                fail(f"SASS check: no {label} kernel in {paths[lib]}")
-            if tensor_cores and not c["HGMMA"]:
-                fail(f"SASS check: {label} has no HGMMA instruction")
+                fail(f"SASS check: no {label} kernel in {path}")
+            for k in must:
+                if not c[k]:
+                    fail(f"SASS check: {label} has no {k} instruction")
+            for k in must_not:
+                if c[k]:
+                    fail(f"SASS check: {label} has {c[k]} {k} instructions")
 
 
 # ------------------------------------------------ hand-written kernels
@@ -1195,12 +1301,12 @@ def pd_inputs(cfg, lens, ps: int, npm: int, layout: str, seed: int, torch,
     return q, k, v, pools, table, lens
 
 
-def pd_oracle(q, pools, table, lens, layout: str, torch, keep=None,
+def pd_oracle(q, pools, table, lens, layout: str, torch, drop=None,
               p_type=None):
     """Float64 gather-and-softmax oracle of one paged-decode step over
     ``pools`` (after the append): request b attends over positions
-    0..lens[b] through its page table.  Planted faults: ``keep(b, n)``,
-    when given, is the number of leading positions request b keeps;
+    0..lens[b] through its page table.  Planted faults: ``drop(b)``,
+    when given, is a range of positions request b loses (or None);
     ``p_type``, when given, is the type p is rounded to before PV."""
     b, hkv, group, dh = q.shape
     ps = pools[0].shape[1]
@@ -1209,10 +1315,10 @@ def pd_oracle(q, pools, table, lens, layout: str, torch, keep=None,
     vh = kh + (1 if layout == "fused" else 0)
     out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
     for r in range(b):
-        n = int(lens[r]) + 1
-        if keep is not None:
-            n = keep(r, n)
-        pos = torch.arange(n, device=q.device)
+        pos = torch.arange(int(lens[r]) + 1, device=q.device)
+        lost = drop(r) if drop is not None else None
+        if lost is not None:
+            pos = pos[(pos < lost[0]) | (pos >= lost[1])]
         pages, slots = table[r, pos // ps].long(), pos % ps
         kk = kpool[pages, slots][:, kh].double().transpose(0, 1)  # (H, n, D)
         vv = vpool[pages, slots][:, vh].double().transpose(0, 1)
@@ -1231,9 +1337,11 @@ def run_paged(label: str, cfg, lens, ps: int, npm: int, layout: str,
     and the float64 oracle at rtol PD_TOL and a per-row atol of PD_TOL x
     the oracle row's root mean square, after proving that limit catches
     the longest request's last live page dropped, the append skipped, p
-    rounded to bfloat16 before PV and the output rounded to bfloat16;
-    timed beside the plain version, with the byte bound of the live
-    pages, q, the new K/V and the output."""
+    rounded to bfloat16 before PV, the output rounded to bfloat16 and,
+    where the context is split across blocks, one split's partial
+    dropped in the combine; one attend launch and, with splits, one
+    combine; timed beside the plain version, with the byte bound of the
+    live pages, q, the new K/V and the output."""
     from repro_torch.core import codegen_cuda as cc
 
     q, k, v, pools, table, lens_t = pd_inputs(cfg, lens, ps, npm, layout,
@@ -1244,19 +1352,23 @@ def run_paged(label: str, cfg, lens, ps: int, npm: int, layout: str,
     kern = cc.lower_paged_decode(batch=b, kv_heads=hkv, group=group,
                                  head_dim=dh, page_size=ps, n_pages_max=npm,
                                  layout=layout)
+    splits = cc.paged_splits(b, hkv, npm, ps, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     torch.cuda.synchronize()
-    cc.lower_paged_decode.launches = 0
+    counts = pd_counts(cc, reset=True)
     out, _ = kern(q, k, v, pools, table, lens_t)
     torch.cuda.synchronize()
-    launches = cc.lower_paged_decode.launches
+    launches, attend, combine = counts = pd_counts(cc)
     live = [-(-(int(n) + 1) // ps) for n in lens]
     print(f"[{label}] {cfg.name}: {b} requests x {hkv} kv heads x group "
           f"{group} x head dim {dh}, {layout} bf16 pools of page size {ps}, "
           f"{npm} pages per request, seq_len {min(lens)}..{max(lens)} "
-          f"({sum(live)} live pages); lower_paged_decode launches="
-          f"{launches}")
-    if launches < 1:
-        fail(f"{label}: the paged_decode kernel was not launched")
+          f"({sum(live)} live pages); {splits} splits, {hkv * b * splits} "
+          f"attend blocks; lower_paged_decode launches={launches} (attend "
+          f"{attend}, combine {combine})")
+    if counts != (1, 1, int(splits > 1)):
+        fail(f"{label}: expected one call, one attend launch and "
+             f"{int(splits > 1)} combine launches, got {counts}")
 
     def plain():
         return cc.paged_decode_plain(q, k, v, plain_pools, table, lens_t,
@@ -1271,15 +1383,29 @@ def run_paged(label: str, cfg, lens, ps: int, npm: int, layout: str,
     n_top = int(lens[longest]) + 1
     last = (-(-n_top // ps) - 1) * ps
     dropped = pd_oracle(q, pools, table, lens_t, layout, torch,
-                        keep=lambda r, n: last if r == longest else n)
+                        drop=lambda r: (last, n_top) if r == longest
+                        else None)
     stale = pd_oracle(q, before_pools, table, lens_t, layout, torch)
     p_bf16 = pd_oracle(q, pools, table, lens_t, layout, torch,
                        p_type=torch.bfloat16)
+    planted = [(f"request {longest}'s last live page dropped", dropped),
+               ("the append skipped", stale),
+               ("p rounded to bfloat16 before PV", p_bf16)]
+    if splits > 1:
+        # the combine loses the middle part of the longest request
+        ppc = cc.PD_KC // ps
+        ck = ppc * ps
+        n_chunks = -(-(-(-n_top // ps)) // ppc)     # live pages in chunks
+        first, end = cc.pd_split_range(n_chunks, splits // 2, splits)
+        planted.append((
+            f"split {splits // 2} of {splits} (keys {first * ck}.."
+            f"{min(end * ck, n_top) - 1}) of request {longest} dropped in "
+            "the combine",
+            pd_oracle(q, pools, table, lens_t, layout, torch,
+                      drop=lambda r: (first * ck, end * ck) if r == longest
+                      else None)))
     faults = []
-    for what, faulted in (
-            (f"request {longest}'s last live page dropped", dropped),
-            ("the append skipped", stale),
-            ("p rounded to bfloat16 before PV", p_bf16)):
+    for what, faulted in planted:
         shift = float((faulted - want).abs().max())
         if not catches(faulted, want, PD_TOL, atol):
             fail(f"{label}: rtol {PD_TOL} / atol {fmt_atol(atol)} would not "
@@ -1287,7 +1413,7 @@ def run_paged(label: str, cfg, lens, ps: int, npm: int, layout: str,
         faults.append(f"{what} shifts it by {shift:.4g}")
     faults.append("the output rounded to bfloat16 shifts it by "
                   f"{rounding_fault(want, PD_TOL, atol, torch, label):.4g}")
-    del dropped, stale, p_bf16, before_pools
+    del dropped, stale, p_bf16, before_pools, planted
     e_plain = check_close(out, p_out, PD_TOL, atol, torch, f"{label} vs plain")
     e_ref = check_close(out, want, PD_TOL, atol, torch, f"{label} vs float64")
     e_pref = check_close(p_out, want, PD_TOL, atol, torch,
@@ -1300,7 +1426,7 @@ def run_paged(label: str, cfg, lens, ps: int, npm: int, layout: str,
 
     def run():
         return kern(q, k, v, pools, table, lens_t)
-    ms = median_ms(run, torch, LM_REPS, LM_BATCH)
+    ms = median_ms(run, torch)
     plain_ms = median_ms(plain, torch, LM_REPS, LM_BATCH)
     kv_bytes = 2 * sum(live) * ps * hkv * dh * pools[0].element_size()
     nbytes = kv_bytes + nbytes_of(q, k, v, out)
@@ -1316,6 +1442,15 @@ def run_paged(label: str, cfg, lens, ps: int, npm: int, layout: str,
             "source": PD_SRC, "replaces": PD_TPU, "launches": launches,
             "max_abs_err": e_plain, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+
+
+def pd_counts(cc, reset: bool = False) -> tuple:
+    """``lower_paged_decode``'s counts: (calls, attend kernel launches,
+    combine kernel launches), set to 0 first when ``reset``."""
+    f = cc.lower_paged_decode
+    if reset:
+        f.launches = f.attend_launches = f.combine_launches = 0
+    return f.launches, f.attend_launches, f.combine_launches
 
 
 def paged_lens(ps: int, rng) -> list:
@@ -1383,13 +1518,13 @@ def serve_once(cfg, lens, dtype: str, torch, dev):
     print(f"[{what}] {sum(t.numel() for t in params.values())} random "
           f"{dtype} weights made on the card in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    cc.lower_paged_decode.launches = 0
+    pd_counts(cc, reset=True)
     toks, stats = serve.serve_continuous(
         cfg.name, False, SERVE_SLOTS, SERVE_GEN, prompt_lens=lens,
         use_kernel=True, certify=True, params=params, device=dev,
         dtype=dtype)
     torch.cuda.synchronize()
-    launches = cc.lower_paged_decode.launches
+    launches, attend, combine = pd_counts(cc)
     cert = cfg.n_layers * (5 + 4 - 1)        # _certify_paged_decode's steps
     print(f"[{what}] prefill {stats['prefill_s']:.3f} s, decode "
           f"{stats['decode_s']:.3f} s over {stats['steps']} steps "
@@ -1397,10 +1532,14 @@ def serve_once(cfg, lens, dtype: str, torch, dev):
           f"{stats['decode_s'] / stats['steps'] * 1e3:.3f} ms per step), "
           f"occupancy {stats['occupancy']:.4f}; lower_paged_decode launches="
           f"{launches} ({cfg.n_layers} x {stats['steps']} steps + {cert} "
-          f"certifying)")
+          f"certifying; attend {attend}, combine {combine})")
     if launches != cfg.n_layers * stats["steps"] + cert:
         fail(f"{what}: {launches} kernel launches, expected "
              f"{cfg.n_layers * stats['steps'] + cert}")
+    if attend != launches or not combine:
+        fail(f"{what}: every call must launch the attend kernel and the "
+             f"serving shape the combine (attend {attend}, combine "
+             f"{combine} in {launches} calls)")
     if not stats["certified"] or not stats["use_pallas"]:
         fail(f"{what}: the fused kernel was not certified and used")
     if stats["admitted"] != SERVE_REQUESTS or \
@@ -1564,7 +1703,8 @@ def faulted_serving(cfg, params, lens, cmax: int, stats, torch,
 
 def device_busy(fn, torch, calls: int = 3) -> tuple:
     """(wall ms per call on the host clock, device-busy ms per call, the
-    five costliest CUDA kernels) of ``fn`` under torch.profiler."""
+    five costliest CUDA kernels, device ms per call by kernel name) of
+    ``fn`` under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1587,7 +1727,8 @@ def device_busy(fn, torch, calls: int = 3) -> tuple:
     top = sorted(kernels, key=us, reverse=True)[:5]
     names = ", ".join(f"{e.key.split('(')[0][:40]} {us(e) / calls / 1e3:.3f}"
                       f" ms x{e.count // calls}" for e in top)
-    return wall, busy, names or "not measured"
+    by_name = {e.key: us(e) / calls / 1e3 for e in kernels}
+    return wall, busy, names or "not measured", by_name
 
 
 def run_serving(tier, torch, dev) -> dict:
@@ -1641,14 +1782,19 @@ def run_serving(tier, torch, dev) -> dict:
             cache.seq_lens.copy_(torch.as_tensor(mid, device=dev))
             tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32,
                               device=dev)
-            wall, busy, names = device_busy(
+            wall, busy, names, by_name = device_busy(
                 lambda: paged.paged_decode_step(params, cfg, cache, tok,
                                                 use_kernel=True), torch)
+            paged_ms = sum(ms for name, ms in by_name.items()
+                           if "pdec::" in name or "splitk::" in name)
             print(f"[serving] one decode step of {SERVE_SLOTS} requests at "
                   f"seq_len {min(mid)}..{max(mid)}: {wall:.3f} ms on the "
                   f"host clock, device busy {busy:.3f} ms (idle share "
-                  f"{1 - busy / wall:.4f}); costliest kernels: {names}",
-                  flush=True)
+                  f"{1 - busy / wall:.4f}); the paged kernels (attend and "
+                  f"combine) {paged_ms:.3f} ms, {paged_ms / busy:.4f} of "
+                  f"device busy; costliest kernels: {names}", flush=True)
+            if not paged_ms:
+                fail("serving: the profiled step shows no paged kernel")
             del cache
         del params
         torch.cuda.empty_cache()
@@ -1716,12 +1862,16 @@ def main() -> int:
             sources.append((g.kernel.name, g.kernel.source))
             labels.append(f"fused_dag[{name}]")
         built[name] = (builder, pipe, make_inputs, reference, call)
-    gp, gsizes, g_inputs, _ = gemm(GEMM_N, GEMM_N, GEMM_N)
-    bm, bn = gsizes["gemm"]
-    (bk,) = gsizes["gemm_k"]
-    gemm_call = cc.lower(tile(gp, gsizes))
-    sources.append(("tiled_gemm", cc.gemm_source(bm, bn, bk)))
-    labels.append("tiled_gemm")
+    # the GEMM template at the analytics default tile and depth 2, and at
+    # 128x128x32 (a tile that suits the FFMA design) at depth 3
+    gemm_calls = {}
+    for gtile, depth in (((64, 64, 64), 2), ((128, 128, 32), 3)):
+        gp, gsizes, g_inputs, _ = gemm(GEMM_N, GEMM_N, GEMM_N, *gtile)
+        label = "tiled_gemm[{}x{}x{},d{}]".format(*gtile, depth)
+        gemm_calls[label] = (cc.lower(tile(gp, gsizes), depth=depth), gtile,
+                             depth)
+        sources.append(("tiled_gemm", gemm_calls[label][0].source))
+        labels.append(label)
     # single patterns: the DSE on the card's budget picks each plan
     singles = {"outerprod": outerprod(OUTER_N, OUTER_N),
                "gda": gda(n=ROWS), "filter": filter_program(TPCH_ROWS)}
@@ -1747,7 +1897,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {label}: {line.strip()}")
     sass_check({lib: p for lib, p in zip(labels, paths)
-                if lib in SASS_VARIANTS})
+                if lib in SASS_VARIANTS or lib.startswith("tiled_gemm")})
 
     kernels = []
 
@@ -1827,45 +1977,14 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
         del inputs, out, outs, plain, env, ref
 
-    # ---- the tiled GEMM
+    # ---- the tiled GEMM template at two tiles
     host = g_inputs()
     x = torch.as_tensor(host["x"]).to(dev)
     y = torch.as_tensor(host["y"]).to(dev)
-    torch.cuda.synchronize()
-    cc.tiled_gemm.launches = 0
-    out = gemm_call(x=x, y=y)
-    torch.cuda.synchronize()
-    launches = cc.tiled_gemm.launches
-    print(f"[gemm] m=n=k={GEMM_N} tile_plan={gemm_call.tile_plan} "
-          f"tiled_gemm launches={launches}")
-    if launches < 1:
-        fail("gemm: tiled_gemm was not launched")
-    plain = cc.tiled_gemm_plain(x, y, bm=bm, bn=bn, bk=bk)
-    e_plain = max_err(out, plain, torch, "gemm vs plain")
-    e_lib = max_err(out, torch.matmul(x, y), torch, "gemm vs torch.matmul")
-    rows = slice(0, 64)   # numpy float64 reference on a slice of rows
-    want = host["x"][rows].astype("float64") @ host["y"].astype("float64")
-    e_ref = max_err(out[rows], want, torch, "gemm vs reference rows")
-    print(f"[gemm] max abs err vs plain {e_plain:.3e}, vs torch.matmul "
-          f"{e_lib:.3e}, vs float64 reference (64 rows) {e_ref:.3e} "
-          f"(rtol/atol {RTOL}/{ATOL})")
-    ms = median_ms(lambda: cc.tiled_gemm(x, y, bm=bm, bn=bn, bk=bk), torch)
-    plain_ms = median_ms(
-        lambda: cc.tiled_gemm_plain(x, y, bm=bm, bn=bn, bk=bk), torch)
-    lib_ms = median_ms(lambda: torch.matmul(x, y), torch)
-    flops = 2 * GEMM_N ** 3
-    bound_ms, by = bound(3 * GEMM_N * GEMM_N * 4, flops, tier)
-    print("[gemm] device time per call: " + device_breakdown(
-        lambda: cc.tiled_gemm(x, y, bm=bm, bn=bn, bk=bk), torch))
-    print(f"[gemm] tiled_gemm {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
-          f"plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms", flush=True)
-    kernels.append({
-        "name": "tiled_gemm", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/tiled_gemm.cuh",
-        "replaces": f"{REPLACES}:177", "launches": launches,
-        "max_abs_err": e_plain, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms})
+    for label, (call, gtile, depth) in gemm_calls.items():
+        kernels.append(run_tiled_gemm(label, call, x, y, host, gtile, depth,
+                                      cc, tier, torch))
+    del x, y, host
 
     kernels.append(run_outerprod(*autos["outerprod"], cc, tier, torch))
     kernels.append(run_gda(*autos["gda"], cc, tier, torch, dev))

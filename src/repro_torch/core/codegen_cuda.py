@@ -4,7 +4,8 @@ This is the paper's §5 code generation step with CUDA templates in the
 place of MaxJ ones, for an NVIDIA Hopper card (``sm_90a``):
 
   * the tiled GEMM (Table 3 form)          -> ``csrc/tiled_gemm.cuh``,
-    one block per output tile looping over K itself
+    one block per output tile looping over K itself through a
+    ``depth``-slot ``cp.async`` ring (the metapipeline)
   * a write-once tiled Map                 -> ``csrc/tiled_map.cuh``,
     persistent blocks staging each grid step's tiles in rotating shared
     slots and writing one output block per step
@@ -19,8 +20,9 @@ place of MaxJ ones, for an NVIDIA Hopper card (``sm_90a``):
     partials are summed by a second small launch
   * one serving decode step of one layer over a paged KV cache
     (``lower_paged_decode``)             -> ``csrc/paged_decode.cuh``,
-    one block per (request, kv head) appending its token, then streaming
-    the request's live pages with an online softmax
+    the request's live pages split across blocks (flash-decoding), each
+    streaming its part through a ``cp.async`` ring with an online softmax,
+    the parts merged by a combine kernel
 
 ``lower`` picks the template for a tiled pattern and ``lower_auto``
 tiles an untiled one with the single-pattern DSE first.  The generator
@@ -137,30 +139,75 @@ def match_tiled_gemm(p: ir.Pattern) -> bool:
             and p.inner.is_fold and isinstance(p.inner.inner, ir.Map))
 
 
-def gemm_source(bm: int, bn: int, bk: int) -> str:
-    """The translation unit instantiating the GEMM template at a tile."""
-    return f'''// tiled GEMM at tile ({bm}, {bn}, {bk}), generated by codegen_cuda
+GEMM_XPAD = 4           # tgemm::XPAD: words of padding per staged x row
+GEMM_MIN_THREADS = 128  # tgemm::MIN_THREADS
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmLayout:
+    """The GEMM template's shape at a plan's tile (``tgemm::Tile``)."""
+
+    tm: int            # micro-tile rows per thread
+    tn: int            # micro-tile columns per thread
+    threads: int
+    smem_bytes: int    # depth x (bm x (bk + XPAD) + bk x bn) x 4
+    pad_bytes: int     # of which the x rows' padding: depth x bm x XPAD x 4
+
+
+def gemm_layout(bm: int, bn: int, bk: int, depth: int) -> GemmLayout:
+    """The template's micro-tile, threads and shared bytes at tile
+    ``(bm, bn, bk)`` and metapipeline ``depth``: the first of 8x8, 8x4,
+    4x4 that divides the tile and leaves it at least 128 threads, else
+    4x4; ``depth`` slots of one x slab (rows padded by GEMM_XPAD words)
+    and one y slab."""
+    for tm, tn in ((8, 8), (8, 4), (4, 4)):
+        if bm % tm == 0 and bn % tn == 0 \
+                and (bm // tm) * (bn // tn) >= GEMM_MIN_THREADS:
+            break
+    else:
+        tm, tn = 4, 4
+    pad = depth * bm * GEMM_XPAD * 4
+    return GemmLayout(tm, tn, (bm // tm) * (bn // tn),
+                      depth * (bm * bk + bk * bn) * 4 + pad, pad)
+
+
+def gemm_source(bm: int, bn: int, bk: int, depth: int) -> str:
+    """The translation unit instantiating the GEMM template at a tile and
+    metapipeline depth."""
+    args = f"{bm}, {bn}, {bk}, {depth}"
+    return f'''// tiled GEMM at tile ({bm}, {bn}, {bk}), depth {depth}, generated by codegen_cuda
 #include "tiled_gemm.cuh"
 
 extern "C" int gemm_launch(const void* x, const void* y, void* out, int m,
                            int n, int k, void* stream) {{
-  return tgemm::launch<{bm}, {bn}, {bk}>(
+  return tgemm::launch<{args}>(
       (const float*)x, (const float*)y, (float*)out, m, n, k,
       (cudaStream_t)stream);
 }}
+
+extern "C" int gemm_layout(int* v) {{ return tgemm::layout<{args}>(v); }}
 ''' + build.ERROR_STRING
 
 
-_GEMM_LIBS: Dict[Tuple[int, int, int], Any] = {}
+_GEMM_LIBS: Dict[Tuple[int, int, int, int], Any] = {}
 
 
-def _gemm_library(bm: int, bn: int, bk: int):
-    if (bm, bn, bk) in _GEMM_LIBS:
-        return _GEMM_LIBS[(bm, bn, bk)]
-    lib = build.bind(build.load("tiled_gemm", gemm_source(bm, bn, bk)), {
+def _gemm_library(bm: int, bn: int, bk: int, depth: int):
+    """The built template at a tile and depth; raises if the library's
+    shape is not ``gemm_layout``'s."""
+    key = (bm, bn, bk, depth)
+    if key in _GEMM_LIBS:
+        return _GEMM_LIBS[key]
+    lib = build.bind(build.load("tiled_gemm", gemm_source(*key)), {
         "gemm_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-        + [ctypes.c_void_p]})
-    _GEMM_LIBS[(bm, bn, bk)] = lib
+        + [ctypes.c_void_p], "gemm_layout": [ctypes.c_void_p]})
+    got = (ctypes.c_int * 4)()
+    build.check(lib, lib.gemm_layout(ctypes.addressof(got)), "gemm_layout")
+    want = gemm_layout(*key)
+    if tuple(got) != (want.tm, want.tn, want.threads, want.smem_bytes):
+        raise RuntimeError(f"tiled_gemm library at {key} has layout "
+                           f"{tuple(got)}, gemm_layout says {want}")
+    _GEMM_LIBS[key] = lib
     return lib
 
 
@@ -176,16 +223,16 @@ def tiled_gemm_plain(x: torch.Tensor, y: torch.Tensor, *, bm: int, bn: int,
 
 
 def tiled_gemm(x: torch.Tensor, y: torch.Tensor, *, bm: int, bn: int,
-               bk: int) -> torch.Tensor:
+               bk: int, depth: int = 2) -> torch.Tensor:
     """``x @ y`` in float32 through the tiled-GEMM kernel at tile
-    ``(bm, bn, bk)``.
+    ``(bm, bn, bk)`` and metapipeline ``depth``.
 
     Replaces the TPU kernel ``lower_tiled_gemm`` (reference
     codegen_pallas.py).  Bound by fp32 operations on the card (no TF32:
     parity is held at the f32 tolerance); each block owns one output
-    tile and loops over K itself, so no output is revisited.  CPU
-    tensors take ``tiled_gemm_plain``; CUDA tensors launch the kernel
-    or raise.
+    tile and loops over K itself through ``depth`` shared slots filled
+    by ``cp.async`` (``gemm_layout``).  CPU tensors take
+    ``tiled_gemm_plain``; CUDA tensors launch the kernel or raise.
     """
     m, k = x.shape
     n = y.shape[1]
@@ -193,13 +240,23 @@ def tiled_gemm(x: torch.Tensor, y: torch.Tensor, *, bm: int, bn: int,
     _f32("y", y, (k, n))
     if m % bm or n % bn or k % bk:
         raise ValueError(f"tile ({bm}, {bn}, {bk}) must divide ({m}, {n}, {k})")
+    if depth < 2:
+        raise ValueError(f"metapipeline depth must be >= 2, got {depth}")
     if _on((x, y)).type == "cpu":
         return tiled_gemm_plain(x, y, bm=bm, bn=bn, bk=bk)
-    if k % 4 or n % 4 or bk % 4 or (bm // 4) * (bn // 4) > 1024:
+    lay = gemm_layout(bm, bn, bk, depth)
+    if k % 4 or n % 4 or bk % 4 or bm % lay.tm or bn % lay.tn \
+            or lay.threads > 1024:
         raise ValueError(f"tile ({bm}, {bn}, {bk}) on ({m}, {n}, {k}) is "
                          "not one the CUDA template takes")
+    optin = torch.cuda.get_device_properties(x.device) \
+        .shared_memory_per_block_optin
+    if lay.smem_bytes > optin:
+        raise ValueError(f"tile ({bm}, {bn}, {bk}) at depth {depth} needs "
+                         f"{lay.smem_bytes} B of shared memory; the card "
+                         f"allows {optin} B per block")
     _aligned((("x", x), ("y", y)))
-    lib = _gemm_library(bm, bn, bk)
+    lib = _gemm_library(bm, bn, bk, depth)
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
     rc = lib.gemm_launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
                          torch.cuda.current_stream(x.device).cuda_stream)
@@ -211,11 +268,13 @@ def tiled_gemm(x: torch.Tensor, y: torch.Tensor, *, bm: int, bn: int,
 tiled_gemm.launches = 0
 
 
-def lower_tiled_gemm(p: ir.MultiFold, *, device=None) -> Callable:
+def lower_tiled_gemm(p: ir.MultiFold, *, depth: int = 2,
+                     device=None) -> Callable:
     """GEMM template: the interchanged tiled IR's inner Map{fold} is a
-    tile product accumulated over the strided K fold.  Returns
-    ``call(**tensors)`` with ``.tile_plan`` (the tile sizes the IR
-    carries)."""
+    tile product accumulated over the strided K fold, metapipelined at
+    ``depth``.  Returns ``call(**tensors)`` with ``.tile_plan`` (the tile
+    sizes the IR carries and the depth) and ``.source`` (the translation
+    unit ``gemm_source`` instantiates at them)."""
     assert match_tiled_gemm(p)
     f = p.inner
     loads = [tc for tc in f.loads if isinstance(tc.src, ir.Tensor)]
@@ -234,9 +293,10 @@ def lower_tiled_gemm(p: ir.MultiFold, *, device=None) -> Callable:
     def call(**tensors):
         x = _staged(tensors[x_tc.src.name], dev)
         y = _staged(tensors[y_tc.src.name], dev)
-        return tiled_gemm(x, y, bm=bi, bn=bj, bk=bk)
+        return tiled_gemm(x, y, bm=bi, bn=bj, bk=bk, depth=depth)
 
-    call.tile_plan = {p.name: (bi, bj), f.name: (bk,)}
+    call.tile_plan = {p.name: (bi, bj), f.name: (bk,), "depth": depth}
+    call.source = gemm_source(bi, bj, bk, depth)
     return call
 
 
@@ -1767,7 +1827,7 @@ def lower(p: ir.Pattern, *, device=None, depth: int = 2) -> Callable:
     raises ``NotImplementedError``, as the reference has no template for
     it either."""
     if match_tiled_gemm(p):
-        return lower_tiled_gemm(p, device=device)
+        return lower_tiled_gemm(p, depth=depth, device=device)
     if isinstance(p, ir.MultiFold) and p.combine is None \
             and isinstance(p.inner, ir.Map):
         return lower_tiled_map(p, depth=depth, device=device)
@@ -1815,28 +1875,38 @@ def lower_auto(p: ir.Pattern, *, plan=None,
 PD_NEG = -1e30                  # the TPU kernel's finite mask value
 _PD_TYPES = (torch.float32, torch.bfloat16)   # pools and q the kernel reads
 
-PAGED_DECODE_SOURCE = '''// paged decode: paged_decode.cuh's kernel per pool and q type
+PAGED_DECODE_SOURCE = '''// paged decode: paged_decode.cuh's attend kernel per pool and q type, and
+// the split combine
 #include "paged_decode.cuh"
 
 extern "C" int paged_decode_launch(
     const void* q, const void* new_k, const void* new_v, void* kpool,
     void* vpool, const void* page_table, const void* seq_lens, void* out,
-    int batch, int hkv, int group, int d, int ps, int npm, int n_phys,
-    int heads, int head_mul, int k_off, int v_off, float scale,
-    int pool_bf16, int q_bf16, void* stream) {
+    float* pm, float* pl, float* pacc, int batch, int hkv, int group, int d,
+    int ps, int npm, int n_phys, int heads, int head_mul, int k_off,
+    int v_off, float scale, int splits, int pool_bf16, int q_bf16,
+    void* stream) {
   using bf16 = __nv_bfloat16;
   using Launch = int (*)(const void*, const void*, const void*, void*, void*,
-                         const int*, const int*, float*, int, int, int, int,
-                         int, int, int, int, int, int, int, float,
-                         cudaStream_t);
+                         const int*, const int*, float*, float*, float*,
+                         float*, int, int, int, int, int, int, int, int, int,
+                         int, int, float, int, cudaStream_t);
   const Launch run = pool_bf16 ? (q_bf16 ? &pdec::launch<bf16, bf16>
                                          : &pdec::launch<bf16, float>)
                                : (q_bf16 ? &pdec::launch<float, bf16>
                                          : &pdec::launch<float, float>);
   return run(q, new_k, new_v, kpool, vpool, (const int*)page_table,
-             (const int*)seq_lens, (float*)out, batch, hkv, group, d, ps, npm,
-             n_phys, heads, head_mul, k_off, v_off, scale,
-             (cudaStream_t)stream);
+             (const int*)seq_lens, (float*)out, pm, pl, pacc, batch, hkv,
+             group, d, ps, npm, n_phys, heads, head_mul, k_off, v_off, scale,
+             splits, (cudaStream_t)stream);
+}
+
+extern "C" int paged_decode_combine(const float* pm, const float* pl,
+                                    const float* pacc, void* out,
+                                    long long rows, int d, int splits,
+                                    void* stream) {
+  return splitk::launch_combine<float>(pm, pl, pacc, out, rows, d, splits,
+                                       (cudaStream_t)stream);
 }
 
 extern "C" int paged_decode_limits(int* limits) {
@@ -1850,15 +1920,22 @@ extern "C" int paged_decode_limits(int* limits) {
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 PAGED_DECODE_LIB = build.Library("paged_decode", PAGED_DECODE_SOURCE, {
-    "paged_decode_launch": [_VP] * 8 + [_INT] * 11 + [ctypes.c_float]
-    + [_INT] * 2 + [_VP],
+    "paged_decode_launch": [_VP] * 11 + [_INT] * 11 + [ctypes.c_float]
+    + [_INT] * 3 + [_VP],
+    "paged_decode_combine": [_VP] * 4 + [ctypes.c_longlong] + [_INT] * 2
+    + [_VP],
     "paged_decode_limits": [_VP]})
 _pd_limits: List[int] = []
+_PD_SMS: Dict[torch.device, int] = {}   # SMs of each card, read once
+PD_KC = 64                # pdec::KC: keys of a chunk
+PD_SPLIT_CHUNKS = 16      # a split holds at most this many chunks ...
+PD_SPLITS_MAX = 64        # ... and there are at most pdec::SMAX splits
 
 
-def _pd_refuse(b: int, group: int, dh: int, ps: int) -> None:
+def _pd_refuse(b: int, group: int, dh: int, ps: int, itemsize: int) -> None:
     """Raise ``ValueError`` for a shape past the kernel's limits, which
-    the library reports (``pdec::DMAX``, ``GMAX``, ``KC``, ``BMAX``)."""
+    the library reports (``pdec::DMAX``, ``GMAX``, ``KC``, ``BMAX``), or
+    a head whose rows are not whole 16-byte pieces."""
     if not _pd_limits:
         out = (ctypes.c_int * 4)()
         PAGED_DECODE_LIB("paged_decode_limits", ctypes.addressof(out))
@@ -1868,6 +1945,31 @@ def _pd_refuse(b: int, group: int, dh: int, ps: int) -> None:
         raise ValueError(f"head dim {dh}, group {group}, page size {ps}, "
                          f"{b} requests: the kernel takes at most {dmax}, "
                          f"{gmax}, {kc}, {bmax}")
+    if dh * itemsize % 16:
+        raise ValueError(f"head dim {dh}: the kernel copies key rows in "
+                         f"16-byte pieces ({dh * itemsize} bytes a row)")
+
+
+def paged_splits(batch: int, kv_heads: int, n_pages_max: int,
+                 page_size: int, sms: int) -> int:
+    """How many parts the kernel cuts each request's live chunks into
+    (grid ``(kv_heads, batch, splits)``), from the static shape only (the
+    lengths stay on the card).  The rule of ``flash_attention``'s
+    ``launch_plan``: under two (request, kv head) blocks per SM, enough
+    parts for four per SM; and no part longer than PD_SPLIT_CHUNKS
+    chunks of the longest context the table holds; at most one part per
+    chunk of that context and PD_SPLITS_MAX in all."""
+    chunks = -(-n_pages_max // (PD_KC // page_size))
+    pairs = batch * kv_heads
+    fill = -(-4 * sms // pairs) if pairs < 2 * sms else 1
+    return max(1, min(chunks, PD_SPLITS_MAX,
+                      max(fill, -(-chunks // PD_SPLIT_CHUNKS))))
+
+
+def pd_split_range(n: int, split: int, splits: int) -> Tuple[int, int]:
+    """``(first, end)``: the chunks of part ``split`` of ``splits`` of a
+    request's ``n`` live chunks (``splitk::part``)."""
+    return split * n // splits, (split + 1) * n // splits
 
 
 def _pd_heads(layout: str, kv_heads: int):
@@ -1882,14 +1984,18 @@ def _pd_heads(layout: str, kv_heads: int):
 def paged_decode_plain(q: torch.Tensor, new_k: torch.Tensor,
                        new_v: torch.Tensor, pools: Sequence[torch.Tensor],
                        page_table: torch.Tensor, seq_lens: torch.Tensor, *,
-                       layout: str = "split",
-                       pages_per_step: int = 1) -> torch.Tensor:
+                       layout: str = "split", pages_per_step: int = 1,
+                       splits: int = 1) -> torch.Tensor:
     """Plain PyTorch version of the paged-decode kernel, step for step
     as the TPU kernel does it, every (request, kv head, query row) at
     once: the append into ``pools`` (in place), then the online softmax
     over all ``n_pages_max`` pages, page by page, in float32 (masked
     positions -1e30, page ids clipped into the pool, p not rounded).
-    Returns the float32 output ``(B, Hkv, group, dh)``."""
+    ``splits`` > 1 is the kernel's flash-decoding: each request's live
+    chunks of PD_KC keys are cut into that many parts
+    (``pd_split_range``), each part keeps its own (m, l, acc) over its
+    pages, and the parts are merged in split order as the combine kernel
+    merges them.  Returns the float32 output ``(B, Hkv, group, dh)``."""
     b, hkv, group, dh = q.shape
     npm = page_table.shape[1]
     if npm % pages_per_step:
@@ -1912,26 +2018,45 @@ def paged_decode_plain(q: torch.Tensor, new_k: torch.Tensor,
     kpool[page[:, None], slot[:, None], kh[None, :]] = new_k.to(kpool.dtype)
     vpool[page[:, None], slot[:, None], vh[None, :]] = new_v.to(vpool.dtype)
 
+    # each request's pages of each part: [lo, hi) (splits, B)
+    ppc = PD_KC // ps
+    live = (lens // ps).clamp(0, npm - 1) + 1
+    chunks = (live + ppc - 1) // ppc
+    part = torch.arange(splits, device=dev)[:, None]
+    lo = part * chunks[None] // splits * ppc
+    hi = (part + 1) * chunks[None] // splits * ppc
+
     qf = q.float()
     scale = dh ** -0.5
-    m = torch.full((b, hkv, group), PD_NEG, device=dev)
-    el = torch.zeros((b, hkv, group), device=dev)
-    acc = torch.zeros((b, hkv, group, dh), device=dev)
+    m = torch.full((splits, b, hkv, group), PD_NEG, device=dev)
+    el = torch.zeros((splits, b, hkv, group), device=dev)
+    acc = torch.zeros((splits, b, hkv, group, dh), device=dev)
     for p in range(npm):
         pid = page_table[:, p].clamp(0, n_phys - 1)
         kpg = kpool[pid][:, :, kh].float().transpose(1, 2)  # (B,Hkv,ps,dh)
         vpg = vpool[pid][:, :, vh].float().transpose(1, 2)
         s = (qf @ kpg.transpose(-1, -2)) * scale              # (B, Hkv, g, ps)
         pos = p * ps + torch.arange(ps, device=dev)
-        s = torch.where(pos[None, :] <= lens[:, None], s.permute(1, 2, 0, 3),
-                        PD_NEG).permute(2, 0, 1, 3)
+        seen = pos[None, :] <= lens[:, None]                  # (B, ps)
+        if splits > 1:
+            seen = seen & ((lo <= p) & (p < hi))[..., None]   # (S, B, ps)
+        s = torch.where(seen[..., None, None, :], s, PD_NEG)
         m_new = torch.maximum(m, s.amax(-1))
         pexp = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         el = el * alpha + pexp.sum(-1)
         acc = acc * alpha[..., None] + pexp @ vpg
         m = m_new
-    return acc / el[..., None]
+    if splits == 1:
+        return acc[0] / el[0][..., None]
+    mx = m.amax(0)
+    l_sum = torch.zeros_like(mx)
+    a_sum = torch.zeros_like(acc[0])
+    for i in range(splits):                                  # in split order
+        w = torch.exp(m[i] - mx)
+        l_sum = l_sum + el[i] * w
+        a_sum = a_sum + acc[i] * w[..., None]
+    return a_sum / l_sum[..., None]
 
 
 def _pd_check(q, new_k, new_v, pools, page_table, seq_lens, *, batch: int,
@@ -1966,34 +2091,58 @@ def paged_decode(q, new_k, new_v, pools, page_table, seq_lens, *,
                  layout: str = "split") -> torch.Tensor:
     """Launch the paged-decode kernel on CUDA tensors (shapes checked by
     the caller): the pools are updated in place; returns the float32
-    output.  Raises for what the kernel does not take."""
+    output.  The attend kernel runs on a grid of (kv head, request,
+    ``paged_splits``) blocks; with more than one split the combine
+    kernel merges their partials (one ``torch.empty`` holds them).
+    Counts ``lower_paged_decode.attend_launches`` and
+    ``.combine_launches``.  Raises for what the kernel does not take."""
     b, hkv, group, dh = q.shape
     kpool = pools[0]
     n_phys, ps = kpool.shape[0], kpool.shape[1]
+    npm = page_table.shape[1]
     if kpool.dtype not in _PD_TYPES:
         raise ValueError(f"paged_decode pools are float32 or bfloat16, got "
                          f"{kpool.dtype}")
-    _pd_refuse(b, group, dh, ps)
+    _pd_refuse(b, group, dh, ps, kpool.element_size())
     if not all(t.is_contiguous() for t in pools):
         raise ValueError("paged_decode updates contiguous pools in place")
+    _aligned([(f"pool {i}", t) for i, t in enumerate(pools)])
     if q.dtype not in _PD_TYPES:
         q = q.float()
     q = q.contiguous()
-    new_k = new_k.to(kpool.dtype).contiguous()
-    new_v = new_v.to(kpool.dtype).contiguous()
+    # no copies on the serving path: new K/V come in the pools' type and
+    # PagedKVCache keeps page_table and seq_lens int32
+    new_k = build.aligned(new_k.to(kpool.dtype).contiguous())
+    new_v = build.aligned(new_v.to(kpool.dtype).contiguous())
     page_table = page_table.to(torch.int32).contiguous()
     seq_lens = seq_lens.to(torch.int32).contiguous()
     ki, vi, heads, mul, k_off, v_off = _pd_heads(layout, hkv)
+    if q.device not in _PD_SMS:
+        _PD_SMS[q.device] = torch.cuda.get_device_properties(
+            q.device).multi_processor_count
+    splits = paged_splits(b, hkv, npm, ps, _PD_SMS[q.device])
+    rows = b * hkv * group
     out = torch.empty((b, hkv, group, dh), dtype=torch.float32,
                       device=q.device)
+    parts = [0, 0, 0]
+    if splits > 1:
+        buf = torch.empty(splits * rows * (dh + 2), dtype=torch.float32,
+                          device=q.device)
+        base = buf.data_ptr()
+        parts = [base, base + splits * rows * 4, base + 2 * splits * rows * 4]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     PAGED_DECODE_LIB(
         "paged_decode_launch", q.data_ptr(), new_k.data_ptr(),
         new_v.data_ptr(), pools[ki].data_ptr(), pools[vi].data_ptr(),
-        page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b, hkv,
-        group, dh, ps, page_table.shape[1], n_phys, heads, mul, k_off, v_off,
-        float(dh ** -0.5), int(kpool.dtype == torch.bfloat16),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), *parts,
+        b, hkv, group, dh, ps, npm, n_phys, heads, mul, k_off, v_off,
+        float(dh ** -0.5), splits, int(kpool.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), stream)
+    lower_paged_decode.attend_launches += 1
+    if splits > 1:
+        PAGED_DECODE_LIB("paged_decode_combine", *parts, out.data_ptr(),
+                         rows, dh, splits, stream)
+        lower_paged_decode.combine_launches += 1
     return out
 
 
@@ -2013,15 +2162,17 @@ def lower_paged_decode(*, batch: int, kv_heads: int, group: int,
     one head-interleaved pool ``(P, ps, 2 Hkv, dh)`` (K at head 2h, V at
     2h + 1).  ``pages_per_step`` (the TPU kernel's grid step) must
     divide ``n_pages_max``; the CUDA kernel stages 64 keys at a time
-    whatever it is.
+    whatever it is, and splits each request's live chunks across
+    ``paged_splits`` blocks.
 
     Returns ``call(q, new_k, new_v, pools, page_table, seq_lens) ->
     (out, pools)``: ``q`` ``(B, Hkv, group, dh)``, ``new_k`` / ``new_v``
     ``(B, Hkv, dh)`` (already rotated; cast to the pools' type), ``out``
     the float32 ``(B, Hkv, group, dh)`` output.  The pools are updated in
     place and returned (the TPU kernel returns new ones).  CUDA tensors
-    launch the kernel (``lower_paged_decode.launches`` counts it); CPU
-    tensors take ``paged_decode_plain``.
+    launch the kernels (``lower_paged_decode.launches`` counts calls,
+    ``.attend_launches`` and ``.combine_launches`` each kernel's
+    launches, ``paged_decode``); CPU tensors take ``paged_decode_plain``.
     """
     if layout not in PAGED_LAYOUTS:
         raise ValueError(f"layout {layout!r}; one of {PAGED_LAYOUTS}")
@@ -2050,4 +2201,6 @@ def lower_paged_decode(*, batch: int, kv_heads: int, group: int,
     return call
 
 
-lower_paged_decode.launches = 0
+lower_paged_decode.launches = 0          # calls on CUDA tensors
+lower_paged_decode.attend_launches = 0   # of the attend kernel
+lower_paged_decode.combine_launches = 0  # of the split combine

@@ -32,8 +32,9 @@
 //    mean of all of V, as on the TPU.
 //  * Keys split: with too few tiles to fill the card, the grid's z axis
 //    splits each tile's chunk range into `splits` contiguous parts; each
-//    writes its float32 (m, l, acc) partials, and combine_kernel merges
-//    them in split order (m = max m_i, l = sum l_i e^(m_i - m), acc
+//    writes its float32 (m, l, acc) partials, and combine_kernel
+//    (split_combine.cuh, shared with paged_decode.cuh) merges them in split
+//    order (m = max m_i, l = sum l_i e^(m_i - m), acc
 //    likewise, out = acc / l).  Keyless rows stay exact: every split has
 //    m = -1e30, so each weighs 1 and l counts every key.
 //  * The TPU grid (b * Hkv, group, q block, kv block) carries m, l, acc in
@@ -60,6 +61,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "split_combine.cuh"
 
 namespace fa {
 
@@ -87,9 +89,7 @@ __device__ __forceinline__ float as_v(float p, const __nv_bfloat16*) {
 }
 
 // ------------------------------------------------------------ chunk range
-struct Span {
-  int first, count;                 // chunks [first, first + count)
-};
+using splitk::Span;
 
 __device__ __forceinline__ bool visible(int key, int qpos, int causal,
                                         int use_window, int window) {
@@ -126,10 +126,7 @@ __device__ __forceinline__ Span live_chunks(int r0, int rows, int sq, int sk,
     first = lo_key(qlo, use_window, window) / BC;
     last = hi_key(qhi, sk, causal) / BC;
   }
-  const int64_t n = last - first + 1;
-  const int b = first + (int)(split * n / splits);
-  const int e = first + (int)((split + 1) * n / splits);
-  return {b, e - b};
+  return splitk::part(first, last - first + 1, split, splits);
 }
 
 // ------------------------------------------------------------ wgmma, bf16
@@ -554,40 +551,6 @@ int launch_ffma_dp(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- combine
-// The split partials of each packed row merged in split order: one warp a
-// row, lanes over the columns.  m in the natural log.
-template <typename T>
-__global__ void __launch_bounds__(128)
-combine_kernel(const float* __restrict__ pm, const float* __restrict__ pl,
-               const float* __restrict__ pacc, T* __restrict__ out,
-               int64_t rows, int d, int splits) {
-  const int64_t row = (int64_t)blockIdx.x * 4 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  float mx = pm[row];
-  for (int s = 1; s < splits; ++s) mx = fmaxf(mx, pm[s * rows + row]);
-  float l = 0.0f, acc[DMAX / 32];
-#pragma unroll
-  for (int j = 0; j < DMAX / 32; ++j) acc[j] = 0.0f;
-  for (int s = 0; s < splits; ++s) {
-    const int64_t p = s * rows + row;
-    const float a = expf(pm[p] - mx);
-    l += pl[p] * a;
-#pragma unroll
-    for (int j = 0; j < DMAX / 32; ++j) {
-      const int c = lane + 32 * j;
-      if (c < d) acc[j] += pacc[p * d + c] * a;
-    }
-  }
-  const float denom = l == 0.0f ? 1.0f : l;
-#pragma unroll
-  for (int j = 0; j < DMAX / 32; ++j) {
-    const int c = lane + 32 * j;
-    if (c < d) put(out + row * d + c, acc[j] / denom);
-  }
-}
-
 // --------------------------------------------------------------- launches
 // Launch on `stream`; returns a CUDA error code.  The caller checks the
 // shapes, d <= DMAX, b * hkv <= 65535, and for wgmma three bfloat16
@@ -627,15 +590,6 @@ inline int launch_wgmma(const void* q, const void* k, const void* v,
   return (wide ? &launch_wgmma_dp<128, 2> : &launch_wgmma_dp<128, 1>)(
       q, k, v, out, pm, pl, pacc, b, hkv, group, sq, sk, d, scale, causal,
       use_window, window, splits, stream);
-}
-
-template <typename T>
-int launch_combine(const float* pm, const float* pl, const float* pacc,
-                   void* out, int64_t rows, int d, int splits,
-                   cudaStream_t stream) {
-  combine_kernel<T><<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
-      pm, pl, pacc, (T*)out, rows, d, splits);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace fa

@@ -63,10 +63,10 @@ extern "C" int flash_attention_combine(const float* pm, const float* pl,
                                        long long rows, int d, int splits,
                                        int bf16, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? fa::launch_combine<__nv_bfloat16>(pm, pl, pacc, out, rows,
-                                                  d, splits, s)
-              : fa::launch_combine<float>(pm, pl, pacc, out, rows, d, splits,
-                                          s);
+  return bf16 ? splitk::launch_combine<__nv_bfloat16>(pm, pl, pacc, out,
+                                                      rows, d, splits, s)
+              : splitk::launch_combine<float>(pm, pl, pacc, out, rows, d,
+                                              splits, s);
 }
 '''
 

@@ -177,6 +177,30 @@ def test_tiled_gemm_kernel_matches_plain():
     np.testing.assert_allclose(out.cpu().numpy(), reference(host), **TOL)
 
 
+# (m, n, k, bm, bn, bk, depth): the analytics default, the FFMA-shaped
+# tile at depth 3, the 8x4 and 4x4 micro-tiles, a non-square product at
+# depth 4, a tile below 128 threads
+GEMM_TILES = [(256, 256, 512, 64, 64, 64, 2), (256, 384, 256, 128, 128, 32, 3),
+              (192, 128, 320, 64, 32, 16, 2), (128, 96, 64, 32, 32, 32, 2),
+              (320, 192, 448, 64, 64, 32, 4), (64, 64, 128, 32, 64, 8, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GEMM_TILES, ids=str)
+def test_tiled_gemm_at_the_plans_tile_and_depth(case):
+    _card()
+    m, n, k, bm, bn, bk, depth = case
+    x, y = _randn(0, m, k), _randn(1, k, n)
+    before = cc.tiled_gemm.launches
+    out = cc.tiled_gemm(x, y, bm=bm, bn=bn, bk=bk, depth=depth)
+    torch.cuda.synchronize()
+    assert cc.tiled_gemm.launches == before + 1
+    plain = cc.tiled_gemm_plain(x, y, bm=bm, bn=bn, bk=bk)
+    torch.testing.assert_close(out, plain, **TOL)
+    want = x.double() @ y.double()
+    torch.testing.assert_close(out.double(), want, **TOL)
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_a_plan_beyond_the_cards_shared_memory():
     _card()
@@ -846,6 +870,67 @@ def test_paged_decode_kernel_matches_plain(case, layout, dtype):
     for got, exp in zip(pools, plain_pools):
         assert torch.equal(got, exp)
     torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+
+
+def _paged_launches():
+    f = cc.lower_paged_decode
+    return f.launches, f.attend_launches, f.combine_launches
+
+
+# (b, hkv, group, d, ps, npm): one split (272 blocks fill the card and no
+# request spans more than 16 chunks), and many (a few long requests)
+SPLIT_SHAPES = [(34, 8, 4, 64, 8, 32), (3, 2, 4, 64, 8, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_SHAPES, ids=str)
+@pytest.mark.parametrize("layout", ["split", "fused"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_splits_and_parked_requests(case, layout, dtype):
+    """Ragged lengths and parked requests (every table entry page 0,
+    length 0, as serving parks a free slot): the parts the kernel splits
+    a request into merge to the plain version's output, the pools equal
+    the plain version's bitwise but for page 0's slot 0, every element of
+    which is one parked request's (their blocks write it at once), and
+    the attend and combine kernels each launch once (the combine only
+    when there is more than one split)."""
+    _card()
+    b, hkv, group, d, ps, npm = case
+    q, k, v, pools, table, lens = paged_case(*case, layout, dtype, seed=3)
+    rng = np.random.RandomState(4)
+    lens = torch.as_tensor(rng.randint(0, npm * ps, b).astype(np.int32),
+                           device="cuda")
+    parked = torch.arange(b, device="cuda") % 3 == 1
+    table[parked] = 0
+    lens[parked] = 0
+    plain_pools = tuple(p.clone() for p in pools)
+    splits = cc.paged_splits(b, hkv, npm, ps, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert (splits == 1) == (case == SPLIT_SHAPES[0])
+    kern = cc.lower_paged_decode(batch=b, kv_heads=hkv, group=group,
+                                 head_dim=d, page_size=ps, n_pages_max=npm,
+                                 layout=layout)
+    before = _paged_launches()
+    out, _ = kern(q, k, v, pools, table, lens)
+    torch.cuda.synchronize()
+    after = _paged_launches()
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, int(splits > 1)]
+    unsplit = cc.paged_decode_plain(q, k, v, plain_pools, table, lens,
+                                    layout=layout)
+    want = cc.paged_decode_plain(q, k, v, tuple(p.clone() for p in pools),
+                                 table, lens, layout=layout, splits=splits)
+    live = ~parked                 # a parked row reads its own new K and V
+    torch.testing.assert_close(out[live], want[live], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(out[live], unsplit[live], rtol=2e-4,
+                               atol=2e-4)
+    for got, exp in zip(pools, plain_pools):
+        assert torch.equal(got[1:], exp[1:])
+        assert torch.equal(got[0, 1:], exp[0, 1:])
+    ki, vi, _, mul, k_off, v_off = cc._pd_heads(layout, hkv)
+    for pool, off, new in ((pools[ki], k_off, k), (pools[vi], v_off, v)):
+        heads = torch.arange(hkv, device="cuda") * mul + off
+        rows = new[parked].to(dtype)        # (parked, hkv, d)
+        assert bool((pool[0, 0, heads][None] == rows).any(0).all())
 
 
 @pytest.mark.cuda

@@ -5,7 +5,9 @@ layouts, one and two pages per grid step, float32 and bfloat16 pools,
 page ids past the pool and below zero, lengths crossing page boundaries:
 pools bitwise, output within float32 2e-4; ``models.paged`` (scatter and
 gather round trip, paged decode token-identical to the dense oracle for
-both ``use_kernel`` values); ``dse.select_paged_decode_blocks`` plan JSON
+both ``use_kernel`` values); the kernel's flash-decoding split
+(``paged_decode_plain(splits=s)``, ``paged_splits``) against the unsplit
+plain version and the reference; ``dse.select_paged_decode_blocks`` plan JSON
 exactly as the reference's (``cache=False``) under ``cost.TPU`` at the
 TPU's 16 MiB and the H100's 232,448 B, raising where it raises (960 and
 1040 tokens on the H100's budget); the traffic model and
@@ -80,6 +82,91 @@ def test_lower_paged_decode_matches_pallas(case, layout, dtype):
                                       np.asarray(exp, np.float32))
     np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=2e-4,
                                atol=2e-4)
+
+
+# (b, hkv, group, d, ps, npm): 64-key chunks of 4 and 2 pages, 3 and 4 of
+# them in the table; lengths 0, ps - 1, ps, the table's last slot, a chunk's
+# last and first keys
+SPLIT_CASES = [(6, 2, 3, 16, 16, 12), (6, 1, 4, 32, 32, 8)]
+_REFERENCE = {}
+
+
+def _split_inputs(case, layout):
+    b, hkv, group, d, ps, npm = case
+    q, k, v, pools, table, lens = paged_case(b, hkv, group, d, ps, npm,
+                                             layout, torch.float32,
+                                             device="cpu")
+    lens[:] = torch.tensor([0, ps - 1, ps, npm * ps - 1, 63, 128])[:b]
+    return q, k, v, pools, table, lens
+
+
+def _split_reference(case, layout):
+    """The reference's lower_paged_decode (interpret mode) on the
+    inputs of ``_split_inputs``: (output, pools)."""
+    if (case, layout) not in _REFERENCE:
+        b, hkv, group, d, ps, npm = case
+        q, k, v, pools, table, lens = _split_inputs(case, layout)
+        jkern = jcp.lower_paged_decode(batch=b, kv_heads=hkv, group=group,
+                                       head_dim=d, page_size=ps,
+                                       n_pages_max=npm, layout=layout)
+        out, new_pools = jkern(
+            jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+            jnp.asarray(v.numpy()), tuple(jnp.asarray(p.numpy())
+                                          for p in pools),
+            jnp.asarray(table.numpy()), jnp.asarray(lens.numpy()))
+        _REFERENCE[(case, layout)] = (
+            np.asarray(out), [np.asarray(p) for p in new_pools])
+    return _REFERENCE[(case, layout)]
+
+
+@pytest.mark.parametrize("splits", range(1, 9))
+@pytest.mark.parametrize("layout", ["split", "fused"])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_split_plain_version_matches_unsplit_and_the_reference(case, layout,
+                                                               splits):
+    """The kernel's flash-decoding on the CPU: per-part (m, l, acc) over
+    each request's own live chunks, merged in split order, equals the
+    unsplit plain version and the reference at float32 2e-4, pools
+    bitwise; parts past a short request's chunks are empty."""
+    want, want_pools = _split_reference(case, layout)
+    q, k, v, pools, table, lens = _split_inputs(case, layout)
+    unsplit_pools = tuple(p.clone() for p in pools)
+    got = cc.paged_decode_plain(q, k, v, pools, table, lens, layout=layout,
+                                splits=splits)
+    unsplit = cc.paged_decode_plain(q, k, v, unsplit_pools, table, lens,
+                                    layout=layout)
+    for g, u, w in zip(pools, unsplit_pools, want_pools):
+        assert torch.equal(g, u)
+        np.testing.assert_array_equal(g.numpy(), w)
+    np.testing.assert_allclose(got.numpy(), unsplit.numpy(), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("n,splits", [(1, 8), (3, 2), (16, 9), (128, 8)])
+def test_split_ranges_cover_the_chunks_in_order(n, splits):
+    parts = [cc.pd_split_range(n, s, splits) for s in range(splits)]
+    assert parts[0][0] == 0 and parts[-1][1] == n
+    assert all(a[1] == b_[0] for a, b_ in zip(parts, parts[1:]))
+    assert parts[-1][1] > parts[-1][0]     # the last part holds the append
+
+
+# (batch, kv heads, pages in the table, page size) -> splits on 132 SMs:
+# granite's serving shape (8 requests, 1,024 tokens, page size 8: 64
+# blocks want 4 per SM), the 32-request shapes up to 8,192 tokens (no part
+# longer than 16 chunks), a batch that fills the card, one short request
+SPLITS = {(8, 8, 128, 8): 9, (32, 8, 1024, 8): 8, (32, 8, 128, 64): 8,
+          (64, 8, 128, 8): 1, (64, 8, 1024, 8): 8, (1, 1, 4, 16): 1,
+          (2, 2, 4096, 1): 64}
+
+
+@pytest.mark.parametrize("shape", sorted(SPLITS), ids=str)
+def test_paged_splits_rule(shape):
+    b, hkv, npm, ps = shape
+    splits = cc.paged_splits(b, hkv, npm, ps, 132)
+    assert splits == SPLITS[shape]
+    if shape == (8, 8, 128, 8):
+        assert hkv * b * splits >= 2 * 132
 
 
 def test_lower_paged_decode_refuses_what_the_reference_refuses():
