@@ -5,11 +5,13 @@
 
 Builds every kernel of the path from ``src/repro_torch/kernels/csrc``
 (one nvcc per translation unit, all at once) and counts HGMMA (wgmma),
-UTMALDG (TMA), LDGSTS (cp.async) and FFMA in the SASS of each variant of
-``matmul``, ``flash_attention``, ``paged_decode`` and the tiled GEMM
-(``cuobjdump -sass``; it fails without cuobjdump, when a tensor-core
-variant has no HGMMA, the GEMM no LDGSTS or FFMA or any HGMMA, or the
-paged attend kernel no LDGSTS), then:
+HMMA (mma.sync), UTMALDG (TMA), LDGSTS (cp.async) and FFMA in the SASS
+of each variant of ``matmul``, ``flash_attention``, ``paged_decode``,
+``ssd_scan`` and the tiled GEMM (``cuobjdump -sass``; it fails without
+cuobjdump, when a tensor-core variant has no HGMMA, the GEMM no LDGSTS
+or FFMA or any HGMMA, the paged attend kernel no LDGSTS, or an
+``ssd_scan`` pass any HMMA or HGMMA, or, where it stages B, C or x, no
+LDGSTS or FFMA), then:
 
   * runs ``lower_pipeline(pipe)`` -- the port's own DSE on the card's
     budget, then the fused-DAG CUDA megakernel -- for each of the five
@@ -42,7 +44,9 @@ paged attend kernel no LDGSTS), then:
     ``flash_attention`` at granite-3-2b's (causal prefill of 2 x 4096
     tokens in float32 and bfloat16, decode of 32 rows over 32,768 keys)
     and mixtral-8x22b's (window 4096 over 8,192 tokens), ``ssd_scan`` at
-    mamba2-370m's (4 x 4096 steps, float32 and bfloat16).  Each output
+    mamba2-370m's (4 x 4096 steps, float32 and bfloat16; its four passes
+    each counted and timed on the device; in bfloat16 also held within
+    1 bf16 ulp of the float32 kernel on the widened inputs).  Each output
     is held against the plain version and a float64 oracle at rtol
     ``tol`` and an atol of ``tol`` times the oracle's root mean square:
     per output row for attention (rows that average thousands of keys
@@ -50,7 +54,9 @@ paged attend kernel no LDGSTS), then:
     float32 attention, SSD_F32_TOL for the float32 SSD, 2e-2 for
     bfloat16.  Each limit is first proved to catch planted faults: a
     dropped kv block in the first and in the last query tile, the SSD's
-    state carry zeroed at a chunk boundary, for float32 the oracle's
+    state carry zeroed at a chunk boundary, one chunk's state dropped
+    from its carry and one batch row scored with another's C Bᵀ over a
+    chunk, for float32 the oracle's
     output rounded to bfloat16, and, where the keys are split (decode),
     one split's partial dropped from the combine.  Every bfloat16
     attention phase must run the wgmma kernel, by the per-variant counts;
@@ -227,16 +233,21 @@ def check_sum(key, got, plain, ref, shifts, torch, what: str):
 
 def device_breakdown(fn, torch, calls: int = 3) -> str:
     """Mean device time per launch of each CUDA kernel ``fn`` launches,
-    from torch.profiler (each kernel's total over its own launch count);
-    "not measured" when the profiler sees no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler (each kernel's total over its own launch count)
+    over ``calls`` calls after one traced but discarded warm-up call (the
+    tracer drops the first kernels it sees); "not measured" when the
+    profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls,
+                                   repeat=1)) as prof:
+        for _ in range(1 + calls):
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     parts = []
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", None)
@@ -524,10 +535,21 @@ def run_tiled_gemm(label: str, call, x, y, host, gtile, depth: int, cc,
 
 
 # ------------------------------------------------ what the kernels compiled to
-SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "FFMA")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "FFMA")
 # the kernels of each library by variant: (label, function-name key, the
 # instructions it must have, the instructions it must not have)
 HGMMA = ("HGMMA",)
+TENSOR_CORES = ("HMMA", "HGMMA")
+# ssd_scan: the scores, states and output passes stage B, C and x by
+# cp.async into FFMA; no pass uses the tensor cores in either type (rule A
+# would let the bf16 scores onto them; this design keeps them on FFMA so
+# that a bf16 call is the f32 call on widened inputs)
+SSD_SASS = tuple(
+    (f"ssd_scan[{p},{t}]", f"{p}_kernelI{key}", ("LDGSTS", "FFMA"),
+     TENSOR_CORES)
+    for p in ("scores", "states", "output")
+    for t, key in (("f32", "f"), ("bf16", "13__nv_bfloat16"))) + (
+    ("ssd_scan[carry]", "carry_kernel", (), TENSOR_CORES),)
 SASS_VARIANTS = {
     "matmul": (("matmul[wgmma]", "wgmma_kernel", HGMMA, ()),
                ("matmul[ffma]", "ffma_kernel", (), ())),
@@ -540,6 +562,7 @@ SASS_VARIANTS = {
                      ("paged_decode[attend,f32 pool]", "attend_kernelIf",
                       ("LDGSTS",), ()),
                      ("paged_decode[combine]", "combine_kernel", (), ())),
+    "ssd_scan": SSD_SASS,
 }
 # the GEMM template, one library per tile: cp.async slabs into FFMA
 GEMM_SASS = (("LDGSTS", "FFMA"), HGMMA)
@@ -1147,14 +1170,80 @@ def run_attention(label: str, cfg, b: int, sq: int, sk: int, dtype, *,
             "library_ms": lib_ms}
 
 
+SSD_KERNELS = {"scores": "scores_kernel", "states": "states_kernel",
+               "carry": "carry_kernel", "output": "output_kernel"}
+
+
+def ssd_faults(x, dt, A, B, C, want, chunk: int, tol: float, atol,
+               torch, label: str) -> str:
+    """The SSD's planted faults, each computed in float64 on a slice of
+    the inputs and first shown to be caught by the limit: the state carry
+    zeroed at the middle chunk boundary (batch 0, head 0: the oracle run
+    from there); chunk c's state S_c dropped from the carry (batch 0, head
+    0); batch row 1 scored with batch row 0's C Bᵀ over chunk c (rows 0
+    and 1, head 0) -- the fault that sharing the scores across heads makes
+    possible.  Returns the shifts."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    seq = x.shape[1]
+    nc = seq // chunk
+    c = nc // 2
+    t0 = c * chunk
+    out = []
+
+    def check(what, faulted, rows):
+        shift = float((faulted - rows).abs().max())
+        if not catches(faulted, rows, tol, atol):
+            fail(f"{label}: rtol {tol} / atol {atol:.4g} would not catch "
+                 f"{what} (shift {shift:.4g})")
+        out.append(f"{what} shifts it by {shift:.4g}")
+    part = (x[:1, t0:t0 + chunk, :1], dt[:1, t0:t0 + chunk, :1], A[:1],
+            B[:1, t0:t0 + chunk], C[:1, t0:t0 + chunk])
+    check(f"the carry zeroed at step {t0}",
+          ref.ssd_scan(*(t.double() for t in part)),
+          want[:1, t0:t0 + chunk, :1])
+    xd, dtd, Ad, Bd, Cd = (t.double() for t in (
+        x[:2, :, :1], dt[:2, :, :1], A[:1], B[:2], C[:2]))
+    scores = ssd.plain_scores(Bd, Cd, chunk)
+    S, decay = ssd.plain_states(xd, dtd, Ad, Bd, chunk)
+    S[:1, :, c] = 0.0
+    y = ssd.plain_output(xd, dtd, Ad, Cd, scores, ssd.plain_carry(S, decay),
+                         chunk)
+    check(f"chunk {c}'s state dropped from the carry", y[:1],
+          want[:1, :, :1])
+    S, decay = ssd.plain_states(xd, dtd, Ad, Bd, chunk)
+    scores[1, c] = scores[0, c]
+    y = ssd.plain_output(xd, dtd, Ad, Cd, scores, ssd.plain_carry(S, decay),
+                         chunk)
+    check(f"batch row 1 scored with row 0's C Bᵀ over chunk {c}", y[1:2],
+          want[1:2, :, :1])
+    return "; ".join(out)
+
+
+def bf16_ulps(got, want32, torch) -> tuple:
+    """``got`` (bfloat16) against ``want32`` (float32) rounded to
+    bfloat16: the share of elements that differ and the largest
+    difference in units of the rounded value's last place."""
+    r = want32.to(torch.bfloat16)
+    diff = (got.float() - r.float()).abs()
+    _, e = torch.frexp(r.float())
+    ulp = torch.ldexp(torch.ones_like(diff), (e - 8).clamp(min=-133))
+    return (float((got != r).double().mean()),
+            float((diff / ulp).max()))
+
+
 def run_ssd(label: str, cfg, b: int, seq: int, chunk: int, dtype, seed: int,
             tier, torch, dev) -> dict:
     """``ssd_scan`` at one model's SSD widths through its entry point:
-    held against its plain version and the float64 recurrence (atol
-    scaled by the output's root mean square) after proving the limit
-    catches a state carry zeroed at one chunk boundary and, in float32,
-    an output rounded to bfloat16; timed beside its plain version (no
-    single PyTorch call computes the scan)."""
+    its four passes each launched once, held against its plain version
+    and the float64 recurrence (atol scaled by the output's root mean
+    square) after proving the limit catches the planted faults
+    (``ssd_faults``; in float32 also the output rounded to bfloat16);
+    in bfloat16, held against the float32 kernel on the widened inputs
+    within 1 bf16 ulp; two calls bitwise equal; device time per pass;
+    timed beside its plain version (no single PyTorch call computes the
+    scan)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd
 
@@ -1181,28 +1270,28 @@ def run_ssd(label: str, cfg, b: int, seq: int, chunk: int, dtype, seed: int,
         return ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     torch.cuda.synchronize()
     ssd.ssd_scan.launches = 0
+    ssd.ssd_scan.pass_launches = dict.fromkeys(ssd.PASSES, 0)
     y = run()
     torch.cuda.synchronize()
     launches = ssd.ssd_scan.launches
+    passes = dict(ssd.ssd_scan.pass_launches)
+    lay = ssd.layout(chunk)
+    ws = ssd.workspace_bytes(b, seq, h, dh, n, chunk)
     print(f"[{label}] {cfg.name}: x {tuple(x.shape)} {dtype}, state ({n}, "
-          f"{dh}), chunk {chunk} as sub-chunks of {ssd.sub_chunk(chunk)}; "
-          f"ssd_scan launches={launches}")
-    if launches < 1:
-        fail(f"{label}: the ssd_scan kernel was not launched")
+          f"{dh}), chunk {chunk} whole ({len(lay.row_tiles)} row tiles of "
+          f"{ssd.TILE}, {len(lay.slabs)} slabs of {ssd.SLAB}, "
+          f"{lay.smem_bytes} B of shared memory a block); workspaces "
+          + ", ".join(f"{k} {v} B" for k, v in ws.items())
+          + f"; ssd_scan calls={launches}, launches: "
+          + ", ".join(f"{k} {v}" for k, v in passes.items()))
+    if launches < 1 or any(v < 1 for v in passes.values()):
+        fail(f"{label}: a pass of the ssd_scan kernel was not launched")
+    if not torch.equal(y, run()):
+        fail(f"{label}: two calls are not bitwise equal")
     want = ref.ssd_scan(*(t.double() for t in (x, dt, A, B, C)))
     atol = tol * float(want.pow(2).mean().sqrt())
-    # the planted fault: batch 0, head 0 restarts from a zero state at the
-    # chunk boundary t0 (the oracle run from t0 on)
-    t0 = seq // 2 // chunk * chunk
-    part = (x[:1, t0:t0 + chunk, :1], dt[:1, t0:t0 + chunk, :1], A[:1],
-            B[:1, t0:t0 + chunk], C[:1, t0:t0 + chunk])
-    faulted = ref.ssd_scan(*(t.double() for t in part))
-    ref_rows = want[:1, t0:t0 + chunk, :1]
-    shift = float((faulted - ref_rows).abs().max())
-    if not catches(faulted, ref_rows, tol, atol):
-        fail(f"{label}: rtol {tol} / atol {atol:.4g} would not catch the "
-             f"state carry zeroed at step {t0} (shift {shift:.4g})")
-    faults = f"the carry zeroed at step {t0} shifts it by {shift:.4g}"
+    faults = ssd_faults(x, dt, A, B, C, want, chunk, tol, atol, torch,
+                        label)
     if dtype == torch.float32:
         faults += "; the output rounded to bfloat16 by " + format(
             rounding_fault(want, tol, atol, torch, label), ".4g")
@@ -1212,20 +1301,41 @@ def run_ssd(label: str, cfg, b: int, seq: int, chunk: int, dtype, seed: int,
     e_pref = check_close(p_y, want, tol, atol, torch,
                          f"{label}: plain vs float64")
     y_max = float(want.abs().max())
-    del want
+    del want, p_y
     print(f"[{label}] max abs err vs plain {e_plain:.4g}, vs float64 "
           f"{e_ref:.4g} (plain {e_pref:.4g}); rtol {tol}, atol {atol:.4g} "
-          f"(max |y| {y_max:.4g}); planted faults caught: {faults}")
+          f"(max |y| {y_max:.4g}); two calls bitwise equal; planted faults "
+          f"caught: {faults}")
+    if dtype == torch.bfloat16:
+        # rule A: every product is float32 FFMA, so the bf16 kernel is the
+        # f32 kernel on the widened inputs, rounded once at the output
+        y32 = ssd.ssd_scan(x.float(), dt.float(), A, B.float(), C.float(),
+                           chunk=chunk)
+        share, worst = bf16_ulps(y, y32, torch)
+        print(f"[{label}] vs the float32 kernel on the widened inputs, "
+              f"rounded to bfloat16: {share:.6g} of the elements differ, "
+              f"by at most {worst:.4g} ulp (limit 1)")
+        if worst > 1:
+            fail(f"{label}: {worst:.4g} bf16 ulp from the float32 kernel")
+        del y32
     ms = median_ms(run, torch, LM_REPS, LM_BATCH)
     plain_ms = median_ms(plain, torch, LM_REPS, LM_BATCH)
     # the least work: per step and state element, one FMA to carry the
-    # state and one to read it out
+    # state and one to read it out, on FFMA in both types: these products
+    # have a float32 operand (the state), which rule A keeps off the
+    # tensor cores; C Bᵀ, the one product they may take, is not counted
     flops = 4 * b * seq * h * n * dh
-    peak = BF16_PEAK if dtype == torch.bfloat16 else None
-    bound_ms, by = bound(nbytes_of(x, dt, A, B, C, y), flops, tier, peak)
+    bound_ms, by = bound(nbytes_of(x, dt, A, B, C, y), flops, tier)
     print(f"[{label}] ssd_scan {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
           f"none, bound {bound_ms:.4f} ms ({by})", flush=True)
-    print(f"[{label}] device time per call: " + device_breakdown(run, torch))
+    for _ in range(3):
+        parts = device_breakdown(run, torch)
+        missing = [p for p, k in SSD_KERNELS.items() if k not in parts]
+        if not missing:
+            break
+    print(f"[{label}] device time per call: {parts}")
+    if missing:
+        fail(f"{label}: device time of pass(es) {missing} not measured")
     return {"name": f"ssd_scan[{label[4:-1]}]", "route": "cuda",
             "source": f"{CSRC}/ssd_scan.cuh", "replaces": SSD_TPU,
             "launches": launches, "max_abs_err": e_plain, "ms": ms,

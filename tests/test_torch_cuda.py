@@ -16,7 +16,10 @@ float32 products at 1e-4 (K <= 256), bfloat16 outputs at 2e-2, sums at
 counts and assignments exactly.  ``flash_attention`` and ``ssd_scan``
 are held against their plain versions at 2e-4 in float32 (the reference
 tests' tolerance; the SSD's atol scaled by the output's largest
-magnitude) and 2e-2 in bfloat16.  The per-variant launch counts show
+magnitude) and 2e-2 in bfloat16; the SSD's four passes each launch
+once a call, two calls are bitwise equal, and its bfloat16 result is
+its float32 result on the widened inputs, rounded (every product is
+float32 FFMA).  The per-variant launch counts show
 which kernel of ``matmul`` and ``flash_attention`` ran (wgmma or FFMA,
 and the combine of split keys).
 """
@@ -764,28 +767,51 @@ def _ssd_inputs(b, s, h, dh, n, dtype=torch.float32):
         torch.float32 if t is A else dtype) for t in (x, dt, A, B, C)]
 
 
-# (b, s, h, dh, n, chunk): the reference's shapes, a chunk of two
-# sub-chunks, mamba2-370m's state width, head dims that slice unevenly
+# (b, s, h, dh, n, chunk): the reference's shapes, chunks of two and four
+# 64-row tiles at mamba2-370m's state width, head dims and states that are not
+# whole 16-byte rows in bfloat16 (the kernels' plain-load path), and 8
+# chunks of 2 batch rows, so that the carry and the scores' sharing show
 SSD = [(1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32), (1, 32, 1, 8, 4, 32),
-       (1, 256, 2, 64, 128, 128), (2, 96, 3, 24, 12, 48)]
+       (1, 256, 2, 64, 128, 128), (1, 512, 2, 64, 128, 256),
+       (2, 96, 3, 24, 12, 48), (2, 512, 3, 64, 32, 64)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SSD, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain(case, dtype):
+    """Every pass launched once per call, two calls bitwise equal, the
+    result within tolerance of the plain version."""
     _card()
     b, s, h, dh, n, chunk = case
     x, dt, A, B, C = _ssd_inputs(b, s, h, dh, n, dtype)
     before = ssd.ssd_scan.launches
+    passes = dict(ssd.ssd_scan.pass_launches)
     y = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd.ssd_scan.launches == before + 1
+    assert all(ssd.ssd_scan.pass_launches[p] == passes[p] + 1
+               for p in ssd.PASSES)
     assert y.dtype == dtype and y.shape == x.shape
+    assert torch.equal(y, ssd.ssd_scan(x, dt, A, B, C, chunk=chunk))
     want = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk).float()
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
     torch.testing.assert_close(y.float(), want, rtol=tol,
                                atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD, ids=str)
+def test_ssd_scan_bfloat16_is_float32_on_widened_inputs(case):
+    """Every product is float32 FFMA in both types: the bfloat16 kernel
+    gives the float32 kernel's result on the widened inputs, rounded."""
+    _card()
+    b, s, h, dh, n, chunk = case
+    x, dt, A, B, C = _ssd_inputs(b, s, h, dh, n, torch.bfloat16)
+    y = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    y32 = ssd.ssd_scan(x.float(), dt.float(), A, B.float(), C.float(),
+                       chunk=chunk)
+    assert torch.equal(y, y32.bfloat16())
 
 
 @pytest.mark.cuda
@@ -807,9 +833,9 @@ def test_lm_kernels_refuse_what_they_cannot_take():
     q = _randn(0, 1, 2, 64, 144)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q)
-    x, dt, A, B, C = _ssd_inputs(1, 64, 2, 16, 1024)
+    x, dt, A, B, C = _ssd_inputs(1, 16384, 2, 16, 8)
     with pytest.raises(ValueError, match="shared memory"):
-        ssd.ssd_scan(x, dt, A, B, C, chunk=64)
+        ssd.ssd_scan(x, dt, A, B, C, chunk=16384)
     with pytest.raises(ValueError, match="contiguous"):
         ssd.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
                      B, C, chunk=64)
