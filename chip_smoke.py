@@ -7,17 +7,24 @@ Builds every kernel of the path from ``src/repro_torch/kernels/csrc``
 (one nvcc per translation unit, all at once) and counts HGMMA (wgmma),
 HMMA (mma.sync), UTMALDG (TMA), LDGSTS (cp.async) and FFMA in the SASS
 of each variant of ``matmul``, ``flash_attention``, ``paged_decode``,
-``ssd_scan`` and the tiled GEMM (``cuobjdump -sass``; it fails without
-cuobjdump, when a tensor-core variant has no HGMMA, the GEMM no LDGSTS
-or FFMA or any HGMMA, the paged attend kernel no LDGSTS, or an
-``ssd_scan`` pass any HMMA or HGMMA, or, where it stages B, C or x, no
-LDGSTS or FFMA), then:
+``ssd_scan``, the tiled GEMM and the fused-DAG template
+(``cuobjdump -sass``; it fails without cuobjdump, when a tensor-core
+variant has no HGMMA, the GEMM no LDGSTS or FFMA or any HGMMA, the
+paged attend kernel no LDGSTS, an ``ssd_scan`` pass any HMMA or HGMMA,
+or, where it stages B, C or x, no LDGSTS or FFMA, or a fused-DAG
+library no LDGSTS or any ATOMS, ATOMG, ATOM or RED; ptxas must report
+no stack frame for a fused-DAG library), then:
 
   * runs ``lower_pipeline(pipe)`` -- the port's own DSE on the card's
     budget, then the fused-DAG CUDA megakernel -- for each of the five
     analytics pipelines at full size: tpchq6 at 6,000,000 rows (TPC-H
     SF1 lineitem, 6,001,215 rows, cut to a multiple of 128), the others
-    at 4,194,304 rows with the pipelines' own widths;
+    at 4,194,304 rows with the pipelines' own widths.  Each fused-DAG
+    phase (and ``lower_auto``'s gda below) prints its CAM terminals'
+    forms (every one must take the register form) and the CAM staging
+    beside the plan's charge, calls the kernel twice (bitwise equal) and
+    shows the device time of ``fused_dag_kernel`` and
+    ``combine_partials``;
   * runs ``lower(tile(gemm), depth=d)`` at m = n = k = 4096 in float32
     at the analytics tile 64x64x64, depth 2, and at 128x128x32, depth 3
     (the template at the plan's tile, a ``d``-slot ``cp.async`` ring),
@@ -94,7 +101,8 @@ numpy reference: Map outputs and the GEMM at float32 rtol/atol
 2e-3/2e-3; the outer product and the filter bitwise (the filter's
 count exactly, the buffer's tail zero); fold and CAM sums within
 SUM_RTOL of their largest magnitude, a limit the script first proves
-tighter than what two planted faults would shift them by; counts
+tighter than what three planted faults would shift them by (a row per
+tile, a block's partial, a warp's accumulators of a block); counts
 exactly; the hand-written ``matmul`` at float32 rtol/atol 2e-3 against
 its plain version, ``torch.matmul`` and a float64 product of 64 rows
 (bfloat16 at 2e-2).  Times are medians of
@@ -107,6 +115,7 @@ repository.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -187,16 +196,23 @@ def as_outputs(value, names) -> dict:
 
 def fault_shifts(reference_at, host, n: int, block: int, grid: int,
                  ctas: int, names) -> dict:
-    """What two planted faults would shift each fold / CAM output by:
-    dropping the first row of every grid step, and dropping the partial
-    of the last persistent block (the one with the fewest steps).  Each
-    output is a sum over rows, so a shift is the float64 reference
-    (``reference_at(rows)`` builds it) on just the dropped rows.
-    Returns fault -> output -> max abs shift."""
+    """What three planted faults would shift each fold / CAM output by:
+    dropping the first row of every grid step, dropping the partial of
+    the last persistent block (the one with the fewest steps), and
+    dropping the accumulators of that block's first warp (its rows
+    r % 256 < 32 of every step: the CAM's per-warp tables added in warp
+    order make this fault possible).  Each output is a sum over rows, so
+    a shift is the float64 reference (``reference_at(rows)`` builds it)
+    on just the dropped rows.  Returns fault -> output -> max abs
+    shift."""
+    from repro_torch.core.codegen_cuda import DAG_WARPS
+
     last = np.arange(ctas - 1, grid, ctas)
+    lanes = np.arange(block)
+    warp0 = lanes[lanes % (32 * DAG_WARPS) < 32]
     dropped = {"row per tile": np.arange(grid) * block,
-               "block partial": (last[:, None] * block
-                                 + np.arange(block)).ravel()}
+               "block partial": (last[:, None] * block + lanes).ravel(),
+               "warp of a block": (last[:, None] * block + warp0).ravel()}
     out = {}
     for what, rows in dropped.items():
         sub = {k: v[rows] if v.shape[:1] == (n,) else v
@@ -312,6 +328,45 @@ def bound(nbytes: int, ops: int, tier, peak=None) -> tuple:
                                    else "operations")
 
 
+def dag_forms(label: str, spec) -> None:
+    """Print each CAM terminal's form and column slots, and the CAM
+    staging beside the plan's charge; fail unless every CAM terminal took
+    the register form."""
+    cams = [(t.name, t.cam_form, t.cam_lanes) for t in spec.terminals
+            if t.kind == "cam"]
+    print(f"[{label}] CAM terminals (name, form, column slots): {cams}; "
+          f"shared bytes {spec.onchip_bytes} charged + {spec.staging_bytes} "
+          f"staging = {spec.smem_bytes}")
+    off = [name for name, form, _ in cams if form != "register"]
+    if off:
+        fail(f"{label}: CAM terminal(s) {off} did not take the register form")
+
+
+def same_bits(label: str, first: dict, second: dict, torch) -> None:
+    """Two calls' outputs, name by name, bitwise equal."""
+    for k, v in first.items():
+        if not torch.equal(v, second[k]):
+            fail(f"{label}: two calls differ in {k} (max abs diff "
+                 f"{float((v - second[k]).abs().max()):.3e})")
+    print(f"[{label}] two calls bitwise equal: {sorted(first)}")
+
+
+def dag_breakdown(label: str, fn, spec, torch) -> None:
+    """Print the device time of the fused-DAG kernel and, where the DAG
+    has partials, of combine_partials; the profiler may drop a kernel of
+    a trace, so up to three traces; fail if one stays unmeasured."""
+    want = ["fused_dag_kernel"] + (["combine_partials"]
+                                   if spec.partial_words else [])
+    for _ in range(3):
+        parts = device_breakdown(fn, torch)
+        missing = [k for k in want if k not in parts]
+        if not missing:
+            break
+    print(f"[{label}] device time per call: {parts}")
+    if missing:
+        fail(f"{label}: device time of {missing} not measured")
+
+
 def run_outerprod(call, make_inputs, reference, cc, tier, torch) -> dict:
     """lower_auto(outerprod) through the tiled-Map kernel: bitwise
     against its plain version and torch.outer on the card, and against
@@ -381,6 +436,8 @@ def run_gda(call, make_inputs, reference, cc, tier, torch, dev) -> dict:
           f"{spec.depth} ctas={kern.ctas(dev)} fused_dag launches={launches}")
     if launches < 1:
         fail("gda: the CAM kernel was not launched")
+    dag_forms("gda", spec)
+    same_bits("gda", {"gda": out}, {"gda": call(**env)}, torch)
     plain = cc.fused_dag_plain(spec, env)["gda"]
     shifts = fault_shifts(lambda rows: gda(n=rows)[3], host, ROWS,
                           spec.block, spec.grid, kern.ctas(dev), ["gda"])
@@ -397,8 +454,7 @@ def run_gda(call, make_inputs, reference, cc, tier, torch, dev) -> dict:
     bound_ms, by = bound(nbytes, n * (d * d + ew), tier)
     print(f"[gda] CAM {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({nbytes} B)", flush=True)
-    print("[gda] device time per call: " + device_breakdown(
-        lambda: cc.fused_dag(kern, env), torch))
+    dag_breakdown("gda", lambda: cc.fused_dag(kern, env), spec, torch)
     return {"name": "tiled_groupby[gda]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_dag.cuh",
             "replaces": f"{REPLACES}:230", "launches": launches,
@@ -535,7 +591,8 @@ def run_tiled_gemm(label: str, call, x, y, host, gtile, depth: int, cc,
 
 
 # ------------------------------------------------ what the kernels compiled to
-SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "FFMA")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "FFMA", "ATOMS", "ATOMG",
+            "ATOM", "RED")
 # the kernels of each library by variant: (label, function-name key, the
 # instructions it must have, the instructions it must not have)
 HGMMA = ("HGMMA",)
@@ -566,17 +623,37 @@ SASS_VARIANTS = {
 }
 # the GEMM template, one library per tile: cp.async slabs into FFMA
 GEMM_SASS = (("LDGSTS", "FFMA"), HGMMA)
+# the fused-DAG template, one library per DAG and plan: streamed tiles by
+# cp.async, CAM and fold sums without any atomic (shared, global or RED)
+ATOMICS = ("ATOMS", "ATOMG", "ATOM", "RED")
+DAG_SASS = (("fused_dag_kernel", ("LDGSTS",), ATOMICS),
+            ("combine_partials", (), ATOMICS))
+
+
+def is_dag(lib: str) -> bool:
+    """A label of a fused-DAG library (chip_smoke's pipelines and the
+    CAM of ``lower_auto[gda]``)."""
+    return lib.startswith("fused_dag[") or lib == "lower_auto[gda]"
+
+
+def sass_variants(lib: str) -> tuple:
+    if lib in SASS_VARIANTS:
+        return SASS_VARIANTS[lib]
+    if is_dag(lib):
+        return tuple((f"{lib}:{key}", key, must, must_not)
+                     for key, must, must_not in DAG_SASS)
+    return ((lib, "tiled_gemm_kernel") + GEMM_SASS,)
 
 
 def sass_check(paths: dict) -> None:
-    """Counts HGMMA (wgmma), UTMALDG (TMA loads), LDGSTS (cp.async) and
-    FFMA in the SASS of each variant of the libraries in ``paths`` (name
+    """Counts HGMMA (wgmma), UTMALDG (TMA loads), LDGSTS (cp.async), FFMA
+    and the atomics (ATOMS, ATOMG, ATOM, RED) in the SASS of each variant
+    of the libraries in ``paths`` (name
     -> built library), read with ``cuobjdump -sass``; fails if cuobjdump
     is missing, or a variant lacks an instruction it must have or has
     one it must not (``SASS_VARIANTS``; a ``tiled_gemm[...]`` library:
-    ``GEMM_SASS``)."""
+    ``GEMM_SASS``; a fused-DAG library: ``DAG_SASS``)."""
     import os
-    import re
 
     exe = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" \
         / "cuobjdump"
@@ -584,8 +661,7 @@ def sass_check(paths: dict) -> None:
         fail(f"SASS check: {exe} not found")
     op = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
     for lib, path in paths.items():
-        variants = SASS_VARIANTS.get(lib) or (
-            (lib, "tiled_gemm_kernel") + GEMM_SASS,)
+        variants = sass_variants(lib)
         text = subprocess.run([str(exe), "-sass", str(path)],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -2003,11 +2079,16 @@ def main() -> int:
     print(f"build: {len(paths)} translation units in "
           f"{time.perf_counter() - t0:.1f} s (plans included)", flush=True)
     for label, p in zip(labels, paths):
-        for line in p.with_suffix(".log").read_text().splitlines():
+        log = p.with_suffix(".log").read_text()
+        for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {label}: {line.strip()}")
+        stacks = [int(b) for b in re.findall(r"(\d+) bytes stack frame", log)]
+        if is_dag(label) and any(stacks):
+            fail(f"ptxas: {label} has a stack frame ({max(stacks)} bytes)")
     sass_check({lib: p for lib, p in zip(labels, paths)
-                if lib in SASS_VARIANTS or lib.startswith("tiled_gemm")})
+                if lib in SASS_VARIANTS or lib.startswith("tiled_gemm")
+                or is_dag(lib)})
 
     kernels = []
 
@@ -2032,8 +2113,11 @@ def main() -> int:
         if launches < len(plan.groups):
             fail(f"{name}: fused_dag launched {launches} times for "
                  f"{len(plan.groups)} groups")
+        for g in call.group_calls:
+            dag_forms(name, g.kernel.spec)
         names = plmod.output_names(pipe)
         outs = as_outputs(out, names)
+        same_bits(name, outs, as_outputs(call(**inputs), names), torch)
         plain = dict(inputs)
         for g in call.group_calls:
             plain.update(cc.fused_dag_plain(g.kernel.spec, plain))
@@ -2077,8 +2161,8 @@ def main() -> int:
         print(f"[{name}] fused_dag {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({nbytes} B, "
               f"{pipeline_ops(name, host)} ops)", flush=True)
-        print(f"[{name}] device time per call: " + device_breakdown(
-            lambda: cc.fused_dag(group.kernel, env), torch))
+        dag_breakdown(name, lambda: cc.fused_dag(group.kernel, env),
+                      group.kernel.spec, torch)
         kernels.append({
             "name": f"fused_dag[{name}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_dag.cuh",

@@ -10,14 +10,17 @@ place of MaxJ ones, for an NVIDIA Hopper card (``sm_90a``):
     persistent blocks staging each grid step's tiles in rotating shared
     slots and writing one output block per step
   * a tiled GroupByFold (CAM)              -> ``csrc/fused_dag.cuh`` with
-    one CAM terminal: per-block shared tables, partials summed in order
+    one CAM terminal: per-warp tables without atomics, partials summed
+    in order
   * a tiled FlatMap (parallel FIFO)        -> ``csrc/tiled_flatmap.cuh``,
     a count pass, a scan of the counts and a compacting write pass
   * a fused pipeline DAG (``lower_fused_dag``) -> ``csrc/fused_dag.cuh``,
-    one persistent multi-output megakernel: producer stages in
-    shared-memory scratch, fold terminals in registers, CAM terminals in
-    a per-block shared table, Map terminals streamed out once; per-block
-    partials are summed by a second small launch
+    one persistent multi-output megakernel: streamed tiles through a
+    ``depth``-slot ``cp.async`` ring, producer stages in shared-memory
+    scratch, fold terminals in registers, CAM terminals in per-warp
+    tables (registers, or shared memory for large ones) without atomics,
+    Map terminals streamed out once; per-block partials are summed in
+    block order by a second small launch
   * one serving decode step of one layer over a paged KV cache
     (``lower_paged_decode``)             -> ``csrc/paged_decode.cuh``,
     the request's live pages split across blocks (flash-decoding), each
@@ -344,6 +347,52 @@ class Terminal:
     shape: Tuple[int, ...]       # output shape
     table: int = -1              # CAM buffer
     partial: int = -1            # offset among a block's partial words
+    cam_form: str = ""           # CAM: "register" | "shared" (cam_forms)
+    cam_lanes: int = 0           # CAM: column slots P of a warp's 32 lanes
+    cam_table: int = -1          # shared form: word offset of the table in
+                                 # a warp's staging
+
+
+DAG_WARPS = 8          # warps of a block: tcopy::THREADS / 32
+CAM_REG_WORDS = 64     # a lane's register accumulators over a DAG's CAMs
+
+
+def _cam_words(keys: int, ew: int, lanes: int) -> int:
+    return keys * -(-ew // lanes)
+
+
+def cam_forms(tables: Sequence[Tuple[int, int]]) -> List[Tuple[str, int]]:
+    """The form and column slots ``P`` of each CAM terminal of one DAG,
+    from its ``(keys, ew)``: ``(form, P)`` in order.
+
+    A warp's 32 lanes split as P column slots x 32 / P row groups; in the
+    register form a lane holds ``keys x ceil(ew / P)`` accumulators.
+    Every terminal starts at P = 1 (no exchange between lanes); while
+    the register terminals together hold more than CAM_REG_WORDS words a
+    lane, the largest of them doubles its P -- or, where that frees no
+    register (P = 32, or ew <= P), takes the shared form (P = 32, the
+    warp's table in shared memory).  Ties go to the first terminal."""
+    lanes = [1] * len(tables)
+    forms = ["register"] * len(tables)
+
+    def words(i):
+        return _cam_words(*tables[i], lanes[i])
+
+    while True:
+        live = [i for i, f in enumerate(forms) if f == "register"]
+        if sum(words(i) for i in live) <= CAM_REG_WORDS:
+            return list(zip(forms, lanes))
+        i = max(live, key=lambda j: (words(j), -j))
+        if lanes[i] < 32 and _cam_words(*tables[i], 2 * lanes[i]) < words(i):
+            lanes[i] *= 2
+        else:
+            forms[i], lanes[i] = "shared", 32
+
+
+def _piece_words(lanes: int) -> int:
+    """Words of a warp's staging for one piece of P = ``lanes`` columns:
+    P rows of 32 + R words (R = 32 / P row groups)."""
+    return 0 if lanes == 1 else lanes * (32 + 32 // lanes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,15 +407,23 @@ class DagSpec:
     stages: Tuple[Stage, ...]
     terminals: Tuple[Terminal, ...]
     partial_words: int
+    stage_words: int       # a warp's CAM staging: one piece, then tables
 
     @property
     def onchip_bytes(self) -> int:
+        """The buffers ``memory.plan_memory`` charges."""
         return 4 * sum(b.words * b.slots for b in self.buffers)
+
+    @property
+    def staging_bytes(self) -> int:
+        """Shared memory beyond the charge: the CAM terminals' per-warp
+        staging and shared-form tables, DAG_WARPS of each."""
+        return 4 * DAG_WARPS * self.stage_words
 
     @property
     def smem_bytes(self) -> int:
         # the epilogue's block reduction reuses the first 32 words
-        return max(self.onchip_bytes, 4 * 32)
+        return max(self.onchip_bytes + self.staging_bytes, 4 * 32)
 
 
 def _probe(index_map, n_in: int) -> AffineMap:
@@ -383,10 +440,15 @@ def _zero_identity(p: ir.Pattern) -> bool:
     return not bool(torch.as_tensor(p.init()).any())
 
 
-def dag_spec(terminals, grid_n: int, depth: int = 2) -> DagSpec:
+def dag_spec(terminals, grid_n: int, depth: int = 2,
+             smem_limit: Optional[int] = None) -> DagSpec:
     """Analyse a fused DAG (``pipeline.fuse_dag`` terminals) into the
-    megakernel's buffers, stages and terminals.  Raises
-    ``NotImplementedError`` for shapes the template does not take."""
+    megakernel's buffers, stages and terminals, and pick each CAM
+    terminal's form (``cam_forms``).  Raises ``NotImplementedError`` for
+    shapes the template does not take, and ``ValueError`` when the plan's
+    charge fits ``smem_limit`` (a block's shared bytes on the card) but
+    the charge plus the CAM staging does not: the form is not changed to
+    make room."""
     from .fusion import tile_copy_key
 
     if depth < 2:
@@ -532,6 +594,19 @@ def dag_spec(terminals, grid_n: int, depth: int = 2) -> DagSpec:
             raise NotImplementedError(
                 f"no fused template for terminal {type(p).__name__}")
 
+    # CAM forms; a warp's staging holds the largest piece, then the
+    # shared-form tables
+    cams = [i for i, t in enumerate(terms) if t.kind == "cam"]
+    forms = cam_forms([(terms[i].keys, terms[i].width) for i in cams])
+    stage_words = max([_piece_words(lanes) for _, lanes in forms] + [0])
+    for i, (form, lanes) in zip(cams, forms):
+        table = -1
+        if form == "shared":
+            table, stage_words = stage_words, \
+                stage_words + terms[i].keys * terms[i].width
+        terms[i] = dataclasses.replace(terms[i], cam_form=form,
+                                       cam_lanes=lanes, cam_table=table)
+
     # streamed tiles first (16-byte aligned), then stages, preloads, CAMs
     order = {"stream": 0, "stage": 1, "hoisted": 2, "cam": 3}
     perm = sorted(range(len(buffers)), key=lambda i: (order[buffers[i].kind], i))
@@ -541,7 +616,7 @@ def dag_spec(terminals, grid_n: int, depth: int = 2) -> DagSpec:
         return tuple(dataclasses.replace(r, buffer=remap[r.buffer])
                      for r in reads)
 
-    return DagSpec(
+    spec = DagSpec(
         block=int(block), grid=int(grid_n), depth=int(depth),
         inputs=tuple(inputs),
         buffers=tuple(buffers[i] for i in perm),
@@ -550,7 +625,14 @@ def dag_spec(terminals, grid_n: int, depth: int = 2) -> DagSpec:
         terminals=tuple(dataclasses.replace(
             t, reads=fix(t.reads),
             table=remap[t.table] if t.table >= 0 else -1) for t in terms),
-        partial_words=partial)
+        partial_words=partial, stage_words=stage_words)
+    if smem_limit is not None \
+            and spec.onchip_bytes <= smem_limit < spec.smem_bytes:
+        raise ValueError(
+            f"fused DAG ({', '.join(t.name for t in spec.terminals)}): the "
+            f"plan charges {spec.onchip_bytes} B and its CAM staging needs "
+            f"{spec.staging_bytes} B more; a block may use {smem_limit} B")
+    return spec
 
 
 # ------------------------------------------------------ source emission
@@ -573,10 +655,115 @@ def _body_fn(fname: str, n_reads: int, body: str, keyed: bool = False,
             + ",\n    ".join(params) + ") {\n" + text + "\n}\n")
 
 
+def _cam_acc(t: Terminal, j: int, p: int) -> str:
+    """The register accumulator of key ``j``, piece ``p`` of a CAM
+    terminal: one scalar each, so no accumulator is ever indexed."""
+    return f"cam_{_ident(t.name)}_{j}_{p}"
+
+
+def _cam_step_c(spec: DagSpec, t: Terminal, args: List[str]) -> List[str]:
+    """One CAM terminal in the step loop: each warp runs the body on its
+    32 rows, and every row's values reach the lanes that own their
+    columns (fused_dag.cuh: register and shared forms).  The one-hot adds
+    are written out here, one line per (row, key), onto named scalars:
+    ptxas keeps an accumulator array in local memory even where
+    unrolling leaves only constant indices."""
+    k, ew, lanes = t.keys, t.width, t.cam_lanes
+    groups, nc = 32 // lanes, -(-ew // lanes)
+    call = f"body_{_ident(t.name)}({', '.join(args + ['v', 'key'])});"
+    L = [f"    // terminal {t.name} (cam, {t.cam_form} form: {lanes} column "
+         f"slots x {groups} row groups)",
+         "    for (int r0 = warp * 32; r0 < BLOCK; r0 += blockDim.x) {",
+         "      const int r = r0 + lane;",
+         "      int key = -1;"]
+    if spec.block % 32:
+        L += [f"      float v[{ew}] = {{}};", f"      if (r < BLOCK) {call}"]
+    else:
+        L += [f"      float v[{ew}];", f"      {call}"]
+    if lanes == 1:   # each lane adds its own row
+        for j in range(k):
+            adds = " ".join(f"{_cam_acc(t, j, c)} += v[{c}];"
+                            for c in range(ew))
+            L.append(f"      if (key == {j}) {{ {adds} }}")
+        L.append("    }")
+        return L
+    stride = 32 + groups
+    L.append(f"      const int cs = lane % {lanes}, grp = lane / {lanes};")
+    L += [f"      const int kr{i} = __shfl_sync(0xffffffffu, key, grp + "
+          f"{groups * i});  // key of row grp + {groups * i}"
+          for i in range(lanes)]
+    for p in range(nc):
+        cols = min(lanes, ew - p * lanes)
+        L.append(f"      {{  // piece {p}: columns {p * lanes} .. "
+                 f"{p * lanes + cols - 1}")
+        L += [f"      stage_w[{c * stride} + lane] = v[{p * lanes + c}];"
+              for c in range(cols)]
+        L.append("      __syncwarp();")
+        L.append(f"      const float* const col = stage_w + cs * {stride} "
+                 "+ grp;")
+        ind = "      "
+        if cols < lanes:
+            L.append(f"      if (cs < {cols}) {{")
+            ind = "        "
+        for i in range(lanes):
+            x = f"col[{groups * i}]"
+            if t.cam_form == "register":
+                adds = " ".join(f"if (kr{i} == {j}) {_cam_acc(t, j, p)} += x;"
+                                for j in range(k))
+                L.append(f"{ind}{{ const float x = {x}; {adds} }}")
+            else:
+                L.append(f"{ind}if ((unsigned)kr{i} < {k}u) "
+                         f"wt_{_ident(t.name)}[kr{i} * {ew} + "
+                         f"{p * lanes} + lane] += {x};")
+        if cols < lanes:
+            L.append("      }")
+        L.append("      __syncwarp();")
+        L.append("      }")
+    L.append("    }")
+    return L
+
+
+def _cam_end_c(spec: DagSpec) -> List[str]:
+    """After the walk: each register form's row groups added by a fixed
+    shuffle tree, then the warps' tables added into the block's shared
+    table in warp order."""
+    cams = [t for t in spec.terminals if t.kind == "cam"]
+    if not cams:
+        return []
+    L = ["  // CAM terminals: row groups by a fixed shuffle tree, then the "
+         "warps' tables into the block's table in warp order"]
+    turn: List[str] = []
+    for t in cams:
+        k, ew, lanes = t.keys, t.width, t.cam_lanes
+        nc = -(-ew // lanes)
+        if t.cam_form == "shared":
+            turn += [f"      for (int e = lane; e < {k * ew}; e += 32) "
+                     f"buf{t.table}[e] += wt_{_ident(t.name)}[e];"]
+            continue
+        o = 16
+        while o >= lanes:
+            L += [f"  {_cam_acc(t, j, p)} += __shfl_down_sync(0xffffffffu, "
+                  f"{_cam_acc(t, j, p)}, {o});"
+                  for j in range(k) for p in range(nc)]
+            o //= 2
+        turn.append(f"      if (lane < {lanes}) {{")
+        for p in range(nc):
+            cols = min(lanes, ew - p * lanes)
+            guard = f"if (lane < {cols}) " if cols < lanes else ""
+            turn += [f"        {guard}buf{t.table}[{j * ew + p * lanes} + lane]"
+                     f" += {_cam_acc(t, j, p)};" for j in range(k)]
+        turn.append("      }")
+    L += ["  for (int w = 0; w < WARPS; ++w) {", "    __syncthreads();",
+          "    if (warp == w) {"] + turn + ["    }", "  }"]
+    return L
+
+
 def dag_source(spec: DagSpec) -> str:
     """The translation unit of one fused DAG at one plan: the template
-    ``fused_dag.cuh`` instantiated with the pattern bodies and the
-    plan's constants.  Deterministic for a given DAG and plan."""
+    ``fused_dag.cuh`` instantiated with the pattern bodies, the plan's
+    constants and each CAM terminal's form.  Streamed tiles go through
+    the ``DEPTH``-slot ``cp.async`` ring; CAM terminals add without
+    atomics in a fixed order.  Deterministic for a given DAG and plan."""
     b, depth = spec.block, spec.depth
     offsets, off = [], 0
     for buf in spec.buffers:
@@ -591,8 +778,11 @@ def dag_source(spec: DagSpec) -> str:
         f"constexpr int BLOCK = {b};",
         f"constexpr int DEPTH = {depth};",
         f"constexpr long long GRID = {spec.grid}LL;",
+        f"constexpr int WARPS = {DAG_WARPS};",
         f"constexpr int SMEM_BYTES = {spec.smem_bytes};",
-        f"constexpr int PARTIAL_WORDS = {spec.partial_words};", ""]
+        f"constexpr int PARTIAL_WORDS = {spec.partial_words};",
+        'static_assert(tcopy::THREADS == 32 * WARPS, '
+        '"codegen_cuda.DAG_WARPS");', ""]
     for s in spec.stages:
         L.append(_body_fn(f"body_{_ident(s.name)}", len(s.reads),
                           s.pattern.cuda, False))
@@ -610,10 +800,14 @@ def dag_source(spec: DagSpec) -> str:
              "fused_dag_kernel(" + ", ".join(params) + ") {")
     L.append("  extern __shared__ float4 smem4[];")
     L.append("  float* const smem = reinterpret_cast<float*>(smem4);")
+    L.append("  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;")
     for i, (buf, o) in enumerate(zip(spec.buffers, offsets)):
         L.append(f"  float* const buf{i} = smem + {o};  // {buf.kind} "
                  f"{buf.label}: {buf.slots} x {buf.words} words")
-    # per-block set-up: preloads and zeroed CAM tables
+    if spec.stage_words:
+        L.append(f"  float* const stage_w = smem + {off} + warp * "
+                 f"{spec.stage_words};  // this warp's CAM staging")
+    # per-block set-up: preloads, zeroed CAM tables, CAM accumulators
     for i, buf in enumerate(spec.buffers):
         if buf.kind == "hoisted":
             src = f"in_{_ident(spec.inputs[buf.operand][0])}"
@@ -623,20 +817,51 @@ def dag_source(spec: DagSpec) -> str:
     for t in spec.terminals:
         if t.kind == "fold":
             L.append(f"  float acc_{_ident(t.name)}[{t.width}] = {{}};")
+        elif t.kind == "cam" and t.cam_form == "register":
+            nc = -(-t.width // t.cam_lanes)
+            L += ["  float " + ", ".join(f"{_cam_acc(t, j, p)} = 0.0f"
+                                     for p in range(nc)) + ";"
+                  for j in range(t.keys)]
+        elif t.kind == "cam":
+            wt = f"wt_{_ident(t.name)}"
+            L.append(f"  float* const {wt} = stage_w + {t.cam_table};")
+            L.append(f"  for (int e = lane; e < {t.keys * t.width}; e += 32) "
+                     f"{wt}[e] = 0.0f;")
     L.append("  __syncthreads();")
+
+    streams = [(i, buf) for i, buf in enumerate(spec.buffers)
+               if buf.kind == "stream"]
+
+    def fill(indent: str, slot: str, g: str) -> List[str]:
+        return [f"{indent}fdag::copy_async(buf{i} + ({slot}) * {buf.words}, "
+                f"in_{_ident(spec.inputs[buf.operand][0])} + ({g}) * "
+                f"{buf.words}LL, {buf.words});" for i, buf in streams]
+
+    L.append("  // the ring: the first DEPTH - 1 steps in flight")
+    L.append("#pragma unroll")
+    L.append("  for (int s = 0; s < DEPTH - 1; ++s) {")
+    L.append("    const long long gs = blockIdx.x + (long long)s * gridDim.x;")
+    L.append("    if (gs < GRID) {")
+    L += fill("      ", "s", "gs")
+    L.append("    }")
+    L.append("    hop::cp_async_commit();")
+    L.append("  }")
     L.append("  int step = 0;")
     L.append("  for (long long g = blockIdx.x; g < GRID; "
              "g += gridDim.x, ++step) {")
     L.append("    const int slot = step % DEPTH;")
+    L.append("    hop::cp_async_wait<DEPTH - 2>();  // this thread's copies "
+             "of step")
+    L.append("    __syncthreads();  // everyone's landed; step - 1's slot is "
+             "free")
+    L.append("    const long long ga = g + (long long)(DEPTH - 1) * gridDim.x;")
+    L.append("    if (ga < GRID) {")
+    L += fill("      ", "(step + DEPTH - 1) % DEPTH", "ga")
+    L.append("    }")
+    L.append("    hop::cp_async_commit();")
     for i, buf in enumerate(spec.buffers):
         if buf.kind in ("stream", "stage"):
             L.append(f"    float* const s{i} = buf{i} + slot * {buf.words};")
-    for i, buf in enumerate(spec.buffers):
-        if buf.kind == "stream":
-            src = f"in_{_ident(spec.inputs[buf.operand][0])}"
-            L.append(f"    tcopy::copy_vec4(s{i}, {src} + g * "
-                     f"{buf.words}LL, {buf.words});")
-    L.append("    __syncthreads();")
 
     def args(reads: Tuple[Read, ...]) -> List[str]:
         out = []
@@ -656,6 +881,9 @@ def dag_source(spec: DagSpec) -> str:
         L.append(f"      body_{_ident(s.name)}({', '.join(a)});")
         L.append("    __syncthreads();")
     for t in spec.terminals:
+        if t.kind == "cam":
+            L += _cam_step_c(spec, t, args(t.reads))
+            continue
         fn = f"body_{_ident(t.name)}"
         L.append(f"    // terminal {t.name} ({t.kind})")
         L.append(row_loop + " {")
@@ -664,18 +892,14 @@ def dag_source(spec: DagSpec) -> str:
             L.append(f"      {fn}({', '.join(args(t.reads) + ['v'])});")
             L.append(f"      for (int j = 0; j < {t.width}; ++j) "
                      f"acc_{_ident(t.name)}[j] += v[j];")
-        elif t.kind == "cam":
-            L.append(f"      float v[{t.width}];")
-            L.append("      int key = -1;")
-            L.append(f"      {fn}({', '.join(args(t.reads) + ['v', 'key'])});")
-            L.append(f"      fdag::cam_add(buf{t.table}, key, {t.keys}, v, "
-                     f"{t.width});")
         else:
             dst = f"out_{_ident(t.name)} + (g * BLOCK + r) * {t.width}LL"
             L.append(f"      {fn}({', '.join(args(t.reads) + [dst])});")
         L.append("    }")
     L.append("  }")
+    L.append("  hop::cp_async_wait<0>();")
     # epilogue: one partial per block for every fold and CAM terminal
+    L += _cam_end_c(spec)
     L.append("  __syncthreads();")
     L.append("  float* const part = partials + (long long)blockIdx.x "
              "* PARTIAL_WORDS;")
@@ -749,9 +973,11 @@ class DagKernel:
         one per grid step.  Raises if the card's shared memory per block
         is smaller than the plan's."""
         if dev not in self._ctas:
+            spec = self.spec
             self._ctas[dev] = _persistent_ctas(
-                self.library, "fdag_ctas", self.spec.smem_bytes, dev,
-                "fused DAG")
+                self.library, "fdag_ctas", spec.smem_bytes, dev,
+                f"fused DAG (charged {spec.onchip_bytes} B + CAM staging "
+                f"{spec.staging_bytes} B)")
         return self._ctas[dev]
 
     def init(self, dev: torch.device) -> torch.Tensor:
@@ -831,10 +1057,12 @@ def fused_dag(kernel: DagKernel, tensors: Dict[str, torch.Tensor]
 
     Replaces the TPU kernel ``lower_fused_dag`` (reference
     codegen_pallas.py).  Bound by main-memory bytes: inputs are read
-    once, intermediates stay in shared memory, and each persistent
-    block writes one partial per fold / CAM terminal that a second
-    launch sums in block order.  CPU tensors take ``fused_dag_plain``;
-    CUDA tensors launch the kernel or raise.
+    once through the plan's ``depth``-slot ``cp.async`` ring,
+    intermediates stay on chip, CAM terminals add into per-warp tables
+    without atomics, and each persistent block writes one partial per
+    fold / CAM terminal that a second launch sums in block order, so two
+    calls are bitwise equal.  CPU tensors take ``fused_dag_plain``; CUDA
+    tensors launch the kernel or raise.
     """
     spec = kernel.spec
     ins = []
@@ -883,16 +1111,21 @@ def lower_fused_dag(terminals, grid_n: int, depth: int = 2, *,
     ``terminals`` is a sequence of ``(output name, fused pattern)``
     pairs (``pipeline.fuse_dag`` output) sharing the 1-D strided grid
     ``grid_n``.  External tensors stream through ``depth``-slot shared
-    tiles (one per distinct tile, however many terminal trees read it);
-    every producer stage runs once per grid step into its ``depth``-slot
-    scratch and is consumed in place by all its readers; each terminal
-    folds, scatters into its CAM table, or streams its Map block out.
-    Main memory is touched solely at the pipeline edges (paper Fig. 6).
-    Returns ``call(**tensors) -> {name: tensor}`` with ``.kernel`` (the
+    tiles (one per distinct tile, however many terminal trees read it),
+    filled by ``cp.async`` ``depth - 1`` steps ahead; every producer
+    stage runs once per grid step into its ``depth``-slot scratch and is
+    consumed in place by all its readers; each terminal folds, adds into
+    its CAM table (the form ``cam_forms`` picks), or streams its Map
+    block out.  Main memory is touched solely at the pipeline edges
+    (paper Fig. 6).  On a card, a plan whose CAM staging does not fit
+    beside its charge raises ``ValueError`` here.  Returns
+    ``call(**tensors) -> {name: tensor}`` with ``.kernel`` (the
     ``DagKernel``: its spec and generated source).
     """
-    kernel = DagKernel(dag_spec(terminals, grid_n, depth))
     dev = resolve(device)
+    limit = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin if dev.type == "cuda" else None
+    kernel = DagKernel(dag_spec(terminals, grid_n, depth, smem_limit=limit))
 
     def call(**tensors):
         ts = {name: _staged(tensors[name], dev)
@@ -1802,8 +2035,8 @@ def lower_tiled_groupby(p: ir.GroupByFold, *, depth: int = 2,
 
     That tiled IR is a fused DAG of one CAM terminal and no stages, so
     it lowers through the fused-DAG megakernel (``fused_dag.cuh``):
-    per-block shared tables, keys outside ``[0, num_keys)`` dropped,
-    partials summed in block order.  Shapes ``dag_spec`` does not take
+    per-warp tables without atomics, keys outside ``[0, num_keys)``
+    dropped, partials summed in block order.  Shapes ``dag_spec`` does not take
     (a non-additive combine, a key read from a pattern) raise
     ``NotImplementedError``."""
     if not (p.strided and isinstance(p.inner, ir.GroupByFold)):

@@ -91,6 +91,51 @@ def hist_program(n, k, clip=True):
         cuda=f"key = {key};\nout[0] = 1.0f;", name="h")
 
 
+def keyed_program(n, k, ew):
+    """A keyed fold of ``ew``-wide rows into ``k`` keys: the row's key is
+    ``keys[i]`` truncated (keys outside [0, k) dropped), its value the
+    row ``x[i]``; the CAM of every width class."""
+    keys = ir.Tensor("keys", (n,))
+    x = ir.Tensor("x", (n, ew))
+    return ir.GroupByFold(
+        domain=(n,), num_keys=k, elem_shape=(ew,),
+        init=lambda: torch.zeros((k, ew)),
+        reads=(ir.elem(keys), ir.Access(x, lambda i: (i, 0), (1, ew))),
+        fn=lambda s, kk, row: (kk.to(torch.int32),
+                               row.reshape(kk.shape + (ew,))),
+        combine=operator.add,
+        cuda=(f"key = (int)in0[0];\n"
+              f"for (int a = 0; a < {ew}; ++a) out[a] = in1[a];"),
+        name="kv")
+
+
+def keyed_inputs(n, k, ew, seed=0):
+    """Seeded keys over [-2, k + 2) (about 4 / (k + 4) of them dropped)
+    and normal rows."""
+    rng = np.random.RandomState(seed)
+    return {"keys": rng.randint(-2, k + 2, n).astype(np.float32),
+            "x": rng.randn(n, ew).astype(np.float32)}
+
+
+def keyed_reference(inp, k):
+    keys = inp["keys"].astype(np.int64)
+    keep = (keys >= 0) & (keys < k)
+    out = np.zeros((k, inp["x"].shape[1]), np.float64)
+    np.add.at(out, keys[keep], inp["x"][keep].astype(np.float64))
+    return out
+
+
+# (form, lanes, k, ew, block): each CAM form of fused_dag.cuh and each shape
+# class -- ew 1 (each lane adds its own rows), ew 72 (not a multiple of 32),
+# a tail piece (ew 5 in pieces of 2), a block that is not whole warps, the
+# register form at its limit (64 words a lane) at P = 1 and P = 32, and
+# just past it (the shared form)
+CAM_SHAPES = [("register", 1, 8, 1, 256), ("register", 8, 4, 72, 256),
+              ("register", 2, 16, 5, 48), ("register", 1, 64, 1, 256),
+              ("register", 32, 64, 32, 64), ("shared", 32, 65, 1, 256),
+              ("shared", 32, 32, 72, 64)]
+
+
 def pairs_program(n):
     """A 1-D Map with a 2-wide element: each index reads the pair
     x[2i:2i+2] and writes [sum, product]."""
@@ -164,6 +209,68 @@ def test_fused_dag_cam_drops_out_of_range_keys():
     ref = reference(host)
     for name in ref:
         np.testing.assert_allclose(out[name].cpu().numpy(), ref[name], **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gda", "kmeans", "gda_moments"])
+def test_fused_dag_two_calls_are_bitwise_equal(name):
+    """The CAM sums in one fixed order (lanes, row groups, warps,
+    blocks): two calls give the same bits."""
+    _card()
+    pipe, make_inputs, _ = an.PIPELINES[name](n=65536)
+    inp = {k: torch.as_tensor(v).cuda() for k, v in make_inputs().items()}
+    kern = cc.lower_fused_pipeline(pipe)
+    spec = kern.group_calls[0].kernel.spec
+    assert {t.cam_form for t in spec.terminals} == {"register"}
+    names = pl.output_names(pipe)
+    first, second = (dict(zip(names, [out])) if torch.is_tensor(out) else out
+                     for out in (kern(**inp), kern(**inp)))
+    assert set(first) == set(names)
+    for k in names:
+        assert torch.equal(first[k], second[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CAM_SHAPES, ids=str)
+def test_cam_forms_match_plain(case):
+    _card()
+    form, lanes, k, ew, block = case
+    n = 64 * block
+    host = keyed_inputs(n, k, ew, seed=k + ew)
+    call = cc.lower(tile(keyed_program(n, k, ew), {"kv": (block,)}))
+    (t,) = call.kernel.spec.terminals
+    assert (t.cam_form, t.cam_lanes) == (form, lanes)
+    inp = {name: torch.as_tensor(v).cuda() for name, v in host.items()}
+    before = cc.fused_dag.launches
+    out = call(**inp)
+    again = call(**inp)
+    torch.cuda.synchronize()
+    assert cc.fused_dag.launches == before + 2
+    assert torch.equal(out, again)
+    _sum_close(out, cc.fused_dag_plain(call.kernel.spec, inp)["kv"])
+    _sum_close(out.cpu(), torch.as_tensor(keyed_reference(host, k)))
+
+
+@pytest.mark.cuda
+def test_fused_dag_depths_agree():
+    """The plan's depth sets only the ring's slots: at depths 2, 3 and 4
+    the same block walks the same steps, so the outputs are equal."""
+    _card()
+    pipe, make_inputs, _ = an.PIPELINES["gda_moments"](n=65536)
+    inp = {k: torch.as_tensor(v).cuda() for k, v in make_inputs().items()}
+    outs, ctas = [], []
+    for depth in (2, 3, 4):
+        plan = {"block": 256, "groups": [[0, 3]], "group_blocks": [256],
+                "depths": [depth], "traffic_words": 0,
+                "unfused_traffic_words": 0, "vmem_bytes": 0,
+                "modeled_seconds": 0.0}
+        kern = cc.lower_fused_pipeline(pipe, plan=PipelinePlan.from_json(plan))
+        outs.append(kern(**inp))
+        ctas.append(kern.group_calls[0].kernel.ctas(torch.device("cuda", 0)))
+    assert len(set(ctas)) == 1, ctas
+    for out in outs[1:]:
+        for k in out:
+            assert torch.equal(out[k], outs[0][k]), k
 
 
 @pytest.mark.cuda

@@ -5,9 +5,13 @@ carried across by ``PipelinePlan.from_json``, at a depth-4 plan and on
 the split fallback, and the single-terminal ``lower_fused_chain``.
 Also the megakernel's CAM semantics (out-of-range
 keys dropped, kmeans ties to the first centroid), its generated source
-and its shared-memory bytes.  float32 rtol/atol 2e-3.
+(no atomics, streamed tiles through a ``cp.async`` ring), its CAM forms
+and its shared-memory bytes: the plan's charge plus the CAM staging.
+float32 rtol/atol 2e-3.
 """
 import operator
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,10 +26,16 @@ from repro.patterns import analytics as jan
 
 from repro_torch.core import codegen_cuda as cc
 from repro_torch.core import cost, dse, ir, pipeline as pl
+from repro_torch.core.strip_mine import tile
 from repro_torch.patterns import analytics as an
+
+sys.path.insert(0, os.path.dirname(__file__))
+from test_torch_cuda import (CAM_SHAPES, keyed_inputs,  # noqa: E402
+                             keyed_program, keyed_reference)
 
 NAMES = sorted(an.PIPELINES)
 TOL = dict(rtol=2e-3, atol=2e-3)
+CARD_BYTES = cost.H100_SXM.onchip_bytes        # 232,448 B a block
 
 
 def _dict(pipe_outputs, out):
@@ -100,6 +110,92 @@ def test_generated_source_is_deterministic_and_has_every_body(name):
     for s in an.PIPELINES[name]()[0].stages:
         for line in s.cuda.splitlines():
             assert line.strip() in src, (s.name, line)
+
+
+# chip_smoke's shapes: each pipeline's CAM staging (bytes) beside the charge
+# of its DSE plan for the card, and the single-pattern gda of lower_auto
+CHIP_STAGING = {"tpchq6": 0, "gda": 9216, "kmeans": 5120, "gda_moments": 0,
+                "normalize": 0, "lower_auto[gda]": 9216}
+
+
+def _chip_spec(name):
+    """The megakernel spec and plan charge chip_smoke runs for ``name``,
+    planned for the card's budget on the CPU."""
+    if name == "lower_auto[gda]":
+        call = cc.lower_auto(an.gda(n=4_194_304)[0], device="cpu",
+                             tier=cost.H100_SXM)
+        return call.kernel.spec, call.tile_plan.vmem_bytes
+    n = 6_000_000 if name == "tpchq6" else 4_194_304
+    call = cc.lower_fused_pipeline(an.PIPELINES[name](n=n)[0], device="cpu",
+                                   tier=cost.H100_SXM)
+    (group,) = call.group_calls
+    return group.kernel.spec, call.pipeline_plan.vmem_bytes
+
+
+@pytest.mark.parametrize("name", sorted(CHIP_STAGING))
+def test_chip_plans_take_the_register_form_beside_their_charge(name):
+    spec, charge = _chip_spec(name)
+    cams = [t for t in spec.terminals if t.kind == "cam"]
+    assert all(t.cam_form == "register" for t in cams)
+    assert spec.onchip_bytes == charge
+    assert spec.staging_bytes == CHIP_STAGING[name]
+    assert spec.smem_bytes == charge + spec.staging_bytes <= CARD_BYTES
+
+
+def test_dag_spec_raises_when_the_staging_does_not_fit():
+    fd = pl.fuse_dag(an.PIPELINES["gda"](n=4096)[0], 256)
+    spec = cc.dag_spec(fd.terminals, fd.grid, 3)
+    assert spec.staging_bytes > 0
+    fits = spec.onchip_bytes + spec.staging_bytes
+    assert cc.dag_spec(fd.terminals, fd.grid, 3, smem_limit=fits) == spec
+    with pytest.raises(ValueError, match=f"charges {spec.onchip_bytes} B "
+                       f"and its CAM staging needs {spec.staging_bytes} B"):
+        cc.dag_spec(fd.terminals, fd.grid, 3, smem_limit=fits - 4)
+
+
+@pytest.mark.parametrize("depth", [2, 3, 4])
+@pytest.mark.parametrize("name", NAMES)
+def test_generated_source_has_no_atomics_and_a_cp_async_ring(name, depth):
+    fd = pl.fuse_dag(an.PIPELINES[name]()[0], 256)
+    spec = cc.dag_spec(fd.terminals, fd.grid, depth)
+    src = cc.dag_source(spec)
+    assert src == cc.dag_source(cc.dag_spec(fd.terminals, fd.grid, depth))
+    assert "atomic" not in src and "cam_add" not in src
+    assert "copy_vec4" not in src
+    streams = [i for i, b in enumerate(spec.buffers) if b.kind == "stream"]
+    assert streams
+    for i in streams:   # once ahead of the walk, once a step
+        assert src.count(f"fdag::copy_async(buf{i} + ") == 2
+    assert "hop::cp_async_wait<DEPTH - 2>();" in src
+
+
+@pytest.mark.parametrize("case", CAM_SHAPES, ids=str)
+def test_cam_forms_of_each_shape_class(case):
+    form, lanes, k, ew, block = case
+    n = 8 * block
+    call = cc.lower(tile(keyed_program(n, k, ew), {"kv": (block,)}),
+                    device="cpu")
+    (t,) = call.kernel.spec.terminals
+    assert (t.cam_form, t.cam_lanes) == (form, lanes)
+    pieces = -(-ew // lanes) if form == "register" else 0
+    assert k * pieces <= cc.CAM_REG_WORDS
+    host = keyed_inputs(n, k, ew, seed=k + ew)
+    got = call(**host)
+    np.testing.assert_allclose(got.numpy(), keyed_reference(host, k),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tables,want", [
+    ([(4, 72)], [("register", 8)]),
+    ([(8, 1), (8, 16)], [("register", 1), ("register", 4)]),
+    ([(4, 8), (4, 8)], [("register", 1), ("register", 1)]),
+    ([(64, 1)], [("register", 1)]),
+    ([(64, 32)], [("register", 32)]),
+    ([(65, 1)], [("shared", 32)]),
+    ([(64, 1), (1, 1)], [("shared", 32), ("register", 1)]),
+])
+def test_cam_forms_share_the_register_limit(tables, want):
+    assert cc.cam_forms(tables) == want
 
 
 # ------------------------------------------------------- CAM semantics
