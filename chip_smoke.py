@@ -7,13 +7,15 @@ Builds every kernel of the path from ``src/repro_torch/kernels/csrc``
 (one nvcc per translation unit, all at once) and counts HGMMA (wgmma),
 HMMA (mma.sync), UTMALDG (TMA), LDGSTS (cp.async) and FFMA in the SASS
 of each variant of ``matmul``, ``flash_attention``, ``paged_decode``,
-``ssd_scan``, the tiled GEMM and the fused-DAG template
-(``cuobjdump -sass``; it fails without cuobjdump, when a tensor-core
-variant has no HGMMA, the GEMM no LDGSTS or FFMA or any HGMMA, the
-paged attend kernel no LDGSTS, an ``ssd_scan`` pass any HMMA or HGMMA,
-or, where it stages B, C or x, no LDGSTS or FFMA, or a fused-DAG
-library no LDGSTS or any ATOMS, ATOMG, ATOM or RED; ptxas must report
-no stack frame for a fused-DAG library), then:
+``ssd_scan``, the tiled GEMM, the fused-DAG template and the keyed
+hand kernels ``fused_kmeans`` and ``groupby_fold`` (one library per
+shape, plan and form: ``keyed_libraries``) (``cuobjdump -sass``; it
+fails without cuobjdump, when a tensor-core variant has no HGMMA, the
+GEMM no LDGSTS or FFMA or any HGMMA, the paged attend kernel no LDGSTS,
+an ``ssd_scan`` pass any HMMA or HGMMA, or, where it stages B, C or x,
+no LDGSTS or FFMA, a fused-DAG or ``fused_kmeans`` library no LDGSTS,
+or a fused-DAG or keyed library any ATOMS, ATOMG, ATOM or RED; ptxas
+must report no stack frame for a fused-DAG or keyed library), then:
 
   * runs ``lower_pipeline(pipe)`` -- the port's own DSE on the card's
     budget, then the fused-DAG CUDA megakernel -- for each of the five
@@ -44,9 +46,13 @@ no stack frame for a fused-DAG library), then:
     and ``fused_filter_fold`` on TPC-H Q6 (6,000,000 rows of discount and
     extended price, ``0.05 <= discount < 0.075``); ``ops.groupby`` on
     4,194,304 rows into 64 keys of 8 values (about 1% of the keys
-    outside the table) and as MoE's ``router_counts`` (8 experts, values
-    one); ``fused_kmeans_step`` on the kmeans pipeline's inputs, timed
-    beside the compiler's fused-DAG kernel for the same step;
+    outside the table; the shared form) and as MoE's ``router_counts``
+    (8 experts, values one; the register form); ``fused_kmeans_step`` on
+    the kmeans pipeline's inputs at the rule's CAM form, then at the
+    other form (timed beside it), and beside the compiler's fused-DAG
+    kernel for the same step (counts equal).  These phases print their
+    form and shared bytes, call the kernel twice (bitwise equal) and
+    show the device time of the kernel and of ``combine_partials``;
   * runs the LM kernels at the widths of ``repro_torch.configs``:
     ``flash_attention`` at granite-3-2b's (causal prefill of 2 x 4096
     tokens in float32 and bfloat16, decode of 32 rows over 32,768 keys)
@@ -200,8 +206,9 @@ def fault_shifts(reference_at, host, n: int, block: int, grid: int,
     dropping the first row of every grid step, dropping the partial of
     the last persistent block (the one with the fewest steps), and
     dropping the accumulators of that block's first warp (its rows
-    r % 256 < 32 of every step: the CAM's per-warp tables added in warp
-    order make this fault possible).  Each output is a sum over rows, so
+    r % 256 < 32 of every step, in the fused DAG's CAM and in
+    ``groupby_fold`` and ``fused_kmeans`` alike: per-warp tables added in
+    warp order make this fault possible).  Each output is a sum over rows, so
     a shift is the float64 reference (``reference_at(rows)`` builds it)
     on just the dropped rows.  Returns fault -> output -> max abs
     shift."""
@@ -353,10 +360,15 @@ def same_bits(label: str, first: dict, second: dict, torch) -> None:
 
 def dag_breakdown(label: str, fn, spec, torch) -> None:
     """Print the device time of the fused-DAG kernel and, where the DAG
-    has partials, of combine_partials; the profiler may drop a kernel of
-    a trace, so up to three traces; fail if one stays unmeasured."""
-    want = ["fused_dag_kernel"] + (["combine_partials"]
-                                   if spec.partial_words else [])
+    has partials, of combine_partials (``breakdown``)."""
+    breakdown(label, fn, ["fused_dag_kernel"] + (
+        ["combine_partials"] if spec.partial_words else []), torch)
+
+
+def breakdown(label: str, fn, want, torch) -> None:
+    """Print the device time of each kernel ``fn`` launches; the profiler
+    may drop a kernel of a trace, so up to three traces; fail if one of
+    the kernels named in ``want`` stays unmeasured."""
     for _ in range(3):
         parts = device_breakdown(fn, torch)
         missing = [k for k in want if k not in parts]
@@ -636,12 +648,24 @@ def is_dag(lib: str) -> bool:
     return lib.startswith("fused_dag[") or lib == "lower_auto[gda]"
 
 
+def is_keyed(lib: str) -> bool:
+    """A label of a keyed hand kernel's library (``keyed_libraries``)."""
+    return lib.startswith(("fused_kmeans[", "groupby_fold["))
+
+
 def sass_variants(lib: str) -> tuple:
     if lib in SASS_VARIANTS:
         return SASS_VARIANTS[lib]
     if is_dag(lib):
         return tuple((f"{lib}:{key}", key, must, must_not)
                      for key, must, must_not in DAG_SASS)
+    if is_keyed(lib):
+        # fused_kmeans streams its points by cp.async; groupby_fold reads
+        # rows straight from global memory
+        key, must = (("kmeans_kernel", ("LDGSTS",))
+                     if lib.startswith("fused_kmeans") else ("gbf", ()))
+        return ((lib, key, must, ATOMICS),
+                (f"{lib}:combine_partials", "combine_partials", (), ATOMICS))
     return ((lib, "tiled_gemm_kernel") + GEMM_SASS,)
 
 
@@ -778,11 +802,13 @@ def keyed_reference(keys: np.ndarray, values: np.ndarray, k: int):
 
 def run_folded(label: str, key: str, run, plain, ref, reference_at, host,
                block: int, fn, library, nbytes: int, ops: int, source: str,
-               replaces: str, tier, torch) -> dict:
+               replaces: str, tier, torch, kernel: str = "") -> dict:
     """One persistent hand-written kernel whose outputs are sums: the
-    launch count, the sums (and counts exactly) against its plain
-    version and the float64 reference after the planted-fault proof,
-    then its times beside its plain version's and the library call's."""
+    launch count, two calls bitwise equal, the sums (and counts exactly)
+    against its plain version and the float64 reference after the
+    planted-fault proof, then its times beside its plain version's and
+    the library call's.  With ``kernel`` (a kernel's name) the device
+    times of that kernel and of combine_partials must be measured."""
     torch.cuda.synchronize()
     fn.launches = 0
     out = run()
@@ -799,6 +825,7 @@ def run_folded(label: str, key: str, run, plain, ref, reference_at, host,
             else as_outputs(v, names)
 
     outs, plains, refs = named(out), named(plain()), as_outputs(ref, names)
+    same_bits(label, outs, named(run()), torch)
     shifts = fault_shifts(reference_at, host, host_rows(host), block,
                           host_rows(host) // block, fn.ctas, names)
     e_plain = 0.0
@@ -816,7 +843,11 @@ def run_folded(label: str, key: str, run, plain, ref, reference_at, host,
     print(f"[{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
           f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
           f"{bound_ms:.4f} ms ({nbytes} B, {ops} ops)", flush=True)
-    print(f"[{label}] device time per call: " + device_breakdown(run, torch))
+    if kernel:
+        breakdown(label, run, [kernel, "combine_partials"], torch)
+    else:
+        print(f"[{label}] device time per call: "
+              + device_breakdown(run, torch))
     return {"name": label, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": e_plain, "ms": ms, "plain_ms": plain_ms,
@@ -825,6 +856,63 @@ def run_folded(label: str, key: str, run, plain, ref, reference_at, host,
 
 def host_rows(host: dict) -> int:
     return max(v.shape[0] for v in host.values())
+
+
+def keyed_form(label: str, num_keys: int, ew: int, dev, torch) -> str:
+    """Print the form ``groupby_fold.table_form`` gives a table on this
+    card, its column slots or row groups and its shared bytes; returns
+    the form."""
+    from repro_torch.kernels import groupby_fold as gbf
+
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    form, groups = gbf.table_form(num_keys, ew, optin)
+    if form == "register":
+        how, smem = "P = 1 (each lane adds its own row)", 4 * num_keys * ew
+    else:
+        how = f"{groups} row groups of {32 // groups} lanes a warp"
+        smem = gbf.shared_bytes(num_keys, ew, groups)
+    print(f"[{label}] form {form}: {how}; shared bytes per block {smem}")
+    return form
+
+
+def ran_form(label: str, ran: str, want: str) -> None:
+    if ran != want:
+        fail(f"{label}: the {ran} form ran, the rule gives {want}")
+
+
+def kmeans_forms() -> tuple:
+    """The sums' column slots P of ``fused_kmeans`` at chip_smoke's shape:
+    the rule's (``kmeans_lanes``), then the other form measured beside
+    it (the fused DAG's ``cam_forms`` choice for the sums beside the
+    counts, or P = 1)."""
+    from repro_torch.core.codegen_cuda import cam_forms
+    from repro_torch.kernels.fused_kmeans import kmeans_lanes
+
+    p = kmeans_lanes(8, 16)
+    return p, (cam_forms([(8, 16), (8, 1)])[0][1] if p == 1 else 1)
+
+
+def keyed_libraries(dev, torch) -> list:
+    """(label, library) of each instantiation of the keyed kernels the
+    hand-kernel phases run: ``groupby_fold`` at 64 x 8 and at the
+    router's 8 x 1, ``fused_kmeans`` at both forms of ``kmeans_forms``,
+    each at the DSE's plan for the card."""
+    from repro_torch.kernels import fused_kmeans as fkm
+    from repro_torch.kernels import groupby_fold as gbf
+    from repro_torch.kernels import ops
+
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    out = []
+    for label, k, ew in (("groupby_fold[64x8]", 64, 8),
+                         ("groupby_fold[router]", 8, 1)):
+        block = ops.resolve_plan("groupby", ROWS, k, ew, device=dev)[0]
+        out.append((label, gbf.library(k, ew, block,
+                                       *gbf.table_form(k, ew, optin))))
+    block, plan = ops.resolve_plan("fused_kmeans", ROWS, 8, 16, device=dev)
+    for lanes in kmeans_forms():
+        out.append((f"fused_kmeans[P={lanes}]",
+                    fkm.library(8, 16, block, plan.depth, lanes)))
+    return out
 
 
 def run_hand_kernels(kmeans_kernel, cc, tier, torch, dev) -> list:
@@ -887,6 +975,7 @@ def run_hand_kernels(kmeans_kernel, cc, tier, torch, dev) -> list:
     show_plan("groupby_fold[64x8]", "groupby", ROWS, 64, 8, dev=dev)
     block = ops.resolve_plan("groupby", ROWS, 64, 8, device=dev)[0]
     print(f"[groupby_fold[64x8]] {int(bad.sum())} keys outside [0, 64)")
+    form = keyed_form("groupby_fold[64x8]", 64, 8, dev, torch)
     rows.append(run_folded(
         "groupby_fold[64x8]", "gbf",
         lambda: gbf.groupby_fold(kt, vt, 64, auto_tile=True),
@@ -895,7 +984,9 @@ def run_hand_kernels(kmeans_kernel, cc, tier, torch, dev) -> list:
         lambda n: (lambda h: keyed_reference(h["keys"], h["values"], 64)),
         host, block, gbf.groupby_fold, None,
         nbytes_of(kt, vt) + 64 * 8 * 4, ROWS * 8,
-        f"{CSRC}/groupby_fold.cuh", f"{HAND}/groupby_fold.py:43", tier, torch))
+        f"{CSRC}/groupby_fold.cuh", f"{HAND}/groupby_fold.py:43", tier, torch,
+        kernel=f"{form}_kernel"))
+    ran_form("groupby_fold[64x8]", gbf.groupby_fold.form, form)
     del kt, vt
 
     # ---- MoE router_counts: top-1 expert per token, values one
@@ -905,6 +996,7 @@ def run_hand_kernels(kmeans_kernel, cc, tier, torch, dev) -> list:
     ones = torch.ones(ROWS, device=dev)
     show_plan("groupby_fold[router]", "groupby", ROWS, 8, 1, dev=dev)
     block = ops.resolve_plan("groupby", ROWS, 8, 1, device=dev)[0]
+    form = keyed_form("groupby_fold[router]", 8, 1, dev, torch)
     rows.append(run_folded(
         "groupby_fold[router]", "router",
         lambda: ops.groupby(kt, ones, 8, block_t=block),
@@ -915,7 +1007,8 @@ def run_hand_kernels(kmeans_kernel, cc, tier, torch, dev) -> list:
         host, block, gbf.groupby_fold,
         lambda: torch.zeros(8, device=dev).index_add_(0, kt, ones),
         nbytes_of(kt, ones) + 8 * 4, ROWS, f"{CSRC}/groupby_fold.cuh",
-        f"{HAND}/groupby_fold.py:43", tier, torch))
+        f"{HAND}/groupby_fold.py:43", tier, torch, kernel=f"{form}_kernel"))
+    ran_form("groupby_fold[router]", gbf.groupby_fold.form, form)
     del kt, ones
 
     # ---- one k-means step, beside the compiler's megakernel
@@ -924,18 +1017,33 @@ def run_hand_kernels(kmeans_kernel, cc, tier, torch, dev) -> list:
     pts = torch.as_tensor(host["points"]).to(dev)
     cents = torch.as_tensor(host["centroids"]).to(dev)
     show_plan("fused_kmeans", "fused_kmeans", ROWS, 8, 16, dev=dev)
-    block = ops.resolve_plan("fused_kmeans", ROWS, 8, 16, device=dev)[0]
-    print(f"[fused_kmeans] shared bytes per block "
-          f"{fkm.smem_bytes(8, 16, block)}")
-    rows.append(run_folded(
-        "fused_kmeans", "km_sums",
-        lambda: fkm.fused_kmeans_step(pts, cents, auto_tile=True),
-        lambda: fkm.fused_kmeans_plain(pts, cents), reference(host),
-        lambda n: kmeans_pipeline(n=n)[2], host, block,
-        fkm.fused_kmeans_step, None,
-        nbytes_of(pts, cents) + (8 * 16 + 8) * 4,
-        pipeline_ops("kmeans", host), f"{CSRC}/fused_kmeans.cuh",
-        f"{HAND}/fused_kmeans.py:61", tier, torch))
+    block, plan = ops.resolve_plan("fused_kmeans", ROWS, 8, 16, device=dev)
+    # the rule's CAM form, then the other one, timed beside it
+    forms = kmeans_forms()
+    for lanes in forms:
+        lay = fkm.layout(8, 16, block, plan.depth, lanes)
+        label = "fused_kmeans" if lanes == forms[0] \
+            else f"fused_kmeans[P={lanes}]"
+        print(f"[{label}] sums at P = {lay.lanes} column slot(s), counts at "
+              f"P = 1; shared bytes per block {lay.smem_bytes} (ring "
+              f"{lay.ring_bytes}, staging {lay.stage_bytes}), depth "
+              f"{plan.depth}")
+        row = run_folded(
+            label, "km_sums",
+            lambda lanes=lanes: fkm.fused_kmeans_step(
+                pts, cents, auto_tile=True, lanes=lanes),
+            lambda: fkm.fused_kmeans_plain(pts, cents), reference(host),
+            lambda n: kmeans_pipeline(n=n)[2], host, block,
+            fkm.fused_kmeans_step, None,
+            nbytes_of(pts, cents) + (8 * 16 + 8) * 4,
+            pipeline_ops("kmeans", host), f"{CSRC}/fused_kmeans.cuh",
+            f"{HAND}/fused_kmeans.py:61", tier, torch, kernel="kmeans_kernel")
+        if fkm.fused_kmeans_step.lanes != lanes:
+            fail(f"{label}: ran at P = {fkm.fused_kmeans_step.lanes}")
+        if lanes == forms[0]:
+            rows.append(row)
+    print(f"[fused_kmeans] the rule's P = {forms[0]}: {rows[-1]['ms']:.4f} "
+          f"ms; P = {forms[1]}: {row['ms']:.4f} ms", flush=True)
     env = {"points": pts, "centroids": cents}
     gen = cc.fused_dag(kmeans_kernel, env)
     hand = fkm.fused_kmeans_step(pts, cents, auto_tile=True)
@@ -2016,8 +2124,6 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import filter_reduce as fr
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_kmeans as fkm
-    from repro_torch.kernels import groupby_fold as gbf
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.patterns.analytics import PIPELINES, gda, gemm, outerprod
@@ -2071,10 +2177,13 @@ def main() -> int:
         labels.append(f"lower_auto[{name}]")
         autos[name] = (call, make_inputs, reference)
     # the hand-written kernels: one fixed translation unit each
-    for lib in (mm.LIB, fr.LIB, gbf.LIB, fkm.LIB, fa.LIB, ssd.LIB,
-                cc.PAGED_DECODE_LIB):
+    for lib in (mm.LIB, fr.LIB, fa.LIB, ssd.LIB, cc.PAGED_DECODE_LIB):
         sources.append((lib.name, lib.source))
         labels.append(lib.name)
+    # the keyed kernels: one translation unit per table, plan and form
+    for label, lib in keyed_libraries(dev, torch):
+        sources.append((lib.name, lib.source))
+        labels.append(label)
     paths = build.compile_all(sources)
     print(f"build: {len(paths)} translation units in "
           f"{time.perf_counter() - t0:.1f} s (plans included)", flush=True)
@@ -2084,11 +2193,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {label}: {line.strip()}")
         stacks = [int(b) for b in re.findall(r"(\d+) bytes stack frame", log)]
-        if is_dag(label) and any(stacks):
+        if (is_dag(label) or is_keyed(label)) and any(stacks):
             fail(f"ptxas: {label} has a stack frame ({max(stacks)} bytes)")
     sass_check({lib: p for lib, p in zip(labels, paths)
                 if lib in SASS_VARIANTS or lib.startswith("tiled_gemm")
-                or is_dag(lib)})
+                or is_dag(lib) or is_keyed(lib)})
 
     kernels = []
 

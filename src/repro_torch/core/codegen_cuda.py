@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import itertools
 import operator
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -389,7 +390,7 @@ def cam_forms(tables: Sequence[Tuple[int, int]]) -> List[Tuple[str, int]]:
             forms[i], lanes[i] = "shared", 32
 
 
-def _piece_words(lanes: int) -> int:
+def piece_words(lanes: int) -> int:
     """Words of a warp's staging for one piece of P = ``lanes`` columns:
     P rows of 32 + R words (R = 32 / P row groups)."""
     return 0 if lanes == 1 else lanes * (32 + 32 // lanes)
@@ -598,7 +599,7 @@ def dag_spec(terminals, grid_n: int, depth: int = 2,
     # shared-form tables
     cams = [i for i, t in enumerate(terms) if t.kind == "cam"]
     forms = cam_forms([(terms[i].keys, terms[i].width) for i in cams])
-    stage_words = max([_piece_words(lanes) for _, lanes in forms] + [0])
+    stage_words = max([piece_words(lanes) for _, lanes in forms] + [0])
     for i, (form, lanes) in zip(cams, forms):
         table = -1
         if form == "shared":
@@ -661,32 +662,26 @@ def _cam_acc(t: Terminal, j: int, p: int) -> str:
     return f"cam_{_ident(t.name)}_{j}_{p}"
 
 
-def _cam_step_c(spec: DagSpec, t: Terminal, args: List[str]) -> List[str]:
-    """One CAM terminal in the step loop: each warp runs the body on its
-    32 rows, and every row's values reach the lanes that own their
-    columns (fused_dag.cuh: register and shared forms).  The one-hot adds
-    are written out here, one line per (row, key), onto named scalars:
-    ptxas keeps an accumulator array in local memory even where
-    unrolling leaves only constant indices."""
-    k, ew, lanes = t.keys, t.width, t.cam_lanes
-    groups, nc = 32 // lanes, -(-ew // lanes)
-    call = f"body_{_ident(t.name)}({', '.join(args + ['v', 'key'])});"
-    L = [f"    // terminal {t.name} (cam, {t.cam_form} form: {lanes} column "
-         f"slots x {groups} row groups)",
-         "    for (int r0 = warp * 32; r0 < BLOCK; r0 += blockDim.x) {",
-         "      const int r = r0 + lane;",
-         "      int key = -1;"]
-    if spec.block % 32:
-        L += [f"      float v[{ew}] = {{}};", f"      if (r < BLOCK) {call}"]
-    else:
-        L += [f"      float v[{ew}];", f"      {call}"]
+def cam_row_c(acc: Callable[[int, int], str], keys: int, ew: int,
+              lanes: int, shared: str = "",
+              value: Callable[[int], str] = "v[{}]".format) -> List[str]:
+    """The adds of one row per lane into a CAM table without atomics
+    (fused_dag.cuh: register and shared forms), for the lane's row
+    values ``value(c)`` and its ``key``, with ``lane`` and, for P > 1,
+    the warp's staging ``stage_w`` in scope.  The register form adds
+    onto the named scalars ``acc(j, p)`` (key j, piece p), one line per
+    (row, key): ptxas keeps an accumulator array in local memory even
+    where unrolling leaves only constant indices.  The shared form
+    (``shared``: the warp's table) adds into its own key's cells.  Shared
+    by the fused DAG's CAM terminals and the hand-written keyed kernels
+    (``kernels.fused_kmeans``, ``kernels.groupby_fold``)."""
+    L: List[str] = []
     if lanes == 1:   # each lane adds its own row
-        for j in range(k):
-            adds = " ".join(f"{_cam_acc(t, j, c)} += v[{c}];"
-                            for c in range(ew))
+        for j in range(keys):
+            adds = " ".join(f"{acc(j, c)} += {value(c)};" for c in range(ew))
             L.append(f"      if (key == {j}) {{ {adds} }}")
-        L.append("    }")
         return L
+    groups, nc = 32 // lanes, -(-ew // lanes)
     stride = 32 + groups
     L.append(f"      const int cs = lane % {lanes}, grp = lane / {lanes};")
     L += [f"      const int kr{i} = __shfl_sync(0xffffffffu, key, grp + "
@@ -696,7 +691,7 @@ def _cam_step_c(spec: DagSpec, t: Terminal, args: List[str]) -> List[str]:
         cols = min(lanes, ew - p * lanes)
         L.append(f"      {{  // piece {p}: columns {p * lanes} .. "
                  f"{p * lanes + cols - 1}")
-        L += [f"      stage_w[{c * stride} + lane] = v[{p * lanes + c}];"
+        L += [f"      stage_w[{c * stride} + lane] = {value(p * lanes + c)};"
               for c in range(cols)]
         L.append("      __syncwarp();")
         L.append(f"      const float* const col = stage_w + cs * {stride} "
@@ -707,18 +702,110 @@ def _cam_step_c(spec: DagSpec, t: Terminal, args: List[str]) -> List[str]:
             ind = "        "
         for i in range(lanes):
             x = f"col[{groups * i}]"
-            if t.cam_form == "register":
-                adds = " ".join(f"if (kr{i} == {j}) {_cam_acc(t, j, p)} += x;"
-                                for j in range(k))
+            if not shared:
+                adds = " ".join(f"if (kr{i} == {j}) {acc(j, p)} += x;"
+                                for j in range(keys))
                 L.append(f"{ind}{{ const float x = {x}; {adds} }}")
             else:
-                L.append(f"{ind}if ((unsigned)kr{i} < {k}u) "
-                         f"wt_{_ident(t.name)}[kr{i} * {ew} + "
+                L.append(f"{ind}if ((unsigned)kr{i} < {keys}u) "
+                         f"{shared}[kr{i} * {ew} + "
                          f"{p * lanes} + lane] += {x};")
         if cols < lanes:
             L.append("      }")
         L.append("      __syncwarp();")
         L.append("      }")
+    return L
+
+
+def cam_groups_c(acc: Callable[[int, int], str], keys: int, ew: int,
+                 lanes: int) -> List[str]:
+    """A register form's row groups added by a fixed shuffle tree: lanes
+    below P then hold the warp's sums."""
+    nc = -(-ew // lanes)
+    L: List[str] = []
+    o = 16
+    while o >= lanes:
+        L += [f"  {acc(j, p)} += __shfl_down_sync(0xffffffffu, "
+              f"{acc(j, p)}, {o});" for j in range(keys) for p in range(nc)]
+        o //= 2
+    return L
+
+
+def cam_turn_c(acc: Callable[[int, int], str], keys: int, ew: int,
+               lanes: int, table: str) -> List[str]:
+    """A register form's warp adding its sums (after ``cam_groups_c``)
+    into the block's shared ``table`` on its turn."""
+    nc = -(-ew // lanes)
+    L = [f"      if (lane < {lanes}) {{"]
+    for p in range(nc):
+        cols = min(lanes, ew - p * lanes)
+        guard = f"if (lane < {cols}) " if cols < lanes else ""
+        L += [f"        {guard}{table}[{j * ew + p * lanes} + lane]"
+              f" += {acc(j, p)};" for j in range(keys)]
+    L.append("      }")
+    return L
+
+
+def cam_struct_c(tables: Sequence[Tuple[str, int, int, int,
+                                        Callable[[int], str]]],
+                 row_words: int) -> str:
+    """``struct Cam`` of a hand-written keyed kernel (fused_kmeans.cuh,
+    groupby_fold.cuh): the register form of fused_dag.cuh's CAM for each
+    table ``(name, keys, ew, lanes, value)``.  It holds the lane's
+    accumulators as named scalars ``<name>_<key>_<piece>``;
+    ``add(v, key, lane, stage_w)`` adds the lane's row (``v`` of
+    ``row_words`` values, each table's values ``value(c)``) by
+    ``cam_row_c``, every lane of the warp together; ``finish(t_<name>,
+    ..., warp, lane)`` adds the row groups by a fixed shuffle tree and
+    then the warps into each block table ``t_<name>`` in warp order, a
+    ``__syncthreads`` before each turn.  ``STAGE_WORDS`` is a warp's
+    staging."""
+    def acc(name):
+        return lambda j, p: f"{name}_{j}_{p}"
+
+    stage = max(piece_words(lanes) for _, _, _, lanes, _ in tables)
+    L = ["struct Cam {", f"  static constexpr int STAGE_WORDS = {stage};"]
+    for name, k, ew, lanes, _ in tables:
+        L += ["  float " + ", ".join(f"{acc(name)(j, p)} = 0.0f"
+                                   for p in range(-(-ew // lanes))) + ";"
+              for j in range(k)]
+    L.append(f"  __device__ __forceinline__ void add(const float (&v)"
+             f"[{row_words}], int key, int lane, float* stage_w) {{")
+    for name, k, ew, lanes, value in tables:
+        L += ["    {"] + cam_row_c(acc(name), k, ew, lanes,
+                                   value=value) + ["    }"]
+    L.append("  }")
+    params = ", ".join(f"float* t_{name}" for name, *_ in tables)
+    L.append(f"  __device__ __forceinline__ void finish({params}, int warp, "
+             "int lane) {")
+    turn: List[str] = []
+    for name, k, ew, lanes, _ in tables:
+        L += cam_groups_c(acc(name), k, ew, lanes)
+        turn += cam_turn_c(acc(name), k, ew, lanes, f"t_{name}")
+    L += ["  for (int w = 0; w < tcopy::THREADS / 32; ++w) {",
+          "    __syncthreads();", "    if (warp == w) {"] + turn + \
+        ["    }", "  }", "  }", "};"]
+    return "\n".join(L)
+
+
+def _cam_step_c(spec: DagSpec, t: Terminal, args: List[str]) -> List[str]:
+    """One CAM terminal in the step loop: each warp runs the body on its
+    32 rows, and every row's values reach the lanes that own their
+    columns (``cam_row_c``)."""
+    k, ew, lanes = t.keys, t.width, t.cam_lanes
+    groups = 32 // lanes
+    call = f"body_{_ident(t.name)}({', '.join(args + ['v', 'key'])});"
+    L = [f"    // terminal {t.name} (cam, {t.cam_form} form: {lanes} column "
+         f"slots x {groups} row groups)",
+         "    for (int r0 = warp * 32; r0 < BLOCK; r0 += blockDim.x) {",
+         "      const int r = r0 + lane;",
+         "      int key = -1;"]
+    if spec.block % 32:
+        L += [f"      float v[{ew}] = {{}};", f"      if (r < BLOCK) {call}"]
+    else:
+        L += [f"      float v[{ew}];", f"      {call}"]
+    shared = f"wt_{_ident(t.name)}" if t.cam_form == "shared" else ""
+    L += cam_row_c(functools.partial(_cam_acc, t), k, ew, lanes, shared)
     L.append("    }")
     return L
 
@@ -735,24 +822,13 @@ def _cam_end_c(spec: DagSpec) -> List[str]:
     turn: List[str] = []
     for t in cams:
         k, ew, lanes = t.keys, t.width, t.cam_lanes
-        nc = -(-ew // lanes)
         if t.cam_form == "shared":
             turn += [f"      for (int e = lane; e < {k * ew}; e += 32) "
                      f"buf{t.table}[e] += wt_{_ident(t.name)}[e];"]
             continue
-        o = 16
-        while o >= lanes:
-            L += [f"  {_cam_acc(t, j, p)} += __shfl_down_sync(0xffffffffu, "
-                  f"{_cam_acc(t, j, p)}, {o});"
-                  for j in range(k) for p in range(nc)]
-            o //= 2
-        turn.append(f"      if (lane < {lanes}) {{")
-        for p in range(nc):
-            cols = min(lanes, ew - p * lanes)
-            guard = f"if (lane < {cols}) " if cols < lanes else ""
-            turn += [f"        {guard}buf{t.table}[{j * ew + p * lanes} + lane]"
-                     f" += {_cam_acc(t, j, p)};" for j in range(k)]
-        turn.append("      }")
+        acc = functools.partial(_cam_acc, t)
+        L += cam_groups_c(acc, k, ew, lanes)
+        turn += cam_turn_c(acc, k, ew, lanes, f"buf{t.table}")
     L += ["  for (int w = 0; w < WARPS; ++w) {", "    __syncthreads();",
           "    if (warp == w) {"] + turn + ["    }", "  }"]
     return L

@@ -16,7 +16,8 @@ as ``<name>.log``.
 The C entry points take pointers and the stream as ``c_void_p`` and
 return ``cudaGetLastError()``; the caller raises when it is not 0
 (``check``).  ``Library`` holds one hand-written kernel's fixed
-translation unit, built and bound at first use.
+translation unit, built and bound at first use (the keyed kernels
+``fused_kmeans`` and ``groupby_fold`` make one per shape and plan).
 """
 from __future__ import annotations
 
@@ -153,11 +154,12 @@ def check(lib, rc: int, what: str) -> None:
 
 
 class Library:
-    """One hand-written kernel's library: a fixed translation unit that
+    """One hand-written kernel's library: a translation unit that
     includes its ``csrc`` header and exports ``extern "C"`` entry points.
-    Block sizes are run-time arguments, so it builds once for every plan.
-    It is built and bound at first use; what a launch needs that is fixed
-    per card (persistent block counts, zero rows) is kept so that a launch
+    Most take their block sizes at run time, so one library serves every
+    plan; the keyed kernels generate one per shape and plan.  It is
+    built and bound at first use; what a launch needs that is fixed per
+    card (persistent block counts, zero rows) is kept so that a launch
     does no other host work."""
 
     def __init__(self, name: str, source: str, argtypes: Dict[str, list]):
@@ -165,6 +167,7 @@ class Library:
         self.source = source + ERROR_STRING
         self.argtypes = argtypes
         self._lib = None
+        self._layout = None
         self._per_card: Dict[Tuple, int] = {}
         self._zeros: Dict[Tuple, torch.Tensor] = {}
 
@@ -194,6 +197,19 @@ class Library:
                 self("per_sm", variant, smem, ctypes.byref(n))
             self._per_card[key] = n.value * props.multi_processor_count
         return max(1, min(self._per_card[key], steps))
+
+    def check_layout(self, smem: int) -> None:
+        """Raise unless the library's own layout (its entry point
+        ``layout``) uses ``smem`` bytes of shared memory a block, as the
+        wrapper's Python rule says; asked once per library."""
+        if self._layout is None:
+            n = ctypes.c_int(0)
+            self("layout", ctypes.byref(n))
+            self._layout = n.value
+        if self._layout != smem:
+            raise RuntimeError(f"{self.name}: the library's layout takes "
+                               f"{self._layout} B of shared memory, the "
+                               f"wrapper's rule {smem} B")
 
     def combine(self, partials: torch.Tensor) -> torch.Tensor:
         """The per-block partials ``(ctas, width)`` summed in block order

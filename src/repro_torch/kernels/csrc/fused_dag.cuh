@@ -75,7 +75,8 @@
 // The hand-written kernels that replace the other revisited-output TPU
 // kernels (filter_fold.cuh, groupby_fold.cuh, fused_kmeans.cuh) reuse
 // block_sum and combine_partials (launch_combine); groupby_fold.cuh and
-// fused_kmeans.cuh still add rows with the shared-atomic cam_add.
+// fused_kmeans.cuh take this CAM's register form (codegen_cuda.cam_struct_c)
+// or a shared form of their own.  No kernel of the port takes atomics.
 #pragma once
 
 #include "hopper.cuh"
@@ -108,21 +109,6 @@ __device__ __forceinline__ void copy_async(float* __restrict__ dst,
                                            int64_t words) {
   for (int64_t e = threadIdx.x; e < words / 4; e += blockDim.x)
     hop::cp_async<16>(dst + 4 * e, src + 4 * e, 16);
-}
-
-// Add one row's (key, value[ew]) into a shared (k, ew) table with shared
-// atomics (groupby_fold.cuh, fused_kmeans.cuh; the DAG template does not).  Keys outside
-// [0, k) are dropped.  Lanes start at different columns so that the lanes
-// of a warp, which mostly share a few keys, hit different addresses.
-__device__ __forceinline__ void cam_add(float* table, int key, int k,
-                                        const float* v, int ew) {
-  if (key < 0 || key >= k) return;
-  float* row = table + (int64_t)key * ew;
-  int c = threadIdx.x % ew;
-  for (int j = 0; j < ew; ++j) {
-    atomicAdd(row + c, v[c]);
-    c = (c + 1 == ew) ? 0 : c + 1;
-  }
 }
 
 // out[j] = init[j] + sum over blocks c, in order, of partials[c][j].

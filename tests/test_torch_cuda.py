@@ -24,6 +24,7 @@ which kernel of ``matmul`` and ``flash_attention`` ran (wgmma or FFMA,
 and the combine of split keys).
 """
 import operator
+import re
 
 import numpy as np
 import pytest
@@ -34,6 +35,7 @@ from repro_torch.core import ir
 from repro_torch.core import pipeline as pl
 from repro_torch.core.dse import PipelinePlan
 from repro_torch.core.strip_mine import tile
+from repro_torch.kernels import build
 from repro_torch.kernels import filter_reduce as fr
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_filter_fold as fff
@@ -510,6 +512,10 @@ def _randn(seed, *shape, dtype=torch.float32):
         .to(dtype)
 
 
+def _optin():
+    return torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+
+
 def _sum_close(got, want):
     """Within 1e-5 of the largest magnitude of ``want``."""
     limit = 1e-5 * float(want.abs().max()) + 1e-6
@@ -632,14 +638,19 @@ HAND = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(HAND))
 def test_hand_kernels_take_a_view_off_a_16_byte_boundary(name):
-    """The hand kernels read scalars: a view one word past a 16-byte
-    boundary gives the aligned input's result (up to the order of the
-    shared atomics of groupby_fold and fused_kmeans)."""
+    """The hand kernels read scalars, or copy such a view before a 16-byte
+    ``cp.async`` reads it (fused_kmeans): a view one word past a 16-byte
+    boundary gives the aligned input's result, bitwise for groupby_fold
+    and fused_kmeans, whose sums take one fixed order."""
     _card()
     a, b = _randn(0, 64, 64), _randn(1, 64, 64)
     oa, ob = _offset_view(a), _offset_view(b)
     assert oa.data_ptr() % 16 and ob.data_ptr() % 16
-    _sum_close(HAND[name](oa, ob), HAND[name](a, b))
+    got, want = HAND[name](oa, ob), HAND[name](a, b)
+    if name in ("groupby_fold", "fused_kmeans"):
+        assert torch.equal(got, want)
+    else:
+        _sum_close(got, want)
 
 
 @pytest.mark.cuda
@@ -667,9 +678,38 @@ def test_groupby_fold_kernel_matches_plain(t, k, ew, bt):
     out = gbf.groupby_fold(keys, vals, k, block_t=bt)
     torch.cuda.synchronize()
     assert gbf.groupby_fold.launches == before + 1
+    assert gbf.groupby_fold.form == gbf.table_form(k, max(ew, 1), _optin())[0]
     want = gbf.groupby_fold_plain(keys, vals, k)
     assert out.shape == want.shape
     _sum_close(out, want)
+    assert torch.equal(out, gbf.groupby_fold(keys, vals, k, block_t=bt))
+
+
+# one table of each form of groupby_fold.table_form
+GROUPBY_FORMS = [("register", 8, 1), ("register", 16, 4),
+                 ("shared", 64, 8), ("shared", 64, 1), ("shared", 3, 80)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,k,ew", GROUPBY_FORMS)
+def test_groupby_fold_runs_the_form_its_rule_gives(form, k, ew):
+    """Each form launched once and counted as its own; keys outside the
+    table dropped; two calls bitwise equal."""
+    _card()
+    assert gbf.table_form(k, ew, _optin())[0] == form
+    t = 8192
+    keys = torch.as_tensor(np.random.RandomState(k + ew).randint(
+        -1, k + 1, t).astype(np.int32)).cuda()
+    vals = _randn(2, t, ew)
+    before = (gbf.groupby_fold.register_launches,
+              gbf.groupby_fold.shared_launches)
+    out = gbf.groupby_fold(keys, vals, k, block_t=1024)
+    torch.cuda.synchronize()
+    ran = (gbf.groupby_fold.register_launches - before[0],
+           gbf.groupby_fold.shared_launches - before[1])
+    assert ran == ((1, 0) if form == "register" else (0, 1))
+    _sum_close(out, gbf.groupby_fold_plain(keys, vals, k))
+    assert torch.equal(out, gbf.groupby_fold(keys, vals, k, block_t=1024))
 
 
 @pytest.mark.cuda
@@ -709,6 +749,58 @@ def test_fused_kmeans_kernel_matches_plain(n, k, d, block_n):
     want_s, want_c = fkm.fused_kmeans_plain(pts, cents)
     assert torch.equal(counts, want_c) and float(counts[k - 1]) == 0.0
     _sum_close(sums, want_s)
+    again = fkm.fused_kmeans_step(pts, cents, block_n=block_n)
+    assert torch.equal(sums, again[0]) and torch.equal(counts, again[1])
+
+
+# (n, k, d, block_n, depth, lanes): each CAM form of the sums (column
+# slots 1, 4 and the rule's 8 at d = 64), 16-byte and 4-byte rows, ring
+# depths 2 to 4, a block that is not a multiple of 32 rows
+KMEANS_FORMS = [(8192, 8, 16, 1024, 3, 1), (8192, 8, 16, 1024, 3, 4),
+                (4096, 8, 64, 128, 4, None), (4000, 4, 6, 200, 2, 2),
+                (6000, 8, 8, 1000, 3, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d,block_n,depth,lanes", KMEANS_FORMS)
+def test_fused_kmeans_forms_match_plain(n, k, d, block_n, depth, lanes):
+    _card()
+    pts, cents = _randn(3, n, d), _randn(4, k, d)
+    sums, counts = fkm.fused_kmeans_step(pts, cents, block_n=block_n,
+                                         depth=depth, lanes=lanes)
+    torch.cuda.synchronize()
+    want = fkm.kmeans_lanes(k, d) if lanes is None else lanes
+    assert fkm.fused_kmeans_step.lanes == want
+    want_s, want_c = fkm.fused_kmeans_plain(pts, cents)
+    assert torch.equal(counts, want_c)
+    _sum_close(sums, want_s)
+    again = fkm.fused_kmeans_step(pts, cents, block_n=block_n, depth=depth,
+                                  lanes=lanes)
+    assert torch.equal(sums, again[0]) and torch.equal(counts, again[1])
+
+
+@pytest.mark.cuda
+def test_keyed_kernels_build_without_a_stack_frame():
+    """ptxas keeps no accumulator of the keyed kernels in local memory:
+    every instantiation the tests and chip_smoke build reports no stack
+    frame."""
+    _card()
+    optin = _optin()
+    libs = [gbf.library(k, ew, bt, *gbf.table_form(k, ew, optin))
+            for k, ew, bt in [(16, 4, 128), (8, 1, 256), (64, 8, 32),
+                              (8, 1, 512), (8, 1, 4), (8, 1, 8192),
+                              (64, 8, 2048), (64, 1, 1024), (3, 80, 1024),
+                              (16, 4, 1024), (8, 1, 1024), (64, 8, 1024)]]
+    libs += [fkm.library(k, d, bn, depth, lanes or fkm.kmeans_lanes(k, d))
+             for n, k, d, bn, depth, lanes in KMEANS_FORMS
+             + [(0, 8, 16, 1024, 3, 1), (0, 8, 16, 1024, 3, 4),
+                (0, 8, 16, 1024, 2, None), (0, 5, 3, 200, 2, None),
+                (0, 8, 64, 16, 2, None)]]
+    paths = build.compile_all([(lib.name, lib.source) for lib in libs])
+    for p in paths:
+        log = p.with_suffix(".log").read_text()
+        frames = [int(b) for b in re.findall(r"(\d+) bytes stack frame", log)]
+        assert frames and not any(frames), (p.name, log)
 
 
 @pytest.mark.cuda
