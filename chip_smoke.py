@@ -7,15 +7,17 @@ Builds every kernel of the path from ``src/repro_torch/kernels/csrc``
 (one nvcc per translation unit, all at once) and counts HGMMA (wgmma),
 HMMA (mma.sync), UTMALDG (TMA), LDGSTS (cp.async) and FFMA in the SASS
 of each variant of ``matmul``, ``flash_attention``, ``paged_decode``,
-``ssd_scan``, the tiled GEMM, the fused-DAG template and the keyed
+``ssd_scan``, the tiled GEMM, the fused-DAG template, the keyed
 hand kernels ``fused_kmeans`` and ``groupby_fold`` (one library per
-shape, plan and form: ``keyed_libraries``) (``cuobjdump -sass``; it
-fails without cuobjdump, when a tensor-core variant has no HGMMA, the
-GEMM no LDGSTS or FFMA or any HGMMA, the paged attend kernel no LDGSTS,
-an ``ssd_scan`` pass any HMMA or HGMMA, or, where it stages B, C or x,
-no LDGSTS or FFMA, a fused-DAG or ``fused_kmeans`` library no LDGSTS,
-or a fused-DAG or keyed library any ATOMS, ATOMG, ATOM or RED; ptxas
-must report no stack frame for a fused-DAG or keyed library), then:
+shape, plan and form: ``keyed_libraries``) and the one-launch kernels
+(the ``filter_fold`` library and the tiled FlatMap of ``lower_auto``'s
+filter) (``cuobjdump -sass``; it fails without cuobjdump, when a
+tensor-core variant has no HGMMA, the GEMM no LDGSTS or FFMA or any
+HGMMA, the paged attend kernel no LDGSTS, an ``ssd_scan`` pass any HMMA
+or HGMMA, or, where it stages B, C or x, no LDGSTS or FFMA, a fused-DAG,
+``fused_kmeans``, filter-fold or FlatMap kernel no LDGSTS, or a fused-DAG,
+keyed, filter-fold or FlatMap library any ATOMS, ATOMG, ATOM or RED;
+ptxas must report no stack frame for any of those), then:
 
   * runs ``lower_pipeline(pipe)`` -- the port's own DSE on the card's
     budget, then the fused-DAG CUDA megakernel -- for each of the five
@@ -37,14 +39,18 @@ must report no stack frame for a fused-DAG or keyed library), then:
     the outer product at m = n = 16,384 (the tiled-Map kernel, a 1 GiB
     output), gda as one keyed fold at 4,194,304 rows (the CAM), and the
     paper's Table 2 filter ``x.flatMap{e => if (e > 0) [e] else []}``
-    at 6,000,000 rows (the tiled-FlatMap kernel);
+    at 6,000,000 rows (the tiled-FlatMap kernel: one pass, one launch a
+    call by the trace, calls A, B, A on two inputs each bitwise as the
+    plain version);
   * runs the hand-written kernels of ``repro_torch.kernels`` through
     their entry points, each at the DSE's plan for the card unless said
     otherwise: ``matmul`` at 4096^3 in float32 at its default blocks and
     through ``autotile.tuned_matmul`` (the FFMA kernel), and in bfloat16
     (the wgmma kernel; the per-variant counts show which ran); ``filter_reduce``
     and ``fused_filter_fold`` on TPC-H Q6 (6,000,000 rows of discount and
-    extended price, ``0.05 <= discount < 0.075``); ``ops.groupby`` on
+    extended price, ``0.05 <= discount < 0.075``; the ring at the plan's
+    block and depth, one launch a call by the trace, calls A, B, A on two
+    inputs each as the plain version); ``ops.groupby`` on
     4,194,304 rows into 64 keys of 8 values (about 1% of the keys
     outside the table; the shared form) and as MoE's ``router_counts``
     (8 experts, values one; the register form); ``fused_kmeans_step`` on
@@ -176,6 +182,22 @@ def median_ms(fn, torch, reps: int = REPS, batch: int = BATCH) -> float:
     return times[len(times) // 2]
 
 
+def host_ms(fn, torch, calls: int = 100) -> float:
+    """The host's time to issue one call of ``fn`` (the wrapper's Python
+    and its launch), on the host clock over ``calls`` calls that are not
+    waited for, after WARMUP calls; a call is host-bound when this
+    exceeds its device time."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def _as_double(t, torch):
     return torch.as_tensor(t).detach().double().cpu()
 
@@ -201,22 +223,27 @@ def as_outputs(value, names) -> dict:
 
 
 def fault_shifts(reference_at, host, n: int, block: int, grid: int,
-                 ctas: int, names) -> dict:
+                 ctas: int, names, lane_rows: int = 1, piece: int = 0
+                 ) -> dict:
     """What three planted faults would shift each fold / CAM output by:
     dropping the first row of every grid step, dropping the partial of
-    the last persistent block (the one with the fewest steps), and
-    dropping the accumulators of that block's first warp (its rows
-    r % 256 < 32 of every step, in the fused DAG's CAM and in
-    ``groupby_fold`` and ``fused_kmeans`` alike: per-warp tables added in
-    warp order make this fault possible).  Each output is a sum over rows, so
-    a shift is the float64 reference (``reference_at(rows)`` builds it)
-    on just the dropped rows.  Returns fault -> output -> max abs
-    shift."""
+    the last persistent block (the one with the fewest steps: steps
+    ctas - 1, 2 ctas - 1, ...), and dropping the accumulators of that
+    block's first warp.  A thread takes ``lane_rows`` consecutive rows
+    at a time, 256 threads a round over each ``piece`` of a step (the
+    whole step by default): in the fused DAG's CAM, ``groupby_fold`` and
+    ``fused_kmeans`` one row, so warp 0 owns rows r % 256 < 32 of every
+    step (per-warp tables added in warp order make this fault possible);
+    in the filter-folds a float4, so warp 0 owns offsets o % 1024 < 128
+    of every ring piece.  Each output is a sum over rows, so a shift is
+    the float64 reference (``reference_at(rows)`` builds it) on just the
+    dropped rows.  Returns fault -> output -> max abs shift."""
     from repro_torch.core.codegen_cuda import DAG_WARPS
 
     last = np.arange(ctas - 1, grid, ctas)
     lanes = np.arange(block)
-    warp0 = lanes[lanes % (32 * DAG_WARPS) < 32]
+    offset = lanes % piece if piece else lanes
+    warp0 = lanes[(offset // lane_rows) % (32 * DAG_WARPS) < 32]
     dropped = {"row per tile": np.arange(grid) * block,
                "block partial": (last[:, None] * block + lanes).ravel(),
                "warp of a block": (last[:, None] * block + warp0).ravel()}
@@ -260,6 +287,14 @@ def device_breakdown(fn, torch, calls: int = 3) -> str:
     over ``calls`` calls after one traced but discarded warm-up call (the
     tracer drops the first kernels it sees); "not measured" when the
     profiler sees no device time."""
+    parts = [f"{name} {ms:.4f} ms x{count}"
+             for name, ms, count in device_kernels(fn, torch, calls)]
+    return ", ".join(parts) if parts else "not measured"
+
+
+def device_kernels(fn, torch, calls: int = 3) -> list:
+    """(name, mean device ms per launch, launches) of each CUDA kernel
+    ``fn`` launches over ``calls`` traced calls (``device_breakdown``)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -279,8 +314,46 @@ def device_breakdown(fn, torch, calls: int = 3) -> str:
         if us > 0 and e.count:
             name = e.key.replace("(anonymous namespace)::", "")
             name = name.split("(")[0].split("::")[-1][:40]
-            parts.append(f"{name} {us / e.count / 1e3:.4f} ms x{e.count}")
-    return ", ".join(parts) if parts else "not measured"
+            parts.append((name, us / e.count / 1e3, e.count))
+    return parts
+
+
+def one_kernel(label: str, fn, kernel: str, torch, calls: int = 5) -> float:
+    """Trace ``calls`` calls of ``fn`` and fail unless the trace shows
+    ``kernel`` and no other kernel (no combine, no memset): with the
+    wrapper's launch count (one a call), one kernel a call.  The tracer
+    drops some kernels of a trace (it shows at most ``calls`` launches,
+    often fewer), so up to three traces.  Prints and returns the kernel's
+    device ms per launch."""
+    for _ in range(3):
+        seen = device_kernels(fn, torch, calls)
+        if seen:
+            break
+    print(f"[{label}] device time per call: " + (", ".join(
+        f"{name} {ms:.4f} ms x{count}" for name, ms, count in seen)
+        or "not measured") + f" ({calls} calls traced)")
+    if len(seen) != 1 or kernel not in seen[0][0] \
+            or not 1 <= seen[0][2] <= calls:
+        fail(f"{label}: expected {kernel} alone, at most once a call, in "
+             f"the trace of {calls} calls; it shows {seen}")
+    return seen[0][1]
+
+
+def aba(label: str, run, plain, a, b, same, torch) -> None:
+    """Calls A, B, A back to back on different inputs (``a``, ``b``), no
+    synchronisation between: each as its plain version (``same(got,
+    want, what)``), and the two A calls bitwise equal; a flag word left
+    by the call before would shift a prefix or a partial."""
+    outs = [run(a), run(b), run(a)]
+    torch.cuda.synchronize()
+    for got, inp, what in zip(outs, (a, b, a), ("A", "B", "A again")):
+        same(got, plain(inp), f"{label} call {what}")
+    first, third = (o if isinstance(o, tuple) else (o,)
+                    for o in (outs[0], outs[2]))
+    if not all(torch.equal(u, v) for u, v in zip(first, third)):
+        fail(f"{label}: calls A and A again (after B) differ")
+    print(f"[{label}] A/B/A: each call as its plain version, A twice "
+          "bitwise equal")
 
 
 def pipeline_ops(name: str, inputs) -> int:
@@ -474,12 +547,13 @@ def run_gda(call, make_inputs, reference, cc, tier, torch, dev) -> dict:
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
 
 
-def run_filter(call, make_inputs, reference, cc, tier, torch) -> dict:
+def run_filter(call, make_inputs, reference, cc, tier, torch, dev) -> dict:
     """lower_auto(filter) through the tiled-FlatMap kernel: the count
     exact and the buffer bitwise against its plain version and against
-    numpy's x[x > 0], the tail past the count zero.  No library time:
-    no single PyTorch call makes the zero-padded buffer and the count
-    (x[x > 0] makes neither)."""
+    numpy's x[x > 0], the tail past the count zero; calls A, B, A on two
+    inputs each as the plain version; one kernel launch a call.  No
+    library time: no single PyTorch call makes the zero-padded buffer
+    and the count (x[x > 0] makes neither)."""
     host = make_inputs()
     env = {"x": torch.as_tensor(host["x"]).cuda()}
     torch.cuda.synchronize()
@@ -506,15 +580,30 @@ def run_filter(call, make_inputs, reference, cc, tier, torch) -> dict:
             or bool(buf[got:].any()):
         fail("filter: values differ from x[x > 0] or the tail is not zero")
     print(f"[filter] count {got} exact; buffer bitwise equal to plain and "
-          f"x[x > 0]; tail zero")
+          f"x[x > 0]; tail zero; shared bytes {spec.onchip_bytes} charged + "
+          f"{spec.scan_bytes} scan = {spec.smem_bytes}; {kern.ctas(dev)} "
+          f"blocks for {spec.steps} tiles")
+    other = {"x": torch.as_tensor(np.random.RandomState(12).randn(
+        TPCH_ROWS).astype(np.float32)).cuda()}
+
+    def same(out, want, what):
+        if int(out[1]) != int(want[1]) or not torch.equal(out[0], want[0]):
+            fail(f"{what}: count {int(out[1])} vs plain {int(want[1])}, or "
+                 "the buffer not bitwise equal to plain")
+
+    aba("filter", lambda e: call(**e),
+        lambda e: cc.tiled_flatmap_plain(spec, e), env, other, same, torch)
+    del other
     ms = median_ms(lambda: cc.tiled_flatmap(kern, env), torch)
     plain_ms = median_ms(lambda: cc.tiled_flatmap_plain(spec, env), torch)
     nbytes = 2 * TPCH_ROWS * 4 + 4    # x read, buffer written, the count
     bound_ms, by = bound(nbytes, TPCH_ROWS, tier)
     print(f"[filter] tiled_flatmap {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({nbytes} B)", flush=True)
-    print("[filter] device time per call: " + device_breakdown(
-        lambda: cc.tiled_flatmap(kern, env), torch))
+    one_kernel("filter", lambda: cc.tiled_flatmap(kern, env),
+               "flatmap_kernel", torch)
+    issue = host_ms(lambda: cc.tiled_flatmap(kern, env), torch)
+    print(f"[filter] host {issue:.4f} ms a call to issue")
     return {"name": "tiled_flatmap[filter]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/tiled_flatmap.cuh",
             "replaces": f"{REPLACES}:295", "launches": launches,
@@ -607,6 +696,7 @@ SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "FFMA", "ATOMS", "ATOMG",
             "ATOM", "RED")
 # the kernels of each library by variant: (label, function-name key, the
 # instructions it must have, the instructions it must not have)
+ATOMICS = ("ATOMS", "ATOMG", "ATOM", "RED")
 HGMMA = ("HGMMA",)
 TENSOR_CORES = ("HMMA", "HGMMA")
 # ssd_scan: the scores, states and output passes stage B, C and x by
@@ -632,12 +722,21 @@ SASS_VARIANTS = {
                       ("LDGSTS",), ()),
                      ("paged_decode[combine]", "combine_kernel", (), ())),
     "ssd_scan": SSD_SASS,
+    # the one-launch kernels: a cp.async ring, flag words without atomics
+    "filter_fold": (("filter_fold[plain]", "filter_fold_kernelILb0E",
+                     ("LDGSTS",), ATOMICS),
+                    ("filter_fold[staged]", "filter_fold_kernelILb1E",
+                     ("LDGSTS",), ATOMICS)),
+    "lower_auto[filter]": (("tiled_flatmap[filter]", "flatmap_kernel",
+                            ("LDGSTS",), ATOMICS),),
 }
+# libraries whose ptxas report must show no stack frame, beside the fused
+# DAG and the keyed kernels
+NO_STACK = ("filter_fold", "lower_auto[filter]")
 # the GEMM template, one library per tile: cp.async slabs into FFMA
 GEMM_SASS = (("LDGSTS", "FFMA"), HGMMA)
 # the fused-DAG template, one library per DAG and plan: streamed tiles by
 # cp.async, CAM and fold sums without any atomic (shared, global or RED)
-ATOMICS = ("ATOMS", "ATOMG", "ATOM", "RED")
 DAG_SASS = (("fused_dag_kernel", ("LDGSTS",), ATOMICS),
             ("combine_partials", (), ATOMICS))
 
@@ -773,11 +872,11 @@ def run_matmul(label: str, run, x, y, tol: float, peak, tier, torch) -> dict:
             "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
 
 
-def q6_inputs(n: int) -> dict:
-    """TPC-H Q6's two lineitem columns (seed 12): l_discount drawn from
+def q6_inputs(n: int, seed: int = 12) -> dict:
+    """TPC-H Q6's two lineitem columns (``seed``): l_discount drawn from
     {0.00, 0.01, ..., 0.10} and an l_extendedprice-like value uniform in
     [901, 104,950] (SF1's range), both float32."""
-    rng = np.random.RandomState(12)
+    rng = np.random.RandomState(seed)
     return {"x": (rng.randint(0, 11, n) / 100).astype(np.float32),
             "w": rng.uniform(901.0, 104950.0, n).astype(np.float32)}
 
@@ -802,13 +901,18 @@ def keyed_reference(keys: np.ndarray, values: np.ndarray, k: int):
 
 def run_folded(label: str, key: str, run, plain, ref, reference_at, host,
                block: int, fn, library, nbytes: int, ops: int, source: str,
-               replaces: str, tier, torch, kernel: str = "") -> dict:
+               replaces: str, tier, torch, kernel: str = "",
+               one_launch: bool = False, lane_rows: int = 1,
+               piece: int = 0) -> dict:
     """One persistent hand-written kernel whose outputs are sums: the
     launch count, two calls bitwise equal, the sums (and counts exactly)
     against its plain version and the float64 reference after the
-    planted-fault proof, then its times beside its plain version's and
-    the library call's.  With ``kernel`` (a kernel's name) the device
-    times of that kernel and of combine_partials must be measured."""
+    planted-fault proof (``lane_rows`` and ``piece`` say which rows a
+    warp owns: ``fault_shifts``), then its times beside its plain
+    version's and the library call's.  With ``kernel`` (a kernel's name)
+    the device times of that kernel and of combine_partials must be
+    measured; with ``one_launch`` too, the trace must show that kernel
+    alone, once a call."""
     torch.cuda.synchronize()
     fn.launches = 0
     out = run()
@@ -827,7 +931,8 @@ def run_folded(label: str, key: str, run, plain, ref, reference_at, host,
     outs, plains, refs = named(out), named(plain()), as_outputs(ref, names)
     same_bits(label, outs, named(run()), torch)
     shifts = fault_shifts(reference_at, host, host_rows(host), block,
-                          host_rows(host) // block, fn.ctas, names)
+                          host_rows(host) // block, fn.ctas, names,
+                          lane_rows, piece)
     e_plain = 0.0
     for k in names:
         ep, er, limit = check_sum(k, outs[k], plains[k], refs[k], shifts,
@@ -843,7 +948,10 @@ def run_folded(label: str, key: str, run, plain, ref, reference_at, host,
     print(f"[{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
           f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
           f"{bound_ms:.4f} ms ({nbytes} B, {ops} ops)", flush=True)
-    if kernel:
+    if kernel and one_launch:
+        one_kernel(label, run, kernel, torch)
+        print(f"[{label}] host {host_ms(run, torch):.4f} ms a call to issue")
+    elif kernel:
         breakdown(label, run, [kernel, "combine_partials"], torch)
     else:
         print(f"[{label}] device time per call: "
@@ -945,25 +1053,47 @@ def run_hand_kernels(kmeans_kernel, cc, tier, torch, dev) -> list:
                            BF16_TOL, BF16_PEAK, tier, torch))
     del xb, yb
 
-    # ---- TPC-H Q6 through both filter-fold kernels
+    # ---- TPC-H Q6 through both filter-fold kernels: one launch a call
     host = q6_inputs(TPCH_ROWS)
     x, w = (torch.as_tensor(host[k]).to(dev) for k in ("x", "w"))
     ref = q6_reference(host)
+    other = q6_inputs(TPCH_ROWS, seed=13)
+    xb, wb = (torch.as_tensor(other[k]).to(dev) for k in ("x", "w"))
     for label, kind, fn, plain, src_line in (
             ("filter_reduce", "filter_reduce", fr.filter_reduce,
              fr.filter_reduce_plain, "filter_reduce.py:41"),
             ("fused_filter_fold", "fused_filter_fold", fff.fused_filter_fold,
              fff.fused_filter_fold_plain, "fused_filter_fold.py:48")):
         show_plan(label, kind, TPCH_ROWS, dev=dev)
-        block = ops.resolve_plan(kind, TPCH_ROWS, device=dev)[0]
+        block, plan = ops.resolve_plan(kind, TPCH_ROWS, device=dev)
+        fn(x, w, Q6_LO, Q6_HI, auto_tile=True)
+        form = fn.form
+        print(f"[{label}] ring: {form.pieces} piece(s) of {form.piece} rows a "
+              f"step, depth {form.depth}, {form.arrays} arrays; shared bytes "
+              f"{form.smem_bytes} (plan {plan.vmem_bytes})")
+        if (form.block_t, form.depth, form.ring_bytes) != (
+                block, plan.depth, plan.vmem_bytes):
+            fail(f"{label}: the ring {form} is not the plan's block "
+                 f"{block}, depth {plan.depth}, {plan.vmem_bytes} B")
         rows.append(run_folded(
             label, "q6",
             lambda fn=fn: fn(x, w, Q6_LO, Q6_HI, auto_tile=True),
             lambda plain=plain: plain(x, w, Q6_LO, Q6_HI), ref,
             lambda n: q6_reference, host, block, fn, None,
             2 * TPCH_ROWS * 4 + 4, 4 * TPCH_ROWS, f"{CSRC}/filter_fold.cuh",
-            f"{HAND}/{src_line}", tier, torch))
-    del x, w
+            f"{HAND}/{src_line}", tier, torch, kernel="filter_fold_kernel",
+            one_launch=True, lane_rows=4, piece=form.piece))
+
+        def same(got, want, what):
+            limit = SUM_RTOL * abs(float(want))
+            if abs(float(got) - float(want)) > limit:
+                fail(f"{what}: {float(got)!r} vs plain {float(want)!r} "
+                     f"beyond {limit:.4g}")
+
+        aba(label, lambda a, fn=fn: fn(*a, Q6_LO, Q6_HI, auto_tile=True),
+            lambda a, plain=plain: plain(*a, Q6_LO, Q6_HI), (x, w),
+            (xb, wb), same, torch)
+    del x, w, xb, wb
 
     # ---- keyed sums: 64 keys x 8 values, ~1% of the keys outside
     rng = np.random.RandomState(13)
@@ -2193,7 +2323,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {label}: {line.strip()}")
         stacks = [int(b) for b in re.findall(r"(\d+) bytes stack frame", log)]
-        if (is_dag(label) or is_keyed(label)) and any(stacks):
+        if (is_dag(label) or is_keyed(label) or label in NO_STACK) \
+                and any(stacks):
             fail(f"ptxas: {label} has a stack frame ({max(stacks)} bytes)")
     sass_check({lib: p for lib, p in zip(labels, paths)
                 if lib in SASS_VARIANTS or lib.startswith("tiled_gemm")
@@ -2291,7 +2422,7 @@ def main() -> int:
 
     kernels.append(run_outerprod(*autos["outerprod"], cc, tier, torch))
     kernels.append(run_gda(*autos["gda"], cc, tier, torch, dev))
-    kernels.append(run_filter(*autos["filter"], cc, tier, torch))
+    kernels.append(run_filter(*autos["filter"], cc, tier, torch, dev))
     kmeans_call = built["kmeans"][4]
     kernels.extend(run_hand_kernels(kmeans_call.group_calls[0].kernel, cc,
                                     tier, torch, dev))

@@ -13,7 +13,9 @@ place of MaxJ ones, for an NVIDIA Hopper card (``sm_90a``):
     one CAM terminal: per-warp tables without atomics, partials summed
     in order
   * a tiled FlatMap (parallel FIFO)        -> ``csrc/tiled_flatmap.cuh``,
-    a count pass, a scan of the counts and a compacting write pass
+    one pass: tiles through a ``cp.async`` ring, each tile counted,
+    its offset found by decoupled look-back across blocks and its kept
+    values compacted, in one cooperative launch
   * a fused pipeline DAG (``lower_fused_dag``) -> ``csrc/fused_dag.cuh``,
     one persistent multi-output megakernel: streamed tiles through a
     ``depth``-slot ``cp.async`` ring, producer stages in shared-memory
@@ -52,6 +54,7 @@ from . import ir
 from .affine import AffineMap
 from ..device import resolve
 from ..kernels import build
+from ..kernels.grid_flags import Flags
 from .dse import PAGED_LAYOUTS
 
 
@@ -834,6 +837,38 @@ def _cam_end_c(spec: DagSpec) -> List[str]:
     return L
 
 
+def _ring_c(fill: Callable[[str, str, str], List[str]]
+            ) -> Tuple[List[str], List[str]]:
+    """The lines of the ``cp.async`` ring over grid steps (``fused_dag.cuh``
+    sets out why it is safe): before the step loop, the first ``DEPTH -
+    1`` steps in flight; at the top of step ``g`` (after ``slot`` and
+    ``step`` are bound), wait for this thread's copies of the step, one
+    ``__syncthreads``, then refill the slot step - 1 read with step ``g +
+    (DEPTH - 1) * gridDim.x``.  ``fill(indent, slot, g)`` gives the lines
+    that issue one step's copies; every step commits a group, empty or
+    not, so the wait count holds to the end."""
+    prologue = ["  // the ring: the first DEPTH - 1 steps in flight",
+                "#pragma unroll",
+                "  for (int s = 0; s < DEPTH - 1; ++s) {",
+                "    const long long gs = blockIdx.x + (long long)s * "
+                "gridDim.x;",
+                "    if (gs < GRID) {",
+                *fill("      ", "s", "gs"),
+                "    }",
+                "    hop::cp_async_commit();",
+                "  }"]
+    top = ["    hop::cp_async_wait<DEPTH - 2>();  // this thread's copies "
+           "of step",
+           "    __syncthreads();  // everyone's landed; step - 1's slot is "
+           "free",
+           "    const long long ga = g + (long long)(DEPTH - 1) * gridDim.x;",
+           "    if (ga < GRID) {",
+           *fill("      ", "(step + DEPTH - 1) % DEPTH", "ga"),
+           "    }",
+           "    hop::cp_async_commit();"]
+    return prologue, top
+
+
 def dag_source(spec: DagSpec) -> str:
     """The translation unit of one fused DAG at one plan: the template
     ``fused_dag.cuh`` instantiated with the pattern bodies, the plan's
@@ -913,28 +948,13 @@ def dag_source(spec: DagSpec) -> str:
                 f"in_{_ident(spec.inputs[buf.operand][0])} + ({g}) * "
                 f"{buf.words}LL, {buf.words});" for i, buf in streams]
 
-    L.append("  // the ring: the first DEPTH - 1 steps in flight")
-    L.append("#pragma unroll")
-    L.append("  for (int s = 0; s < DEPTH - 1; ++s) {")
-    L.append("    const long long gs = blockIdx.x + (long long)s * gridDim.x;")
-    L.append("    if (gs < GRID) {")
-    L += fill("      ", "s", "gs")
-    L.append("    }")
-    L.append("    hop::cp_async_commit();")
-    L.append("  }")
+    prologue, top = _ring_c(fill)
+    L += prologue
     L.append("  int step = 0;")
     L.append("  for (long long g = blockIdx.x; g < GRID; "
              "g += gridDim.x, ++step) {")
     L.append("    const int slot = step % DEPTH;")
-    L.append("    hop::cp_async_wait<DEPTH - 2>();  // this thread's copies "
-             "of step")
-    L.append("    __syncthreads();  // everyone's landed; step - 1's slot is "
-             "free")
-    L.append("    const long long ga = g + (long long)(DEPTH - 1) * gridDim.x;")
-    L.append("    if (ga < GRID) {")
-    L += fill("      ", "(step + DEPTH - 1) % DEPTH", "ga")
-    L.append("    }")
-    L.append("    hop::cp_async_commit();")
+    L += top
     for i, buf in enumerate(spec.buffers):
         if buf.kind in ("stream", "stage"):
             L.append(f"    float* const s{i} = buf{i} + slot * {buf.words};")
@@ -1307,9 +1327,9 @@ def lower_fused_pipeline(pipe, *, plan=None,
 #   FlatMap(grid) { loads; FlatMap(tile) }
 # --------------------------------------------------------------------
 
-# warps per block of the FlatMap template (tfm::WARPS): the count pass
-# writes one count per (grid step, warp)
-FLATMAP_WARPS = 8
+# sizeof(tfm::Scan): the FlatMap's scan scratch after the charged buffers
+# (8 warp counts, 8 + 8 look-back words, the total, padding to 16 bytes)
+FLATMAP_SCAN_BYTES = 112
 
 
 def _row_major(shape: Sequence[int]) -> Tuple[int, ...]:
@@ -1415,7 +1435,18 @@ class TiledSpec:
 
     @property
     def onchip_bytes(self) -> int:
+        """What ``memory.plan_memory`` charges: tiles and FIFO."""
         return self.tile_bytes + 4 * self.fifo_words
+
+    @property
+    def scan_bytes(self) -> int:
+        """The FlatMap's scan scratch, counted beside the charge."""
+        return FLATMAP_SCAN_BYTES if self.kind == "flatmap" else 0
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared bytes a block: the charge and the scan scratch."""
+        return self.onchip_bytes + self.scan_bytes
 
 
 def _check_block_aligned(amap: AffineMap, tile: Tuple[int, ...],
@@ -1709,7 +1740,7 @@ def _tiled_header(spec: TiledSpec, template: str) -> List[str]:
             f"constexpr int DEPTH = {spec.depth};",
             f"constexpr long long GRID = {spec.steps}LL;",
             f"constexpr int TILE_N = {spec.tile_n};",
-            f"constexpr int SMEM_BYTES = {spec.onchip_bytes};", ""]
+            f"constexpr int SMEM_BYTES = {spec.smem_bytes};", ""]
 
 
 def _need_cuda_body(spec: TiledSpec) -> str:
@@ -1757,90 +1788,135 @@ def map_source(spec: TiledSpec) -> str:
     return "\n".join(L) + build.ERROR_STRING
 
 
+def _flatmap_fill(spec: TiledSpec, loads: Sequence[int]) -> Callable:
+    """``fill`` for ``_ring_c``: the ``cp.async`` copies of the 16-byte
+    copyable streamed tiles ``loads`` of grid step ``g``."""
+    def fill(indent: str, slot: str, g: str) -> List[str]:
+        if not loads:
+            return []
+        gvars = [f"{g}{j}" for j in range(len(spec.grid))]
+        lines = [indent + "{"]
+        lines += [indent + "  " + x
+                  for x in _unflatten_c(g, spec.grid, "long long")]
+        for k in loads:
+            ld = spec.loads[k]
+            src = f"in{ld.operand} + {_affine(ld.origin, ld.step, gvars)}"
+            lines.append(f"{indent}  fdag::copy_async(buf{k} + ({slot}) * "
+                         f"{ld.words}, {src}, {ld.words});")
+        return lines + [indent + "}"]
+    return fill
+
+
 def flatmap_source(spec: TiledSpec) -> str:
-    """The translation unit of one tiled FlatMap at one plan: the count
-    and write kernels of ``tiled_flatmap.cuh`` instantiated with the
-    FlatMap's body and each tile's affine window.  Deterministic."""
+    """The translation unit of one tiled FlatMap at one plan: the one-pass
+    tile kernel of ``tiled_flatmap.cuh`` instantiated with the FlatMap's
+    body and each tile's affine window -- tiles through the ``cp.async``
+    ring (``_ring_c``; tiles that are not 16-byte copyable copied
+    synchronously), each warp's segment compacted in its FIFO region,
+    the tile offset by decoupled look-back and copied out -- and its
+    cooperative launch.  Deterministic."""
     assert spec.kind == "flatmap"
     L = _tiled_header(spec, "tiled_flatmap.cuh")
-    L += [f"static_assert(tfm::WARPS == {FLATMAP_WARPS}, "
-          '"codegen_cuda.FLATMAP_WARPS sizes the per-warp counts");',
-          f"constexpr int M = {spec.width};",
+    L += [f"constexpr int M = {spec.width};",
           "constexpr int SEG = (TILE_N + tfm::WARPS - 1) / tfm::WARPS;",
           f"constexpr long long CAP = {spec.out_shape[0]}LL;",
-          f"constexpr int TILE_BYTES = {spec.tile_bytes};", ""]
+          f"constexpr int CHARGE_BYTES = {spec.onchip_bytes};  "
+          "// tiles and FIFO: the plan's charge",
+          "static_assert(SMEM_BYTES == CHARGE_BYTES + tfm::SCAN_BYTES, "
+          '"codegen_cuda.FLATMAP_SCAN_BYTES");', ""]
     L.append(_body_fn("body", len(spec.reads), _need_cuda_body(spec),
                       counted=True))
-    ins = [f"const float* __restrict__ in{i}" for i in range(len(spec.inputs))]
+    params = [f"const float* __restrict__ in{i}"
+              for i in range(len(spec.inputs))]
+    params += ["float* __restrict__ buf", "int* __restrict__ count",
+               "uint64_t* __restrict__ flags", "unsigned epoch"]
+    L.append("__global__ void __launch_bounds__(tcopy::THREADS)\n"
+             "flatmap_kernel(" + ", ".join(params) + ") {")
+    L += _tiled_buffers(spec, fifo=True)
+    L += ["  tfm::Scan* const scan = reinterpret_cast<tfm::Scan*>("
+          "smem + CHARGE_BYTES / 4);",
+          "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;",
+          "  const int lo = warp * SEG;",
+          "  const int hi = lo + SEG < TILE_N ? lo + SEG : TILE_N;",
+          "  float* const mine = fifo + lo * M;  // this warp's FIFO region"]
+    L += _hoisted_c(spec)
+    streamed = [k for k, ld in enumerate(spec.loads) if ld.slots > 1]
+    ring = [k for k in streamed if spec.loads[k].vec4]
+    prologue, top = _ring_c(_flatmap_fill(spec, ring))
+    L += prologue
+    L += ["  int step = 0;",
+          "  for (long long g = blockIdx.x; g < GRID; "
+          "g += gridDim.x, ++step) {",
+          "    const int slot = step % DEPTH;"]
+    gvars = [f"g{j}" for j in range(len(spec.grid))]
+    sync = [k for k in streamed if k not in ring]
+    if sync:   # copied here: slot step % DEPTH was last read DEPTH steps ago
+        L += ["    " + x for x in _unflatten_c("g", spec.grid, "long long")]
+        for k in sync:
+            L += ["    " + x for x in _copy_c(
+                spec, k, f"buf{k} + slot * {spec.loads[k].words}", gvars)]
+    L += top
+    for k, ld in enumerate(spec.loads):
+        L.append(f"    float* const t{k} = buf{k};" if ld.slots == 1 else
+                 f"    float* const t{k} = buf{k} + slot * {ld.words};")
     wl, args = _windows_c(spec)
-    segment = ["  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;",
-               "  const int lo = warp * SEG;",
-               "  const int hi = lo + SEG < TILE_N ? lo + SEG : TILE_N;",
-               "  int step = 0;",
-               "  for (long long g = blockIdx.x; g < GRID; "
-               "g += gridDim.x, ++step) {"]
-    # pass 1: each warp counts the values its segment keeps
-    L.append("__global__ void __launch_bounds__(tcopy::THREADS)\n"
-             "count_kernel(" + ", ".join(ins + ["int* __restrict__ counts"])
-             + ") {")
-    L += _tiled_buffers(spec) + _hoisted_c(spec) + segment
-    L += ["    " + x for x in _step_c(spec)]
-    L += ["    int n = 0;",
-          "    for (int l = lo + lane; l < hi; l += 32) {"]
-    L += ["      " + x for x in _unflatten_c("l", spec.domain, "int") + wl]
-    L += ["      float v[M];", "      int c = 0;",
-          f"      body({', '.join(args + ['v', 'c'])});",
-          "      n += tfm::kept(c, M);", "    }",
-          "    n = tfm::warp_sum(n);",
-          "    if (lane == 0) counts[g * tfm::WARPS + warp] = n;",
-          "  }", "}", ""]
-    # pass 3: each warp compacts its segment into the FIFO at its offset
-    # within the tile; the block copies the FIFO out at the tile's offset
-    L.append("__global__ void __launch_bounds__(tcopy::THREADS)\n"
-             "write_kernel(" + ", ".join(
-                 ins + ["const int* __restrict__ offsets",
-                        "float* __restrict__ buf"]) + ") {")
-    L += _tiled_buffers(spec, fifo=True) + _hoisted_c(spec) + segment
-    L += ["    " + x for x in _step_c(spec)]
-    L += ["    const int base = offsets[g * tfm::WARPS];",
-          "    int run = offsets[g * tfm::WARPS + warp] - base;",
-          "    for (int chunk = lo; chunk < hi; chunk += 32) {",
-          "      const int l = chunk + lane;",
-          "      float v[M];", "      int c = 0;",
-          "      if (l < hi) {"]
+    # (1) each warp runs the body over its segment, UNROLL chunks of 32
+    # indices at a time, and compacts what it keeps, in index order, at
+    # the front of its own FIFO region (windows clamp into the tile, so
+    # indices past the segment run too and keep nothing)
+    L += ["    int run = 0;",
+          "    for (int chunk = lo; chunk < hi; chunk += 32 * tfm::UNROLL) {",
+          "      float v[tfm::UNROLL][M];",
+          "      int c[tfm::UNROLL];",
+          "#pragma unroll",
+          "      for (int u = 0; u < tfm::UNROLL; ++u) {",
+          "        const int l = chunk + 32 * u + lane;"]
     L += ["        " + x for x in _unflatten_c("l", spec.domain, "int") + wl]
-    L += [f"        body({', '.join(args + ['v', 'c'])});",
-          "        c = tfm::kept(c, M);", "      }",
-          "      const int incl = tfm::warp_inclusive_scan(c);",
-          "      for (int j = 0; j < c; ++j) fifo[run + incl - c + j] = v[j];",
-          "      run += __shfl_sync(0xffffffffu, incl, 31);", "    }",
+    L += ["        c[u] = 0;",
+          f"        body({', '.join(args + ['v[u]', 'c[u]'])});",
+          "        c[u] = l < hi ? tfm::kept(c[u], M) : 0;", "      }",
+          "#pragma unroll",
+          "      for (int u = 0; u < tfm::UNROLL; ++u) {",
+          "        const int at = tfm::place<M>(c[u], run);",
+          "#pragma unroll",
+          "        for (int j = 0; j < M; ++j)",
+          "          if (j < c[u]) mine[at + j] = v[u][j];",
+          "      }", "    }",
+          "    if (lane == 0) scan->warp_count[warp] = run;",
           "    __syncthreads();",
-          "    const int n = offsets[(g + 1) * tfm::WARPS] - base;",
-          "    for (int e = threadIdx.x; e < n; e += blockDim.x)",
-          "      buf[base + e] = fifo[e];", "  }",
-          "  // the tail past the total count is zero",
-          "  const long long stride = (long long)gridDim.x * blockDim.x;",
-          "  for (long long e = offsets[GRID * tfm::WARPS] + "
-          "(long long)blockIdx.x * blockDim.x + threadIdx.x;",
-          "       e < CAP; e += stride) buf[e] = 0.0f;",
+          # (2) the warp's offset in the tile and the tile's count
+          "    int off = 0, tile_n = 0;",
+          "    for (int w = 0; w < tfm::WARPS; ++w) {",
+          "      const int cw = scan->warp_count[w];",
+          "      off += w < warp ? cw : 0;",
+          "      tile_n += cw;",
+          "    }",
+          "    if (threadIdx.x == 0) "
+          "tfm::publish_count(flags, g, tile_n, epoch);",
+          # (3) the tile's offset by look-back; each warp copies its run out
+          "    const int base = "
+          "tfm::look_back(flags, g, tile_n, epoch, scan) + off;",
+          "#pragma unroll 4",
+          "    for (int i = lane; i < run; i += 32) buf[base + i] = mine[i];",
+          "  }",
+          "  hop::cp_async_wait<0>();",
+          "  tfm::tail(buf, count, flags, GRID, CAP, epoch, scan);",
           "}", "}  // namespace", ""]
-    L.append(_ctas_source("tfm", "write_kernel", "SMEM_BYTES",
-                          ["count_kernel"]))
-    in_args = [f"(const float*)ins[{i}]" for i in range(len(spec.inputs))]
+    L.append(_ctas_source("tfm", "flatmap_kernel", "SMEM_BYTES"))
+    n_in = len(spec.inputs)
+    decl = "".join(f"  const float* in{i} = (const float*)ins[{i}];\n"
+                   for i in range(n_in))
+    refs = ", ".join([f"&in{i}" for i in range(n_in)]
+                     + ["&b", "&c", "&f", "&epoch"])
     L.append(f'''extern "C" int tfm_launch(void* const* ins, void* buf,
-                          void* counts, void* offsets, void* total,
+                          void* count, void* flags, unsigned epoch,
                           int ctas, void* stream) {{
-  cudaStream_t s = (cudaStream_t)stream;
-  count_kernel<<<ctas, tcopy::THREADS, TILE_BYTES, s>>>(
-      {", ".join(in_args + ["(int*)counts"])});
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  tfm::scan_kernel<<<1, tfm::SCAN_THREADS, 0, s>>>(
-      (const int*)counts, (int*)offsets, (int*)total, GRID * tfm::WARPS);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  write_kernel<<<ctas, tcopy::THREADS, SMEM_BYTES, s>>>(
-      {", ".join(in_args + ["(const int*)offsets", "(float*)buf"])});
-  return (int)cudaGetLastError();
+{decl}  float* b = (float*)buf;
+  int* c = (int*)count;
+  uint64_t* f = (uint64_t*)flags;
+  void* args[] = {{{refs}}};
+  return gflags::launch(flatmap_kernel, ctas, tcopy::THREADS, SMEM_BYTES,
+                        (cudaStream_t)stream, args);
 }}''')
     return "\n".join(L) + build.ERROR_STRING
 
@@ -1856,6 +1932,7 @@ class TiledKernel:
         self._source: Optional[str] = None
         self._lib = None
         self._ctas: Dict[torch.device, int] = {}
+        self.flags = Flags()   # the FlatMap's: one word per grid step
 
     @property
     def name(self) -> str:
@@ -1878,16 +1955,19 @@ class TiledKernel:
                        "tmap_launch": [vp, vp, ci, vp]}
             else:
                 fns = {"tfm_ctas": [ctypes.POINTER(ci)],
-                       "tfm_launch": [vp] * 5 + [ci, vp]}
+                       "tfm_launch": [vp] * 4 + [ctypes.c_uint, ci, vp]}
             self._lib = build.bind(lib, fns)
         return self._lib
 
     def ctas(self, dev: torch.device) -> int:
         if dev not in self._ctas:
             fn = "tmap_ctas" if self.spec.kind == "map" else "tfm_ctas"
+            spec = self.spec
+            what = f"tiled {spec.kind}" + (
+                f" (charged {spec.onchip_bytes} B + scan {spec.scan_bytes} B)"
+                if spec.scan_bytes else "")
             self._ctas[dev] = _persistent_ctas(
-                self.library, fn, self.spec.onchip_bytes, dev,
-                f"tiled {self.spec.kind}")
+                self.library, fn, spec.smem_bytes, dev, what)
         return self._ctas[dev]
 
 
@@ -2041,11 +2121,12 @@ def tiled_flatmap(kernel: TiledKernel, tensors: Dict[str, torch.Tensor]
     the device (never read by the host here).
 
     Replaces the TPU kernel ``lower_tiled_flatmap`` (reference
-    codegen_pallas.py), whose running offset crosses grid steps: a
-    count pass, a one-block exclusive scan of the per-warp counts and a
-    write pass that compacts each tile in its shared FIFO.  Bound by
-    main-memory bytes.  CPU tensors take ``tiled_flatmap_plain``; CUDA
-    tensors launch the kernels or raise.
+    codegen_pallas.py), whose running offset crosses grid steps: one
+    cooperative launch that reads each tile once through a ``cp.async``
+    ring, counts and compacts it in its shared FIFO and finds its offset
+    by decoupled look-back over the tiles' flag words
+    (``kernel.flags``).  Bound by main-memory bytes.  CPU tensors take
+    ``tiled_flatmap_plain``; CUDA tensors launch the kernel or raise.
     """
     spec = kernel.spec
     ins, dev = _tiled_inputs(spec, tensors)
@@ -2053,19 +2134,16 @@ def tiled_flatmap(kernel: TiledKernel, tensors: Dict[str, torch.Tensor]
         return tiled_flatmap_plain(spec, tensors)
     lib = kernel.library()
     ctas = kernel.ctas(dev)
-    segs = spec.steps * FLATMAP_WARPS
+    stream = torch.cuda.current_stream(dev).cuda_stream
     buf = torch.empty(spec.out_shape, dtype=torch.float32, device=dev)
-    counts = torch.empty(segs, dtype=torch.int32, device=dev)
-    offsets = torch.empty(segs + 1, dtype=torch.int32, device=dev)
-    total = torch.empty(1, dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    flags, epoch = kernel.flags.next(dev, stream, spec.steps)
     ptrs = build.pointers([t.data_ptr() for t in ins])
     rc = lib.tfm_launch(ctypes.cast(ptrs, ctypes.c_void_p), buf.data_ptr(),
-                        counts.data_ptr(), offsets.data_ptr(),
-                        total.data_ptr(), ctas,
-                        torch.cuda.current_stream(dev).cuda_stream)
+                        count.data_ptr(), flags, epoch, ctas, stream)
     build.check(lib, rc, "tiled_flatmap launch")
     tiled_flatmap.launches += 1
-    return buf, total.reshape(())
+    return buf, count
 
 
 tiled_flatmap.launches = 0

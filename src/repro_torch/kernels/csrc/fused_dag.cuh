@@ -73,10 +73,13 @@
 //    after the charged buffers: DagSpec.smem_bytes = charge + staging.
 //
 // The hand-written kernels that replace the other revisited-output TPU
-// kernels (filter_fold.cuh, groupby_fold.cuh, fused_kmeans.cuh) reuse
-// block_sum and combine_partials (launch_combine); groupby_fold.cuh and
-// fused_kmeans.cuh take this CAM's register form (codegen_cuda.cam_struct_c)
-// or a shared form of their own.  No kernel of the port takes atomics.
+// kernels reuse block_sum (filter_fold.cuh, groupby_fold.cuh,
+// fused_kmeans.cuh) and combine_partials (launch_combine; the keyed two:
+// filter_fold.cuh adds its partials in the same launch, grid_flags.cuh);
+// groupby_fold.cuh and fused_kmeans.cuh take this CAM's register form
+// (codegen_cuda.cam_struct_c) or a shared form of their own, and
+// filter_fold.cuh and tiled_flatmap.cuh fill their rings by copy_async.
+// No kernel of the port takes atomics.
 #pragma once
 
 #include "hopper.cuh"

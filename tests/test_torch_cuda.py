@@ -639,18 +639,18 @@ HAND = {
 @pytest.mark.parametrize("name", sorted(HAND))
 def test_hand_kernels_take_a_view_off_a_16_byte_boundary(name):
     """The hand kernels read scalars, or copy such a view before a 16-byte
-    ``cp.async`` reads it (fused_kmeans): a view one word past a 16-byte
-    boundary gives the aligned input's result, bitwise for groupby_fold
-    and fused_kmeans, whose sums take one fixed order."""
+    ``cp.async`` reads it (fused_kmeans and the filter-folds): a view one
+    word past a 16-byte boundary gives the aligned input's result,
+    bitwise for the kernels whose sums take one fixed order."""
     _card()
     a, b = _randn(0, 64, 64), _randn(1, 64, 64)
     oa, ob = _offset_view(a), _offset_view(b)
     assert oa.data_ptr() % 16 and ob.data_ptr() % 16
     got, want = HAND[name](oa, ob), HAND[name](a, b)
-    if name in ("groupby_fold", "fused_kmeans"):
-        assert torch.equal(got, want)
-    else:
+    if name == "matmul":
         _sum_close(got, want)
+    else:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -661,6 +661,257 @@ def test_staged_filter_fold_refuses_a_step_beyond_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
         fff.fused_filter_fold(x, x, 0.0, 1.0, block_t=1 << 17)
     assert fff.fused_filter_fold.launches == before
+
+
+# ---------------------------------- the one-launch kernels (grid_flags)
+def _kernels_of_calls(fn, calls):
+    """name -> launches of the device kernels ``calls`` calls of ``fn``
+    make, by torch.profiler after a traced but discarded warm-up call
+    (the tracer drops the first kernels it sees, and may drop others: it
+    shows at most what ran); up to three traces, until one shows any."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    seen = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=calls,
+                                       repeat=1)) as prof:
+            for _ in range(1 + calls):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if (getattr(e, "device_time_total", None)
+                    or getattr(e, "cuda_time_total", 0.0)) > 0}
+        if seen:
+            break
+    return seen
+
+
+def _flatmap_call(n, b, depth=2):
+    return cc.lower(tile(filter_program(n), {"f": (b,)}), depth=depth)
+
+
+def _flatmap_inputs(n, seed):
+    return {"x": torch.as_tensor(np.random.RandomState(seed).randn(n)
+                                 .astype(np.float32)).cuda()}
+
+
+def _flatmap_equal(out, want):
+    assert out[1].is_cuda and out[1].dtype == torch.int32 \
+        and out[1].dim() == 0
+    assert int(out[1]) == int(want[1])
+    assert torch.equal(out[0], want[0])
+    assert not bool(out[0][int(out[1]):].any())
+
+
+# entry point -> run(inputs), plain(inputs), inputs(seed), equal(got, want)
+ONE_LAUNCH = {
+    "filter_reduce": (
+        lambda xw: fr.filter_reduce(*xw, -0.5, 0.8, block_t=1024),
+        lambda xw: fr.filter_reduce_plain(*xw, -0.5, 0.8),
+        lambda seed: (_randn(seed, 1 << 16), _randn(seed + 1, 1 << 16)),
+        _sum_close),
+    "fused_filter_fold": (
+        lambda xw: fff.fused_filter_fold(*xw, -0.5, 0.8, block_t=1024),
+        lambda xw: fff.fused_filter_fold_plain(*xw, -0.5, 0.8),
+        lambda seed: (_randn(seed, 1 << 16), _randn(seed + 1, 1 << 16)),
+        _sum_close),
+    "tiled_flatmap": (
+        lambda inp: _FLATMAP(**inp),
+        lambda inp: _plain(_FLATMAP.kernel, inp),
+        lambda seed: _flatmap_inputs(1 << 16, seed),
+        _flatmap_equal),
+}
+_FLATMAP = None
+
+
+def _one_launch(name):
+    global _FLATMAP
+    if name == "tiled_flatmap" and _FLATMAP is None:
+        _FLATMAP = _flatmap_call(1 << 16, 256)
+    return ONE_LAUNCH[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ONE_LAUNCH))
+def test_one_launch_kernels_hold_a_b_a(name):
+    """Calls A, B, A back to back on different inputs, with no
+    synchronisation between them: each equals its plain version (a flag
+    word left by the call before would shift a prefix or a partial), and
+    the two A calls are bitwise equal."""
+    _card()
+    run, plain, make, equal = _one_launch(name)
+    a, b = make(0), make(10)
+    first, second, third = run(a), run(b), run(a)
+    torch.cuda.synchronize()
+    equal(first, plain(a))
+    equal(second, plain(b))
+    equal(third, plain(a))
+    if name == "tiled_flatmap":
+        assert torch.equal(first[0], third[0]) \
+            and int(first[1]) == int(third[1])
+    else:
+        assert torch.equal(first, third)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ONE_LAUNCH))
+def test_one_launch_kernels_make_one_launch_a_call(name):
+    """One call, one kernel launch: the wrapper counts one, and a trace
+    of three calls shows that kernel alone (no combine, no memset), at
+    most once a call."""
+    _card()
+    run, _, make, _ = _one_launch(name)
+    fn = {"filter_reduce": fr.filter_reduce,
+          "fused_filter_fold": fff.fused_filter_fold,
+          "tiled_flatmap": cc.tiled_flatmap}[name]
+    inp = make(3)
+    before = fn.launches
+    run(inp)
+    assert fn.launches == before + 1
+    seen = _kernels_of_calls(lambda: run(inp), 3)
+    kernel = "flatmap_kernel" if name == "tiled_flatmap" \
+        else "filter_fold_kernel"
+    assert len(seen) == 1 and kernel in next(iter(seen)), seen
+    assert 1 <= next(iter(seen.values())) <= 3, seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ONE_LAUNCH))
+def test_one_launch_kernels_with_the_grid_well_above_the_blocks(name):
+    """16,384 grid steps on at most a few hundred resident blocks: every
+    block walks many steps, and the look-back crosses many rounds."""
+    _card()
+    n, b = 1 << 21, 128
+    if name == "tiled_flatmap":
+        call = _flatmap_call(n, b)
+        inp = _flatmap_inputs(n, 4)
+        got = call(**inp)
+        ctas = call.kernel.ctas(torch.device("cuda", 0))
+        _flatmap_equal(got, _plain(call.kernel, inp))
+    else:
+        fn = fr.filter_reduce if name == "filter_reduce" \
+            else fff.fused_filter_fold
+        plain = fr.filter_reduce_plain if name == "filter_reduce" \
+            else fff.fused_filter_fold_plain
+        x, w = _randn(4, n), _randn(5, n)
+        got = fn(x, w, -0.5, 0.8, block_t=b)
+        ctas = fn.ctas
+        _sum_close(got, plain(x, w, -0.5, 0.8))
+    assert n // b >= 16 * ctas, (n // b, ctas)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kept", ["none", "all"])
+@pytest.mark.parametrize("n,b", [(1 << 16, 256), (1000, 40)])
+def test_tiled_flatmap_keeps_none_or_all(kept, n, b):
+    """A count of 0 leaves the whole buffer zero; a count of n keeps
+    every value, so the buffer is the input and no tail is left."""
+    _card()
+    call = _flatmap_call(n, b)
+    x = np.abs(np.random.RandomState(n).randn(n).astype(np.float32)) + 0.5
+    x = -x if kept == "none" else x
+    buf, count = call(x=torch.as_tensor(x).cuda())
+    torch.cuda.synchronize()
+    want = 0 if kept == "none" else n
+    assert int(count) == want
+    if kept == "none":
+        assert not bool(buf.any())
+    else:
+        np.testing.assert_array_equal(buf.cpu().numpy(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [2, 3, 4])
+def test_tiled_flatmap_at_each_ring_depth(depth):
+    """The ring at the plan's DEPTH slots: bitwise against the plain
+    version and stable over two calls."""
+    _card()
+    call = _flatmap_call(1 << 18, 2048, depth)
+    inp = _flatmap_inputs(1 << 18, depth)
+    first, second = call(**inp), call(**inp)
+    _flatmap_equal(first, _plain(call.kernel, inp))
+    assert torch.equal(first[0], second[0])
+
+
+# (staged, t, block_t, depth): whole steps; steps off a 16-byte boundary;
+# pieces of a step too large for the ring (off a boundary too)
+FILTER_RINGS = [(False, 1 << 16, 1024, 2), (True, 1 << 16, 1024, 3),
+                (False, 96_000, 9600, 3), (True, 96_000, 9600, 2),
+                (False, 96_000, 9600, 4), (True, 8190, 1365, 2),
+                (False, 8190, 1365, 3), (False, 5, 1, 2),
+                (False, 1 << 18, 1 << 18, 2), (True, 280_000, 40_000, 2),
+                (True, 200_005, 40_001, 3), (False, 3 * 65_537, 65_537, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FILTER_RINGS, ids=str)
+def test_filter_fold_ring_forms(case):
+    """Every ring form the wrapper takes: a whole step a slot, a step off
+    a 16-byte boundary (4-byte copies at its ends), pieces of a step, at
+    depths 2 to 4; two calls bitwise equal, the sum within 1e-5 of the
+    plain version's largest magnitude."""
+    _card()
+    staged, t, bt, depth = case
+    lo, hi = float(np.float32(0.7)), float(np.float32(0.9))
+    x, w = _randn(20, t), _randn(21, t)
+    x[:3] = torch.tensor([lo, hi, 0.8], dtype=torch.float32)[:t]
+    first, _, form = fr.launch(x, w, lo, hi, bt, staged, depth)
+    second, _, _ = fr.launch(x, w, lo, hi, bt, staged, depth)
+    torch.cuda.synchronize()
+    assert form == fr.ring_form(bt, depth, staged, _optin())
+    assert (form.pieces > 1) == (form.piece < bt)
+    assert torch.equal(first, second)
+    _sum_close(first, fr.filter_fold_plain(x, w, lo, hi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", [fr.filter_reduce, fff.fused_filter_fold])
+def test_filter_folds_take_the_plans_ring(fn):
+    """auto_tile=True on TPC-H Q6's 6,000,000 rows: the DSE's block and
+    depth for the card, one block a step's ring per SM at most."""
+    _card()
+    t = 6_000_000
+    x, w = _randn(30, t), _randn(31, t)
+    kind = "filter_reduce" if fn is fr.filter_reduce else "fused_filter_fold"
+    block, plan = ops.resolve_plan(kind, t, device="cuda")
+    first = fn(x, w, -0.5, 0.8, auto_tile=True)
+    second = fn(x, w, -0.5, 0.8, auto_tile=True)
+    assert (fn.form.block_t, fn.form.depth, fn.form.piece) \
+        == (block, plan.depth, block)
+    assert fn.form.ring_bytes == plan.vmem_bytes
+    assert torch.equal(first, second)
+    _sum_close(first, fr.filter_fold_plain(x, w, -0.5, 0.8))
+
+
+@pytest.mark.cuda
+def test_one_launch_kernels_build_without_a_stack_frame_or_an_atomic():
+    """ptxas reports no stack frame for the filter-fold library and the
+    FlatMap kernels these tests build, and their SASS has cp.async
+    (LDGSTS) and no atomic (ATOMS, ATOMG, ATOM, RED)."""
+    import os
+    import subprocess
+
+    _card()
+    items = [(fr.LIB.name, fr.LIB.source)]
+    for n, b, depth in [(1 << 16, 256, 2), (1 << 18, 2048, 3)]:
+        kern = _flatmap_call(n, b, depth).kernel
+        items.append((kern.name, kern.source))
+    kern = cc.lower(tile(two_way_program(4096), {"two": (512,)})).kernel
+    items.append((kern.name, kern.source))
+    exe = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
+                       "bin", "cuobjdump")
+    for p in build.compile_all(items):
+        log = p.with_suffix(".log").read_text()
+        frames = [int(b) for b in re.findall(r"(\d+) bytes stack frame", log)]
+        assert frames and not any(frames), (p.name, log)
+        sass = subprocess.run([exe, "-sass", str(p)], capture_output=True,
+                              text=True, check=True).stdout
+        assert re.search(r"\bLDGSTS\b", sass), p.name
+        assert not re.search(r"\b(ATOMS|ATOMG|ATOM|RED)\b", sass), p.name
 
 
 GROUPBYS = [(512, 16, 4, 128), (256, 8, 1, 256), (128, 64, 8, 32),

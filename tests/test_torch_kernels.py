@@ -28,6 +28,8 @@ from repro.kernels.matmul import matmul as jmatmul
 
 from repro_torch.core import cost
 from repro_torch.kernels import autotile, build, ops, ref
+from repro_torch.kernels import filter_reduce as fr
+from repro_torch.kernels import grid_flags as gf
 from repro_torch.kernels.filter_reduce import filter_reduce
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_filter_fold import fused_filter_fold
@@ -309,6 +311,141 @@ def test_filter_kernels_take_the_reference_kernels_input_types(name):
     got = fn(x, w, -0.5, 0.8, block_t=256, device="cpu")
     assert got.dtype == torch.float32 and want.dtype == jnp.float32
     np.testing.assert_allclose(float(got), float(want), rtol=1e-4, atol=1e-4)
+
+
+# ------------------- the filter-folds' ring and the flag words (host side)
+CARD_OPTIN = cost.H100_SXM.onchip_bytes      # 232,448 B a block
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("depth", fr.DEPTHS)
+@pytest.mark.parametrize("block_t", [1, 3, 4, 1000, 1365, 9600, 40_000,
+                                     40_001, 65_537, 1 << 18])
+def test_ring_form_covers_any_step(block_t, depth, staged):
+    """``ring_form`` for any block_t the wrappers take: a whole step a
+    slot when the ring fits the card's block, else fixed pieces (whole
+    float4 rounds) that cover the step; a slot holds any unit at its
+    source alignment; the staged kernel refuses a stage of block_t floats
+    beyond a block's shared memory."""
+    if staged and 4 * block_t > CARD_OPTIN:
+        with pytest.raises(ValueError, match="shared memory"):
+            fr.ring_form(block_t, depth, staged, CARD_OPTIN)
+        return
+    form = fr.ring_form(block_t, depth, staged, CARD_OPTIN)
+    assert (form.block_t, form.depth, form.staged) == (block_t, depth, staged)
+    assert form.arrays == (3 if staged else 2)
+    assert form.variant == 2 * depth + staged
+    assert form.ring_bytes == 4 * form.arrays * depth * form.slot_words
+    assert form.smem_bytes == max(form.ring_bytes, 4 * fr.COMBINE_WORDS)
+    assert form.smem_bytes <= CARD_OPTIN
+    whole = 4 * form.arrays * depth * fr.slot_words(block_t, block_t)
+    if whole <= CARD_OPTIN:
+        assert (form.piece, form.pieces) == (block_t, 1)
+    else:
+        assert form.piece % fr.PIECE_ALIGN == 0 and form.piece < block_t
+        bigger = fr.slot_words(block_t, form.piece + fr.PIECE_ALIGN)
+        assert 4 * form.arrays * depth * bigger > CARD_OPTIN
+    units = [min(form.piece, block_t - j * form.piece)
+             for j in range(form.pieces)]
+    assert sum(units) == block_t and min(units) > 0
+    assert form.slot_words % 4 == 0
+    for first in range(4):     # a unit's first row, mod 4
+        if block_t % 4 == 0 and first:
+            continue           # steps and pieces start on 16 bytes
+        assert first + max(units) <= form.slot_words
+    if block_t % 4 == 0:
+        assert form.slot_words == form.piece
+
+
+@pytest.mark.parametrize("kind,staged", [("filter_reduce", False),
+                                         ("fused_filter_fold", True)])
+@pytest.mark.parametrize("tier", [cost.TPU, cost.H100_SXM], ids=str)
+def test_ring_form_takes_the_plans_bytes(kind, staged, tier):
+    """At TPC-H Q6's 6,000,000 rows the ring is the plan's block at its
+    depth, and its bytes are the plan's charge (x and w, and the staged
+    kernel's intermediate, at depth slots): on the card's budget (9600
+    rows at depth 3, and at depth 2 with the stage; 230,400 B) and on
+    the reference's (80,000 rows at depth 4)."""
+    block, plan = ops.resolve_plan(kind, 6_000_000, tier=tier)
+    form = fr.ring_form(block, plan.depth, staged, tier.onchip_bytes)
+    assert (form.piece, form.pieces) == (block, 1)
+    assert form.ring_bytes == plan.vmem_bytes
+    if tier is cost.H100_SXM:
+        assert (block, plan.depth, form.smem_bytes) == (
+            9600, 2 if staged else 3, 230_400)
+
+
+def test_ring_form_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="depth"):
+        fr.ring_form(1024, 5, False, CARD_OPTIN)
+    with pytest.raises(ValueError, match="positive"):
+        fr.ring_form(0, 2, False, CARD_OPTIN)
+    with pytest.raises(ValueError, match="no ring"):
+        fr.ring_form(1 << 16, 4, False, 16 * 1024)
+
+
+def test_flag_words_layout():
+    """A flag word: the epoch above a 2-bit state in the high half, the
+    value (an int count or a float's bits) in the low half."""
+    w = gf.word(5, gf.INCLUSIVE, 123)
+    assert w == (5 << 34) | (2 << 32) | 123
+    assert gf.fields(w) == (5, gf.INCLUSIVE, 123)
+    bits = int(np.float32(-1.5).view(np.uint32))
+    top = gf.word(gf.LAST_EPOCH, gf.AGGREGATE, bits)
+    assert gf.fields(top) == (gf.LAST_EPOCH, gf.AGGREGATE, bits)
+    assert top < 1 << 64 and gf.LAST_EPOCH == (1 << gf.EPOCH_BITS) - 1
+    # the int64 a buffer holds gives the same fields
+    as_int64 = int(torch.tensor([top - (1 << 64)], dtype=torch.int64)[0])
+    assert gf.fields(as_int64) == gf.fields(top)
+    assert gf.fields(gf.word(0, gf.EMPTY, 0)) == (0, gf.EMPTY, 0)
+    with pytest.raises(ValueError):
+        gf.word(gf.LAST_EPOCH + 1, gf.AGGREGATE, 0)
+    with pytest.raises(ValueError):
+        gf.word(1, 4, 0)
+
+
+def test_flags_advance_the_epoch_and_zero_once():
+    """Each launch takes the next epoch of its (device, stream); a buffer
+    is zeroed when it is made (a grown one starts again at epoch 1), and
+    again only when the epoch wraps."""
+    flags, dev = gf.Flags(), torch.device("cpu")
+    p1, e1 = flags.next(dev, 0, 4)
+    p2, e2 = flags.next(dev, 0, 3)
+    assert (e1, e2) == (1, 2) and p1 == p2
+    assert flags.next(dev, 7, 4)[1] == 1          # another stream
+    buf, _ = flags._bufs[(dev, 0)]
+    buf.fill_(-1)
+    p3, e3 = flags.next(dev, 0, 64)               # grown: fresh zeros
+    grown, _ = flags._bufs[(dev, 0)]
+    assert e3 == 1 and grown.numel() == 64 and not grown.any()
+    assert p3 == grown.data_ptr()
+    grown.fill_(-1)
+    flags._bufs[(dev, 0)][1] = gf.LAST_EPOCH
+    assert flags.next(dev, 0, 64)[1] == 1 and not grown.any()
+
+
+def test_host_constants_are_the_headers():
+    """The host's copies of the kernels' constants: flag layout and
+    states, the filter-folds' piece (whole rounds of a float4 a thread),
+    the FlatMap's scan scratch."""
+    import re
+    from repro_torch.core import codegen_cuda as cc
+
+    def text(name):
+        return (build.CSRC / name).read_text()
+
+    flags, tfm = text("grid_flags.cuh"), text("tiled_flatmap.cuh")
+    threads = int(re.search(r"THREADS = (\d+);", text("tile_copy.cuh"))[1])
+    assert f"EPOCH_BITS = {gf.EPOCH_BITS};" in flags
+    for name, value in (("EMPTY", gf.EMPTY), ("AGGREGATE", gf.AGGREGATE),
+                        ("INCLUSIVE", gf.INCLUSIVE)):
+        assert f"{name} = {value}u;" in flags
+    assert fr.PIECE_ALIGN == 4 * threads
+    struct = re.search(r"struct Scan \{(.*?)\};", tfm, re.S)[1]
+    ints = sum(threads // 32 if "[WARPS]" in f else
+               int(re.search(r"\[(\d+)\]", f)[1]) if "[" in f else 1
+               for f in re.findall(r"int ([^;]+);", struct))
+    assert 4 * ints == cc.FLATMAP_SCAN_BYTES
 
 
 # ----------------------------------------------------- fused k-means

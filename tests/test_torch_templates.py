@@ -12,6 +12,7 @@ JAX package's eager executor.
 """
 import dataclasses
 import os
+import re
 import sys
 
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from repro.patterns import analytics as jan
 from repro_torch.core import codegen_cuda as cc
 from repro_torch.core import codegen_torch as tex
 from repro_torch.core import cost
+from repro_torch.core.memory import plan_memory
 from repro_torch.core.strip_mine import tile
 from repro_torch.patterns import analytics as an
 
@@ -248,6 +250,45 @@ def test_generated_source_is_deterministic_and_has_the_body(name):
         assert line.strip() in src, line
     if name in FLATMAPS:
         assert "int& count" in src
+
+
+@pytest.mark.parametrize("b", [256, 250])
+@pytest.mark.parametrize("depth", [2, 3])
+@pytest.mark.parametrize("name", sorted(FLATMAPS))
+def test_flatmap_source_is_one_cooperative_pass(name, depth, b):
+    """The FlatMap's source at depths 2 and 3: deterministic; one
+    ``__global__`` tile kernel (no count or scan kernel), launched
+    cooperatively; 16-byte copyable tiles (b = 256) through the
+    ``cp.async`` ring, the others (b = 250) copied synchronously; no
+    atomics; its shared bytes the plan's charge plus the counted scan
+    scratch."""
+    def tiled():
+        p = FLATMAPS[name][1](4 * b)
+        return tile(p, {p.name: (b,)})
+
+    def spec():
+        return cc.tiled_spec(tiled(), depth=depth)
+
+    s = spec()
+    src = cc.flatmap_source(s)
+    assert src == cc.flatmap_source(spec())
+    assert len(re.findall(r"\b__global__\b", src)) == 1
+    assert "flatmap_kernel(" in src
+    for gone in ("scan_kernel", "count_kernel", "write_kernel", "<<<"):
+        assert gone not in src
+    assert "gflags::launch(flatmap_kernel" in src
+    assert "tfm::look_back(" in src and "tfm::publish_count(" in src
+    assert not re.search(r"atomic|\bred\.", src)
+    vec = any(ld.vec4 and ld.slots > 1 for ld in s.loads)
+    assert vec == (b == 256)
+    assert ("fdag::copy_async(" in src) == vec
+    assert ("tcopy::copy_scalar(" in src) == (not vec)
+    assert "hop::cp_async_wait<DEPTH - 2>();" in src
+    assert s.onchip_bytes == plan_memory(tiled(), depth=depth).total_bytes
+    assert s.scan_bytes == cc.FLATMAP_SCAN_BYTES
+    assert s.smem_bytes == s.onchip_bytes + s.scan_bytes
+    assert f"constexpr int SMEM_BYTES = {s.smem_bytes};" in src
+    assert f"constexpr int CHARGE_BYTES = {s.onchip_bytes};" in src
 
 
 def test_a_pattern_without_a_cuda_body_has_no_source():
