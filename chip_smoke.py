@@ -2233,6 +2233,215 @@ def run_serving(tier, torch, dev) -> dict:
     return row
 
 
+TUNING_PROGRAMS = ("outerprod", "gda", "gemm", "filter")
+
+
+def _modeled(kind_of: str, program, tier, dse, calibrate, kind: str) -> dict:
+    """Each shortlisted candidate's modeled seconds, priced as the
+    measured DSE is about to price it (the device's current calibration
+    profile): ``{candidate: seconds}`` in analytic order."""
+    prof = calibrate.load_profile(kind)
+    if kind_of == "pipeline":
+        priced = dse._price_whole_pipeline(
+            program, vmem_budget=tier.onchip_bytes, tier=tier,
+            counters={"explored": 0, "pruned": 0}, profile=prof)
+        return {(b, d): res[3] for (b, d), res in priced[:dse.TOP_K]}
+    cands, _, _, _ = dse.shortlist(program, tier=tier,
+                                   vmem_budget=tier.onchip_bytes,
+                                   profile=prof)
+    return {tuple(sorted((k, tuple(v)) for k, v in c.sizes.items())):
+            c.calibrated_seconds
+            for c in dse._top_distinct_sizes(cands, dse.TOP_K)}
+
+
+def _cand(entry) -> tuple:
+    """A measured-rank or certification entry's candidate identity."""
+    if "sizes" in entry:
+        return tuple(sorted((k, tuple(v)) for k, v in entry["sizes"].items()))
+    return (entry["block"], entry["depth"])
+
+
+def planted_tile_fault(p, dev, cc, dse, resilience) -> None:
+    """Certification on the card passes the DSE's outer-product plan and
+    refuses the same candidate with its first output tile zeroed."""
+    plan = dse.explore(p, device=dev)
+    ok, why = resilience.certify_tile_plan(p, plan.sizes, device=dev,
+                                           depth=plan.depth)
+    if not ok:
+        fail(f"tuning: certification refused the outer product's plan "
+             f"{plan.sizes}: {why}")
+    real = cc.lower_for_timing
+
+    def dropped(q, sizes, **kw):
+        fn, how = real(q, sizes, **kw)
+        bm, bn = sizes["outer"]
+
+        def run():
+            out = fn().clone()
+            out[:bm, :bn] = 0
+            return out
+
+        return run, how
+
+    cc.lower_for_timing = dropped
+    try:
+        bad, bad_why = resilience.certify_tile_plan(
+            p, plan.sizes, device=dev, depth=plan.depth)
+    finally:
+        cc.lower_for_timing = real
+    if bad:
+        fail("tuning: certification passed a candidate whose first "
+             "tile is zero")
+    print(f"[tuning] certification on the card: plan {plan.sizes} "
+          f"certified ({why}); with its first tile dropped refused "
+          f"({bad_why})", flush=True)
+
+
+def run_tuning(tier, torch, dev, stores: Path) -> None:
+    """The measured DSE on the card, tracing on, its stores in a fresh
+    ``stores``: ``explore_pipeline(pipe, measure="top_k")`` for the five
+    pipelines and ``explore(p, measure="top_k")`` for outerprod, gda and
+    gemm of SUITE and the Table 2 filter, at the main path's sizes.
+    Prints each program's analytic and measured winners, every
+    candidate's modeled and measured ms, Spearman's rho and the build
+    seconds; checks every measured winner certified, a second call a
+    cache hit with zero builds and lowerings, no event but
+    ``lower-unsupported``, a calibration profile keyed to the card, and
+    a trace ``benchmarks/check_trace.py`` accepts."""
+    import os
+
+    from repro_torch.core import calibrate, dse, measure, resilience
+    from repro_torch.core import codegen_cuda as cc
+    from repro_torch.core import telemetry
+    from repro_torch.kernels import build
+    from repro_torch.patterns.analytics import PIPELINES, SUITE
+
+    stores.mkdir(parents=True, exist_ok=True)
+    saved = {v: os.environ.pop(v, None) for v in (
+        "REPRO_DSE_CACHE", "REPRO_TIMING_DB", "REPRO_CALIB_PROFILE",
+        "REPRO_MEASURE", "REPRO_FAULTS", "REPRO_TRACE")}
+    os.environ["REPRO_DSE_CACHE"] = str(stores / "dse_cache.json")
+    telemetry.reset()
+    telemetry.enable()
+    t_phase = time.perf_counter()
+    kind = measure.device_kind(dev)
+    try:
+        planted_tile_fault(SUITE["outerprod"](OUTER_N, OUTER_N)[0], dev, cc,
+                           dse, resilience)
+        resilience.LOG.reset()
+        programs = [(f"pipeline[{n}]", "pipeline",
+                     b(n=TPCH_ROWS if n == "tpchq6" else ROWS)[0])
+                    for n, b in PIPELINES.items()]
+        shapes = {"outerprod": (OUTER_N, OUTER_N), "gemm": (GEMM_N,) * 3}
+        for n in TUNING_PROGRAMS:
+            p = filter_program(TPCH_ROWS)[0] if n == "filter" else \
+                SUITE[n](*shapes[n])[0] if n in shapes else \
+                SUITE[n](n=ROWS)[0]
+            programs.append((n, "pattern", p))
+        launches = {"tiled_map": cc.tiled_map, "fused_dag": cc.fused_dag,
+                    "tiled_flatmap": cc.tiled_flatmap,
+                    "tiled_gemm": cc.tiled_gemm}
+        for fn in launches.values():
+            fn.launches = 0
+        for label, kind_of, p in programs:
+            modeled = _modeled(kind_of, p, tier, dse, calibrate, kind)
+            explore = dse.explore_pipeline if kind_of == "pipeline" \
+                else dse.explore
+            b0 = build.compile_all.builds
+            s0 = telemetry.metrics_snapshot()["counters"].get(
+                "dse.build_s", 0.0)
+            t0 = time.perf_counter()
+            plan = explore(p, measure="top_k", device=dev)
+            secs = time.perf_counter() - t0
+            build_s = telemetry.metrics_snapshot()["counters"].get(
+                "dse.build_s", 0.0) - s0
+            rec = dse.explain_dict(plan)["provenance"]
+            timed = {_cand(r): r["median_s"] for r in rec["measured_ranks"]}
+            first = next(iter(modeled))
+            if kind_of == "pattern":
+                first, won = dict(first), plan.sizes
+            else:
+                won = (plan.block, plan.depth)
+            print(f"[tuning] {label}: analytic winner {first}, measured "
+                  f"winner {won} (measured={plan.measured}, timed "
+                  f"{plan.timed}); "
+                  f"{build.compile_all.builds - b0} nvcc builds in "
+                  f"{build_s:.1f} s; {secs:.1f} s in all", flush=True)
+            for cand, s in modeled.items():
+                got = timed.get(cand)
+                print(f"[tuning]   {cand}: modeled {s * 1e3:.6g} ms, "
+                      + (f"measured {got * 1e3:.6g} ms" if got is not None
+                         else "not timed (no template)"))
+            pairs = [(modeled[c], timed[c]) for c in modeled if c in timed]
+            if len(pairs) >= 2:
+                rho = measure.spearman([a for a, _ in pairs],
+                                       [b for _, b in pairs])
+                print(f"[tuning]   spearman rho (modeled vs measured, "
+                      f"{len(pairs)} candidates) = {rho:.3f}")
+            if plan.measured:
+                win = [c for c in rec["certification"] if c["ok"]]
+                if not win:
+                    fail(f"tuning: {label}'s measured winner has no "
+                         "certificate")
+                print(f"[tuning]   winner certified on the card: "
+                      f"{win[-1]['reason']}")
+            elif label != "gemm":
+                fail(f"tuning: {label} shipped no measured winner")
+            else:
+                print("[tuning]   gemm: no shortlisted candidate has a CUDA "
+                      "template at this budget; the analytic plan ships "
+                      f"({plan.sizes}), recorded as a lower-unsupported "
+                      "fallback")
+            b1, n_spans = build.compile_all.builds, len(telemetry.span_log())
+            again = explore(p, measure="top_k", device=dev)
+            lowered = [s["name"] for s in telemetry.span_log()[n_spans:]
+                       if s["name"].startswith("codegen.")]
+            if not again.cached or build.compile_all.builds != b1 or lowered:
+                fail(f"tuning: {label}'s second call was not a pure cache "
+                     f"hit (cached={again.cached}, builds "
+                     f"{build.compile_all.builds - b1}, lowered {lowered})")
+            print(f"[tuning]   second call: cache hit, 0 builds, 0 "
+                  "lowerings")
+        counts = {k: fn.launches for k, fn in launches.items()}
+        print(f"[tuning] launches on the path: {counts}")
+        for k in ("tiled_map", "fused_dag", "tiled_flatmap"):
+            if counts[k] == 0:
+                fail(f"tuning: {k} was never launched")
+        others = [(e.stage, e.kind, e.action) for e in resilience.LOG.events()
+                  if e.kind != "lower-unsupported"]
+        if others:
+            fail(f"tuning: events other than lower-unsupported: {others}")
+        print(f"[tuning] event log: {len(resilience.LOG.events())} events,"
+              " all lower-unsupported")
+        prof = calibrate.load_profile(kind)
+        path = Path(calibrate.profile_path(kind))
+        if prof is None or prof.device != kind or kind not in path.name:
+            fail(f"tuning: no calibration profile keyed to {kind}")
+        print(f"[tuning] calibration profile {path.name}: {prof.mode}, "
+              f"{prof.n_samples} samples, effective "
+              f"{prof.bandwidth_bytes_per_s / 1e12:.3f} TB/s, overhead "
+              f"{ {k: round(v * 1e6, 3) for k, v in prof.overhead_s.items()} }"
+              " us a step")
+        trace = telemetry.export_trace(str(stores / "trace.json"))
+        checked = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve().parent
+                                 / "benchmarks" / "check_trace.py"), trace],
+            capture_output=True, text=True)
+        if checked.returncode != 0:
+            fail(f"tuning: check_trace.py refused the trace: "
+                 f"{checked.stdout}{checked.stderr}")
+        print(f"[tuning] trace {trace}: "
+              f"{len(telemetry.span_log())} spans, check_trace.py ok")
+        print(f"[tuning] phase {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+    finally:
+        telemetry.reset()
+        for var, val in saved.items():
+            os.environ.pop(var, None)
+            if val is not None:
+                os.environ[var] = val
+
+
 def main() -> int:
     import torch
 
@@ -2246,6 +2455,15 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    # the DSE's stores (tuning cache, timing DB, calibration profile) in
+    # a fresh directory of this run under the git-ignored build/
+    import os
+    stores = src.parent / "build" / "chip_smoke" / \
+        f"{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}"
+    for var in ("REPRO_TIMING_DB", "REPRO_CALIB_PROFILE", "REPRO_MEASURE",
+                "REPRO_FAULTS", "REPRO_TRACE"):
+        os.environ.pop(var, None)
+    os.environ["REPRO_DSE_CACHE"] = str(stores / "main" / "dse_cache.json")
 
     from repro_torch.core import codegen_cuda as cc
     from repro_torch.core import pipeline as plmod
@@ -2270,6 +2488,9 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | {smi} | "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs"
           f" | tier {tier}", flush=True)
+    if sys.argv[1:] == ["--tuning"]:    # the measured-DSE phase alone
+        run_tuning(tier, torch, dev, stores / "tuning")
+        return 0
 
     # ---- lower every pipeline (kernels build lazily), then build all
     t0 = time.perf_counter()
@@ -2429,6 +2650,7 @@ def main() -> int:
     kernels.extend(run_lm_kernels(tier, torch, dev))
     kernels.extend(run_paged_kernels(tier, torch, dev))
     kernels.append(run_serving(tier, torch, dev))
+    run_tuning(tier, torch, dev, stores / "tuning")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

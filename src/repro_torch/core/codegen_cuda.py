@@ -50,7 +50,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import ir
+from . import ir, resilience, telemetry
 from .affine import AffineMap
 from ..device import resolve
 from ..kernels import build
@@ -1221,7 +1221,11 @@ def lower_fused_dag(terminals, grid_n: int, depth: int = 2, *,
     dev = resolve(device)
     limit = torch.cuda.get_device_properties(dev) \
         .shared_memory_per_block_optin if dev.type == "cuda" else None
-    kernel = DagKernel(dag_spec(terminals, grid_n, depth, smem_limit=limit))
+    with telemetry.span("codegen.lower_fused_dag",
+                        terminals=len(terminals), grid=int(grid_n),
+                        depth=int(depth)):
+        kernel = DagKernel(dag_spec(terminals, grid_n, depth,
+                                    smem_limit=limit))
 
     def call(**tensors):
         ts = {name: _staged(tensors[name], dev)
@@ -1251,34 +1255,39 @@ def lower_fused_chain(p: ir.Pattern, depth: int = 2, *,
 
 def lower_fused_pipeline(pipe, *, plan=None,
                          vmem_budget: Optional[int] = None, device=None,
-                         tier=None, **tuning) -> Callable:
+                         tier=None, cache=None, measure: Optional[str] = None,
+                         policy=None, options=None) -> Callable:
     """Lower a ``pipeline.Pipeline`` (DAG) with a joint-DSE
     ``PipelinePlan``.
 
     ``plan=None`` runs ``dse.explore_pipeline`` on the card's tier (or
-    ``tier``).  Each plan group lowers as one multi-output megakernel
-    (``lower_fused_dag``) at its own block size and depth; group
-    boundaries -- present only on the split-fallback path -- materialize
-    their cut intermediates and chain through them.  A group whose
-    shape the template does not take runs the per-stage oracle chain on
-    the CPU; on the card it raises ``NotImplementedError`` naming the
-    group, so no group runs plain PyTorch on CUDA tensors.  The plan is
-    exposed on the returned callable as ``.pipeline_plan``,
-    ``.group_lowerings`` records what each group compiled to
-    (``megakernel`` / ``oracle-chain``) and ``.group_calls`` holds the
-    per-group callables (a megakernel's carries its ``DagKernel``).
-    Multi-output pipelines return a name -> tensor dict.
+    ``tier``), with ``cache``, ``measure``, ``policy`` (a
+    ``resilience.Policy``) and ``options`` passed through (measured
+    mode, deadlines, quarantine, certification).  Each plan group lowers
+    as one multi-output megakernel (``lower_fused_dag``) at its own
+    block size and depth; group boundaries -- present only on the
+    split-fallback path -- materialize their cut intermediates and chain
+    through them.  A group whose shape the template does not take runs
+    the per-stage oracle chain on the CPU; on the card it raises
+    ``NotImplementedError`` naming the group, so no group runs plain
+    PyTorch on CUDA tensors.  The plan is exposed on the returned
+    callable as ``.pipeline_plan``, ``.group_lowerings`` records what
+    each group compiled to (``megakernel`` / ``oracle-chain``) and
+    ``.group_calls`` holds the per-group callables (a megakernel's
+    carries its ``DagKernel``).  Multi-output pipelines return a name ->
+    tensor dict.
     """
     from . import pipeline as plmod
     from .cost import device_tier
-    from .dse import _refuse_tuning_runtime, explore_pipeline
+    from .dse import explore_pipeline
 
-    _refuse_tuning_runtime(tuning)
     dev = resolve(device)
     tier = device_tier(dev) if tier is None else tier
     budget = tier.onchip_bytes if vmem_budget is None else vmem_budget
     if plan is None:
-        plan = explore_pipeline(pipe, tier=tier, vmem_budget=budget)
+        plan = explore_pipeline(pipe, tier=tier, vmem_budget=budget,
+                                device=dev, cache=cache, measure=measure,
+                                policy=policy, options=options)
 
     runners = []
     lowerings = []
@@ -2213,46 +2222,184 @@ def lower(p: ir.Pattern, *, device=None, depth: int = 2) -> Callable:
     single-pattern kmeans, a Map whose tile element is a nested fold --
     raises ``NotImplementedError``, as the reference has no template for
     it either."""
-    if match_tiled_gemm(p):
-        return lower_tiled_gemm(p, depth=depth, device=device)
-    if isinstance(p, ir.MultiFold) and p.combine is None \
-            and isinstance(p.inner, ir.Map):
-        return lower_tiled_map(p, depth=depth, device=device)
-    if isinstance(p, ir.GroupByFold) and p.strided:
-        return lower_tiled_groupby(p, depth=depth, device=device)
-    if isinstance(p, ir.FlatMap) and p.strided:
-        return lower_tiled_flatmap(p, depth=depth, device=device)
-    raise NotImplementedError(
-        f"no CUDA template for {type(p).__name__} '{p.name}' (strided="
-        f"{p.strided}); templates: tiled GEMM, Map, GroupByFold, FlatMap")
+    with telemetry.span("codegen.lower", kind=type(p).__name__,
+                        pattern=p.name) as sp:
+        if match_tiled_gemm(p):
+            sp.set(template="gemm")
+            return lower_tiled_gemm(p, depth=depth, device=device)
+        if isinstance(p, ir.MultiFold) and p.combine is None \
+                and isinstance(p.inner, ir.Map):
+            sp.set(template="map")
+            return lower_tiled_map(p, depth=depth, device=device)
+        if isinstance(p, ir.GroupByFold) and p.strided:
+            sp.set(template="groupby")
+            return lower_tiled_groupby(p, depth=depth, device=device)
+        if isinstance(p, ir.FlatMap) and p.strided:
+            sp.set(template="flatmap")
+            return lower_tiled_flatmap(p, depth=depth, device=device)
+        raise NotImplementedError(
+            f"no CUDA template for {type(p).__name__} '{p.name}' (strided="
+            f"{p.strided}); templates: tiled GEMM, Map, GroupByFold, "
+            "FlatMap")
 
 
 def lower_auto(p: ir.Pattern, *, plan=None,
                vmem_budget: Optional[int] = None, device=None, tier=None,
-               **tuning) -> Callable:
+               cache=None, measure: Optional[str] = None, policy=None,
+               options=None) -> Callable:
     """Tile an *untiled* pattern with a DSE-chosen ``TilePlan`` and lower
     it (paper §4 tile-size selection feeding §5 template selection).
 
     ``plan=None`` runs ``dse.explore`` on the card's tier (or ``tier``)
-    within ``vmem_budget`` (default: the tier's on-chip bytes); the
-    tiled IR is lowered at the plan's depth, and the plan is exposed on
-    the returned callable as ``.tile_plan``.  The reference's
-    tuning-runtime arguments raise ``NotImplementedError``.
+    within ``vmem_budget`` (default: the tier's on-chip bytes), with
+    ``cache``, ``measure="top_k"`` (back the plan with timings on the
+    card), ``policy`` (deadlines, quarantine, certification) and
+    ``options`` passed through; the tiled IR is lowered at the plan's
+    depth, and the plan is exposed on the returned callable as
+    ``.tile_plan``.
     """
     from .cost import device_tier
-    from .dse import _refuse_tuning_runtime, explore
+    from .dse import explore
     from .strip_mine import tile
 
-    _refuse_tuning_runtime(tuning)
     dev = resolve(device)
     tier = device_tier(dev) if tier is None else tier
     budget = tier.onchip_bytes if vmem_budget is None else vmem_budget
-    if plan is None:
-        plan = explore(p, tier=tier, vmem_budget=budget)
-    call = lower(tile(p, plan.sizes, vmem_budget_words=budget // 4),
-                 device=dev, depth=plan.depth)
+    with telemetry.span("codegen.lower_auto", kind=type(p).__name__,
+                        pattern=p.name):
+        if plan is None:
+            plan = explore(p, tier=tier, vmem_budget=budget, device=dev,
+                           cache=cache, measure=measure, policy=policy,
+                           options=options)
+        call = lower(tile(p, plan.sizes, vmem_budget_words=budget // 4),
+                     device=dev, depth=plan.depth)
     call.tile_plan = plan
     return call
+
+
+# --------------------------------------------------------------------
+# Lowering for the timing harness (the DSE's measured mode)
+# --------------------------------------------------------------------
+
+
+def kernel_sources(call) -> List[Tuple[str, str]]:
+    """The ``(build name, source)`` of every translation unit a lowered
+    call launches (``lower`` / ``lower_fused_pipeline`` results), for
+    ``kernels.build.compile_all``; nothing is built here."""
+    if hasattr(call, "group_calls"):
+        return [s for g in call.group_calls for s in kernel_sources(g)]
+    if hasattr(call, "kernel"):
+        return [(call.kernel.name, call.kernel.source)]
+    if hasattr(call, "source"):
+        return [("tiled_gemm", call.source)]
+    return []
+
+
+def _tile_for_timing(p: ir.Pattern, sizes: Dict[str, Tuple[int, ...]],
+                     budget: int) -> ir.Pattern:
+    from .strip_mine import insert_tile_copies, strip_mine, tile
+
+    try:
+        return tile(p, sizes, vmem_budget_words=budget // 4)
+    except resilience.EXPECTED_ERRORS:
+        # the DSE's own fallback (dse._tile_ir): interchange or stage
+        # lifting may not apply
+        return insert_tile_copies(strip_mine(p, sizes),
+                                  vmem_budget_words=budget // 4)
+
+
+def _timing_budget(vmem_budget: Optional[int], dev) -> int:
+    from .cost import device_tier
+    return device_tier(dev).onchip_bytes if vmem_budget is None \
+        else vmem_budget
+
+
+def lower_candidate(p: ir.Pattern, sizes: Dict[str, Tuple[int, ...]], *,
+                    vmem_budget: Optional[int] = None, device=None,
+                    depth: int = 2) -> Callable:
+    """One tile-size candidate of an *untiled* pattern tiled and lowered
+    through its CUDA template, nothing built or launched: the template's
+    spec is made (``tiled_spec`` / ``dag_spec`` / ``match_tiled_gemm``),
+    which raises for a shape no template takes.  ``kernel_sources`` of
+    the result is what the candidate's timing will build."""
+    dev = resolve(device)
+    t = _tile_for_timing(p, sizes, _timing_budget(vmem_budget, dev))
+    return lower(t, device=dev, depth=depth)
+
+
+def lower_for_timing(p: ir.Pattern, sizes: Dict[str, Tuple[int, ...]], *,
+                     vmem_budget: Optional[int] = None, seed: int = 0,
+                     device=None, depth: int = 2
+                     ) -> Tuple[Callable[[], Any], str]:
+    """Lower one tile-size candidate of an *untiled* pattern into a
+    zero-arg callable for the timing harness (``core.measure``), over
+    inputs synthesized on ``device`` (the card unless the caller names
+    another) from the pattern's tensor metadata.
+
+    The CUDA template is taken at the candidate's ``depth``
+    (``lower_candidate``); building its spec is the probe (the
+    reference traces the kernel abstractly) and raises before any
+    build.  On the card a candidate no template takes raises
+    ``NotImplementedError``: the eager oracle is never timed there.  On
+    the CPU such a candidate falls back, as in the reference, to the
+    oracle of the *tiled* IR (``codegen_torch``), labelled
+    ``"oracle"``.  Returns ``(fn, how)`` with ``how`` in {"cuda",
+    "oracle"}.
+    """
+    from .codegen_torch import execute
+    from .measure import synth_inputs
+
+    dev = resolve(device)
+    budget = _timing_budget(vmem_budget, dev)
+    tag = f"{type(p).__name__}:{p.name}"
+    # chaos hook: REPRO_FAULTS=lower:<p> fails this lowering before any
+    # fallback can mask it -- the caller's quarantine path must fire
+    resilience.inject("lower", tag)
+    with telemetry.span("codegen.lower_for_timing",
+                        kind=type(p).__name__, pattern=p.name) as sp:
+        inputs = synth_inputs(ir.inputs_of(p), seed=seed, device=dev)
+        try:
+            kern = lower_candidate(p, sizes, vmem_budget=budget,
+                                   device=dev, depth=depth)
+            sp.set(how="cuda")
+            return (lambda: kern(**inputs)), "cuda"
+        except resilience.EXPECTED_ERRORS as e:
+            if dev.type == "cuda":
+                raise
+            resilience.record_once(
+                "lower", resilience.classify(e), tag, "fallback",
+                f"CUDA template unusable ({e}); the codegen_torch oracle "
+                "of the tiled IR times instead")
+            t = _tile_for_timing(p, sizes, budget)
+            sp.set(how="oracle")
+            return (lambda: execute(t, inputs, device=dev)), "oracle"
+
+
+def lower_pipeline_for_timing(pipe, plan, *,
+                              vmem_budget: Optional[int] = None,
+                              seed: int = 0, device=None
+                              ) -> Callable[[], Any]:
+    """Lower one fused-pipeline plan candidate into a zero-arg callable
+    over inputs synthesized on ``device``, for the timing harness.  The
+    plan is taken as it is (no DSE re-entry), so each shortlisted
+    (block, depth) variant times exactly the megakernel it would ship
+    as.  On the card a group the template does not take raises
+    ``NotImplementedError``; on the CPU it runs the per-stage oracle
+    chain, as ``lower_fused_pipeline`` does."""
+    from . import pipeline as plmod
+    from .measure import synth_inputs
+
+    dev = resolve(device)
+    # chaos hook mirroring the single-pattern path
+    resilience.inject("lower", f"Pipeline:{pipe.name}")
+    with telemetry.span("codegen.lower_pipeline_for_timing",
+                        pipeline=pipe.name, block=int(plan.block),
+                        depth=int(plan.depth)):
+        inputs = synth_inputs(plmod.external_inputs(pipe), seed=seed,
+                              device=dev)
+        call = lower_fused_pipeline(pipe, plan=plan,
+                                    vmem_budget=vmem_budget, device=dev)
+    return lambda: call(**inputs)
 
 
 # --------------------------------------------------------------------
@@ -2561,12 +2708,14 @@ def lower_paged_decode(*, batch: int, kv_heads: int, group: int,
     ``.attend_launches`` and ``.combine_launches`` each kernel's
     launches, ``paged_decode``); CPU tensors take ``paged_decode_plain``.
     """
-    if layout not in PAGED_LAYOUTS:
-        raise ValueError(f"layout {layout!r}; one of {PAGED_LAYOUTS}")
-    if n_pages_max % pages_per_step:
-        raise ValueError(
-            f"pages_per_step {pages_per_step} must divide the static "
-            f"page bound {n_pages_max}")
+    with telemetry.span("codegen.lower_paged_decode", layout=layout,
+                        page_size=page_size, batch=batch):
+        if layout not in PAGED_LAYOUTS:
+            raise ValueError(f"layout {layout!r}; one of {PAGED_LAYOUTS}")
+        if n_pages_max % pages_per_step:
+            raise ValueError(
+                f"pages_per_step {pages_per_step} must divide the static "
+                f"page bound {n_pages_max}")
     dims = dict(batch=batch, kv_heads=kv_heads, group=group,
                 head_dim=head_dim, page_size=page_size,
                 n_pages_max=n_pages_max, layout=layout)

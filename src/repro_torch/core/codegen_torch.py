@@ -18,6 +18,7 @@ entries are index tensors of the batch.
 from __future__ import annotations
 
 import math
+import operator
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -102,13 +103,15 @@ def as_inputs(inputs: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
 class Env:
     """Maps symbolic sources to concrete tensors during evaluation."""
 
-    def __init__(self, inputs: Dict[str, torch.Tensor], device):
+    def __init__(self, inputs: Dict[str, torch.Tensor], device,
+                 batched_folds: bool = False):
         self.inputs = inputs
         self.device = device
+        self.batched_folds = batched_folds
         self.bindings: Dict[Any, torch.Tensor] = {}
 
     def child(self) -> "Env":
-        sub = Env(self.inputs, self.device)
+        sub = Env(self.inputs, self.device, self.batched_folds)
         sub.bindings = dict(self.bindings)
         return sub
 
@@ -199,8 +202,108 @@ def _execute_map(p: ir.Map, env: Env, outer_idx: Tuple) -> torch.Tensor:
     return val.reshape(tuple(p.domain) + tuple(val.shape[1:]))
 
 
-def _execute_multifold(p: ir.MultiFold, env: Env,
-                       outer_idx: Tuple) -> torch.Tensor:
+# what a body raises when it cannot take a whole domain at once
+_UNBATCHABLE = (RuntimeError, TypeError, ValueError, IndexError,
+                NotImplementedError)
+
+
+def _domain_stack(p: ir.Pattern, env: Env, outer_idx: Tuple):
+    """Every index of ``p``'s domain as one batched stack, with the
+    tile loads and read windows of all of them."""
+    idx = _unflatten(torch.arange(p.trip_count, device=env.device),
+                     p.domain)
+    stack = tuple(outer_idx) + idx
+    sub = env.child()
+    _load_tiles(sub, p, stack)
+    return stack, _windows(sub, p, stack)
+
+
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """Where a batched fold sums: float64 for a floating accumulator (a
+    float32 running sum over millions of rows drifts past the float32
+    tolerance), the accumulator's own type otherwise."""
+    return torch.float64 if dtype.is_floating_point else dtype
+
+
+def _tree_combine(combine, c: torch.Tensor) -> torch.Tensor:
+    """Fold the leading axis of ``c`` by ``combine`` in a balanced tree,
+    neighbours in index order (earlier on the left)."""
+    while c.shape[0] > 1:
+        m = c.shape[0] // 2
+        head = combine(c[0:2 * m:2], c[1:2 * m:2])
+        c = torch.cat([head, c[2 * m:]]) if c.shape[0] % 2 else head
+    return c[0]
+
+
+def _batched_multifold(p: ir.MultiFold, env: Env, outer_idx: Tuple):
+    """A root fold over one accumulator slot, evaluated at once: every
+    index's contribution ``fn(s, init, x)`` in one batched call, then
+    merged by ``combine`` in a tree, in float64 for a float accumulator
+    -- the parallel form the fold's combine licenses
+    (``_execute_multifold_parallel`` checks the same law).  Returns None where the fold does not take that form (a slot
+    that moves with the index, a body that cannot batch)."""
+    if p.inner is not None or p.combine is None \
+            or _batch(outer_idx) is not None or p.trip_count < 2:
+        return None
+    acc = _value(p.init(), env.device).clone()
+    upd = tuple(p.update_shape)
+    try:
+        stack, wins = _domain_stack(p, env, outer_idx)
+        starts = [_as_start(s) for s in p.out_index_map(*stack)]
+        if any(isinstance(s, torch.Tensor) for s in starts):
+            return None
+        sl = tuple(slice(s, s + w) for s, w in zip(starts, upd))
+        n = p.trip_count
+        init = acc[sl].reshape(upd)
+        c = _value(p.fn(stack, init.expand((n,) + upd), *wins),
+                   env.device, acc.dtype)
+        c = c.expand((n,) + upd) if c.dim() == len(upd) \
+            else c.reshape((n,) + upd)
+        wide = _wide(acc.dtype)
+        total = _value(p.combine(init.to(wide),
+                                 _tree_combine(p.combine, c.to(wide))),
+                       env.device, acc.dtype)
+    except _UNBATCHABLE:
+        return None
+    acc[sl] = total.reshape(upd)
+    return acc
+
+
+def _batched_groupbyfold(p: ir.GroupByFold, env: Env, outer_idx: Tuple):
+    """A root keyed fold with an additive combine, evaluated at once:
+    keys and values of every index in one batched call, added into the
+    table by ``index_add_`` in float64 for a float table (keys outside
+    the table dropped).  None where the fold does not take that form."""
+    if p.inner is not None or p.combine is not operator.add \
+            or _batch(outer_idx) is not None:
+        return None
+    acc = _value(p.init(), env.device).clone()
+    n, elem = p.trip_count, tuple(p.elem_shape)
+    try:
+        stack, wins = _domain_stack(p, env, outer_idx)
+        key, val = p.fn(stack, *wins)
+        key = _value(key, env.device, torch.int64).reshape(-1)
+        val = _value(val, env.device, acc.dtype)
+        val = val.expand((n,) + elem) if val.dim() == len(elem) \
+            else val.reshape((n,) + elem)
+        if key.numel() != n:
+            return None
+    except _UNBATCHABLE:
+        return None
+    # a key outside the table is dropped, as every CAM kernel drops it
+    keep = (key >= 0) & (key < p.num_keys)
+    wide = acc.to(_wide(acc.dtype))
+    wide.index_add_(0, key[keep], val[keep].to(wide.dtype))
+    return wide.to(acc.dtype)
+
+
+def _execute_multifold(p: ir.MultiFold, env: Env, outer_idx: Tuple,
+                       flat_range: Optional[Tuple[int, int]] = None
+                       ) -> torch.Tensor:
+    if env.batched_folds and flat_range is None:
+        out = _batched_multifold(p, env, outer_idx)
+        if out is not None:
+            return out
     acc0 = _value(p.init(), env.device)
     assert tuple(acc0.shape) == tuple(p.range_shape), (
         f"init shape {tuple(acc0.shape)} != range {p.range_shape}")
@@ -209,7 +312,8 @@ def _execute_multifold(p: ir.MultiFold, env: Env,
     acc = acc0.expand(lead + tuple(acc0.shape)).clone()
     upd_shape = tuple(p.update_shape)
 
-    for flat_i in range(p.trip_count):
+    lo, hi = flat_range if flat_range is not None else (0, p.trip_count)
+    for flat_i in range(lo, hi):
         stack = tuple(outer_idx) + _unflatten(flat_i, p.domain)
         sub = env.child()
         _load_tiles(sub, p, stack)
@@ -235,6 +339,28 @@ def _execute_multifold(p: ir.MultiFold, env: Env,
         acc[sl] = new.expand(lead + upd_shape) if new.dim() == 0 \
             else new.reshape(lead + upd_shape)
     return acc
+
+
+def _execute_multifold_parallel(p: ir.MultiFold, env: Env,
+                                outer_idx: Tuple,
+                                num_partials: int) -> torch.Tensor:
+    """Fold ``num_partials`` contiguous chunks of the (row-major
+    flattened) domain independently from ``init``, then merge them with
+    ``combine``: checks that combine is associative with identity
+    ``init`` (the parallel partials a reduction tree relies on)."""
+    assert p.combine is not None, "write-once MultiFold has no combine"
+    n = p.trip_count
+    assert n % num_partials == 0
+    chunk = n // num_partials
+    partials = [
+        _execute_multifold(p, env, outer_idx,
+                           flat_range=(c * chunk, (c + 1) * chunk))
+        for c in range(num_partials)
+    ]
+    out = partials[0]
+    for q in partials[1:]:
+        out = p.combine(out, q)
+    return out
 
 
 def _execute_flatmap(p: ir.FlatMap, env: Env,
@@ -288,6 +414,10 @@ def _execute_groupbyfold(p: ir.GroupByFold, env: Env,
                          outer_idx: Tuple) -> torch.Tensor:
     if _batch(outer_idx) is not None:
         raise NotImplementedError("GroupByFold inside a batched Map")
+    if env.batched_folds:
+        out = _batched_groupbyfold(p, env, outer_idx)
+        if out is not None:
+            return out
     acc = _value(p.init(), env.device).clone()
     assert tuple(acc.shape) == (p.num_keys,) + tuple(p.elem_shape)
     for flat_i in range(p.trip_count):
@@ -301,9 +431,12 @@ def _execute_groupbyfold(p: ir.GroupByFold, env: Env,
             acc = _value(p.combine(acc, partial), env.device, acc.dtype)
             continue
         key, val = p.fn(stack, *_windows(sub, p, stack))
-        # dynamic_slice semantics: the key is clamped into the table
-        key = min(max(int(_value(key, env.device, torch.int32)), 0),
-                  p.num_keys - 1)
+        # a key outside the table is dropped, as the CAM kernels (the
+        # reference's Pallas one-hot among them) drop it; the reference's
+        # oracle clamps it into the table (dynamic_slice)
+        key = int(_value(key, env.device, torch.int32))
+        if not 0 <= key < p.num_keys:
+            continue
         new = p.combine(acc[key], _value(val, env.device, acc.dtype))
         acc[key] = _value(new, env.device, acc.dtype).reshape(
             tuple(p.elem_shape))
@@ -322,8 +455,20 @@ def _execute(p: ir.Pattern, env: Env, outer_idx: Tuple) -> Any:
     raise TypeError(f"unknown pattern {type(p)}")
 
 
-def execute(p: ir.Pattern, inputs: Dict[str, Any], *, device=None) -> Any:
+def execute(p: ir.Pattern, inputs: Dict[str, Any], *, device=None,
+            parallel_partials: Optional[int] = None,
+            batched_folds: bool = False) -> Any:
     """Evaluate pattern ``p`` with concrete ``inputs`` (name -> array).
-    Runs on CUDA unless ``device`` says otherwise."""
+    Runs on CUDA unless ``device`` says otherwise.  ``parallel_partials``
+    folds a root MultiFold as that many independent chunks merged with
+    its combine (``_execute_multifold_parallel``).  ``batched_folds``
+    evaluates a root fold over one slot, or a keyed fold that adds, over
+    its whole domain at once (``_batched_multifold`` /
+    ``_batched_groupbyfold``) instead of one index at a time: the same
+    function in another summation order, summed in float64, fast and
+    accurate enough to certify a plan at millions of rows."""
     dev = resolve(device)
-    return _execute(p, Env(as_inputs(inputs, dev), dev), ())
+    env = Env(as_inputs(inputs, dev), dev, batched_folds)
+    if parallel_partials and isinstance(p, ir.MultiFold):
+        return _execute_multifold_parallel(p, env, (), parallel_partials)
+    return _execute(p, env, ())

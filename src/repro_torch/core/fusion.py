@@ -199,6 +199,17 @@ def fuse_dag_stages(stages: Sequence[ir.Pattern],
     on each terminal afterwards to materialize the external tensor
     tiles.
     """
+    from . import telemetry
+
+    with telemetry.span("fusion.fuse_dag", stages=len(stages),
+                        terminals=len(terminal_names),
+                        block=int(block)):
+        return _fuse_dag_body(stages, terminal_names, block)
+
+
+def _fuse_dag_body(stages: Sequence[ir.Pattern],
+                   terminal_names: Sequence[str],
+                   block: int) -> Dict[str, ir.Pattern]:
     from .strip_mine import strip_mine  # local import: avoid cycle
 
     names = {s.name for s in stages}
@@ -257,6 +268,15 @@ def fuse_dag_stages(stages: Sequence[ir.Pattern],
             tile_loads=tuple(outer.loads)
             + tuple(stage_tcs[nm] for nm in needed))
     return out
+
+
+def fuse_pipeline_stages(stages: Sequence[ir.Pattern],
+                         block: int) -> ir.Pattern:
+    """Fuse a *chain*: ``stages[:-1]`` produce, ``stages[-1]`` is the
+    single terminal.  The chain-shaped front end over
+    ``fuse_dag_stages``."""
+    terminal = stages[-1]
+    return fuse_dag_stages(stages, (terminal.name,), block)[terminal.name]
 
 
 # --------------------------------------------------------------------------

@@ -92,13 +92,20 @@ def plan_memory(p: Union[ir.Pattern, Sequence[ir.Pattern]],
         tiles -- the trade ``dse.explore`` searches.  Hoisted preloads,
         caches, FIFOs and CAM accumulators stay single-buffered.
     """
+    from . import telemetry
     from .fusion import tile_copy_key  # local import: avoid cycle
 
     if depth < 2:
         raise ValueError(f"metapipeline depth must be >= 2, got {depth}")
 
     roots = tuple(p) if isinstance(p, (list, tuple)) else (p,)
-    return _plan_memory_body(roots, vmem_budget_bytes, depth, tile_copy_key)
+    with telemetry.span("memory.plan", roots=len(roots),
+                        depth=depth) as sp:
+        plan = _plan_memory_body(roots, vmem_budget_bytes, depth,
+                                 tile_copy_key)
+        sp.set(total_bytes=plan.total_bytes, fits=plan.fits,
+               buffers=len(plan.buffers))
+    return plan
 
 
 def _plan_memory_body(roots, vmem_budget_bytes: int, depth: int,

@@ -51,6 +51,7 @@ from .affine import AffineMap
 from .cost import DEFAULT_TIER, ONCHIP_WORDS, traffic
 from .fusion import fuse_dag_stages, tile_copy_key
 from .memory import plan_memory
+from .scheduling import Metapipeline, build_schedule
 from .strip_mine import insert_tile_copies
 
 
@@ -168,6 +169,17 @@ def intermediate_names(pipe: Pipeline) -> Tuple[str, ...]:
 def intermediate_words(pipe: Pipeline) -> Dict[str, int]:
     sm = stage_map(pipe)
     return {n: int(np.prod(sm[n].shape)) for n in intermediate_names(pipe)}
+
+
+def external_inputs(pipe: Pipeline) -> Tuple[ir.Tensor, ...]:
+    """Main-memory tensors read by any stage, minus the intermediates."""
+    names = {s.name for s in pipe.stages}
+    seen: Dict[str, ir.Tensor] = {}
+    for s in pipe.stages:
+        for t in ir.inputs_of(s):
+            if t.name not in names:
+                seen.setdefault(t.name, t)
+    return tuple(seen.values())
 
 
 def output_words(pipe: Pipeline) -> int:
@@ -351,6 +363,32 @@ def fuse_dag(pipe: Pipeline, block: int, *,
                     terminals=tuple(terminals), refcounts=refcounts)
 
 
+def fuse(pipe: Pipeline, block: int, *,
+         vmem_budget_words: int = ONCHIP_WORDS) -> ir.Pattern:
+    """Single-output convenience: the fused DAG's one terminal pattern
+    (the chain API)."""
+    fdag = fuse_dag(pipe, block, vmem_budget_words=vmem_budget_words)
+    if len(fdag.terminals) != 1:
+        raise ValueError(
+            f"pipeline '{pipe.name}' has multiple outputs "
+            f"{output_names(pipe)}; use fuse_dag")
+    return fdag.terminals[0][1]
+
+
+def schedule(pipe: Pipeline, block: int, *,
+             vmem_budget_words: int = ONCHIP_WORDS,
+             depth: int = 2) -> Optional[Metapipeline]:
+    """Metapipeline schedule of the fused kernel (the first terminal's
+    tree -- producer stages and boundary-crossing loads all buffered at
+    ``depth`` rotating copies, 2 = classic double buffer; shared stages
+    appear identically in every terminal's schedule).
+    ``dse.explore_pipeline`` searches ``depth`` jointly with the block
+    size and records the choice in ``PipelinePlan.depths``."""
+    fdag = fuse_dag(pipe, block, vmem_budget_words=vmem_budget_words)
+    return build_schedule(fdag.terminals[0][1], vmem_budget_words,
+                          depth=depth)
+
+
 # --------------------------------------------------------------------------
 # Reference execution (unfused path + oracle)
 # --------------------------------------------------------------------------
@@ -364,17 +402,20 @@ def _as_output(pipe: Pipeline, env: Dict[str, Any]):
 
 
 def run_unfused(pipe: Pipeline, inputs: Dict[str, Any],
-                *, return_intermediates: bool = False, device=None):
+                *, return_intermediates: bool = False, device=None,
+                batched_folds: bool = False):
     """Execute stage-by-stage (topological order) through the
     ``codegen_torch`` oracle, materializing every intermediate (the
     pre-fusion lowering: one kernel per pattern, intermediates
     round-trip main memory).  Multi-output DAGs return a name -> tensor
-    dict.  Runs on CUDA unless ``device`` says otherwise."""
+    dict.  Runs on CUDA unless ``device`` says otherwise;
+    ``batched_folds`` as in ``codegen_torch.execute``."""
     from .codegen_torch import as_inputs, execute  # local: avoid cycle
 
     env = as_inputs(inputs, device)
     for s in topo_stages(pipe):
-        env[s.name] = execute(s, env, device=device)
+        env[s.name] = execute(s, env, device=device,
+                              batched_folds=batched_folds)
     out = _as_output(pipe, env)
     if return_intermediates:
         return out, {k: env[k] for k in intermediate_names(pipe)}
@@ -507,7 +548,8 @@ def sub_pipeline(pipe: Pipeline, i0: int, i1: int) -> Pipeline:
 
 def lower_pipeline(pipe: Pipeline, *, fused: bool = True, plan=None,
                    vmem_budget: Optional[int] = None, device=None,
-                   tier=None, **tuning) -> Callable:
+                   tier=None, cache=None, measure=None, policy=None,
+                   options=None) -> Callable:
     """Lower a pipeline to an executable callable.
 
     ``fused=True`` (default) runs the joint DSE on the card's budget
@@ -516,12 +558,15 @@ def lower_pipeline(pipe: Pipeline, *, fused: bool = True, plan=None,
     returns the per-stage oracle DAG -- the pre-fusion semantics every
     fused kernel is validated against.  Multi-output pipelines return a
     name -> tensor dict either way.  Runs on CUDA unless ``device`` says
-    otherwise.  The tuning-runtime arguments of the reference
-    (``cache``, ``measure``, ``policy``, ...) raise
-    ``NotImplementedError``.
+    otherwise.  ``cache``, ``measure``, ``policy`` (a
+    ``resilience.Policy``) and ``options`` pass through to the joint
+    DSE: measured mode, per-candidate deadlines, quarantine,
+    certification.
     """
     if not fused:
         return unfused_runner(pipe, device=device)
     from .codegen_cuda import lower_fused_pipeline
     return lower_fused_pipeline(pipe, plan=plan, vmem_budget=vmem_budget,
-                                device=device, tier=tier, **tuning)
+                                device=device, tier=tier, cache=cache,
+                                measure=measure, policy=policy,
+                                options=options)

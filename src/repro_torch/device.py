@@ -39,3 +39,11 @@ def place(arrays: Sequence, device=None) -> Tuple[torch.Tensor, ...]:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
     return tuple(torch.as_tensor(a).to(dev) for a in arrays)
+
+
+class StickyCudaError(Exception):
+    """A CUDA error that poisons the context (an illegal address, a
+    launch failure, a trap or device assert): every later call on the
+    card fails too.  Deliberately not a ``RuntimeError``, so no handler
+    of expected failures (``resilience.EXPECTED_ERRORS``) takes it: the
+    tuning runtime never quarantines it and moves on, it propagates."""

@@ -31,6 +31,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from ..device import StickyCudaError
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -84,6 +86,7 @@ def compile_all(items: Sequence[Tuple[str, str]]) -> List[Path]:
         return out
     build_dir().mkdir(parents=True, exist_ok=True)
     exe = nvcc()
+    compile_all.builds += len(todo)
     procs = []
     for so, src in todo:
         cu = so.with_suffix(".cu")
@@ -104,6 +107,9 @@ def compile_all(items: Sequence[Tuple[str, str]]) -> List[Path]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out
+
+
+compile_all.builds = 0   # nvcc processes started
 
 
 def load(name: str, source: str) -> ctypes.CDLL:
@@ -146,11 +152,26 @@ def bind(lib, argtypes: Dict[str, list]):
     return lib
 
 
+# cudaError_t codes after which the context is unusable: illegal
+# address (700), launch timeout (702), device assert (710), hardware
+# stack error (714), illegal instruction (715), misaligned address
+# (716), invalid address space (717), invalid PC (718), launch failure
+# (719), uncorrectable ECC (214)
+STICKY_CODES = frozenset({214, 700, 702, 710, 714, 715, 716, 717, 718,
+                          719})
+
+
 def check(lib, rc: int, what: str) -> None:
-    """Raise when a C entry point returned a CUDA error."""
+    """Raise when a C entry point returned a CUDA error: a
+    ``StickyCudaError`` when the error poisons the context
+    (``STICKY_CODES``), else ``RuntimeError`` (e.g. a launch
+    configuration the card refuses)."""
     if rc != 0:
         msg = lib.error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        text = f"{what}: CUDA error {rc} ({msg})"
+        if rc in STICKY_CODES:
+            raise StickyCudaError(text)
+        raise RuntimeError(text)
 
 
 class Library:

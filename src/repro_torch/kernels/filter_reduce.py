@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -151,9 +151,9 @@ def ring_form(block_t: int, depth: int, staged: bool, optin: int
     return RingForm(block_t, depth, staged, piece, slot_words(block_t, piece))
 
 
-def _auto_blocks(t: int, device) -> Tuple[int, int]:
+def _auto_blocks(t: int, device, **tuning) -> Tuple[int, int]:
     from .ops import resolve_plan
-    bt, plan = resolve_plan("filter_reduce", t, device=device)
+    bt, plan = resolve_plan("filter_reduce", t, device=device, **tuning)
     return bt, plan.depth
 
 
@@ -226,7 +226,9 @@ def filter_reduce_plain(x: torch.Tensor, weight: torch.Tensor, lo,
 
 
 def filter_reduce(x, weight, lo, hi, *, block_t: int = 1024,
-                  auto_tile: bool = False, device=None) -> torch.Tensor:
+                  auto_tile: bool = False, device=None,
+                  measure: Optional[str] = None, policy=None, options=None,
+                  cache=None) -> torch.Tensor:
     """``sum(where(lo <= x < hi, x * weight, 0))`` as a float32 scalar,
     the bounds rounded to float32 first.  x and weight are (t,) floating
     point, read as float32; ``block_t`` rows per grid step must divide t.
@@ -238,7 +240,9 @@ def filter_reduce(x, weight, lo, hi, *, block_t: int = 1024,
     depth = 2
     if auto_tile:
         x, weight = place((x, weight), device)
-        block_t, depth = _auto_blocks(x.shape[0], x.device)
+        block_t, depth = _auto_blocks(
+            x.shape[0], x.device, measure=measure, policy=policy,
+            options=options, cache=cache)
     x, weight, lo, hi, block_t = inputs(x, weight, lo, hi, block_t, device)
     if x.device.type == "cpu":
         return filter_fold_plain(x, weight, lo, hi)

@@ -78,9 +78,11 @@ LIB = build.Library("flash_attention", SOURCE, {
     + [_VP]})
 
 
-def _auto_blocks(sq: int, sk: int, d: int, device) -> Tuple[int, int]:
+def _auto_blocks(sq: int, sk: int, d: int, device,
+                 **tuning) -> Tuple[int, int]:
     from .ops import resolve_plan
-    blocks, _ = resolve_plan("attention", sq, sk, d, device=device)
+    blocks, _ = resolve_plan("attention", sq, sk, d, device=device,
+                             **tuning)
     return blocks
 
 
@@ -261,7 +263,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     scale: Optional[float] = None, block_q: int = 128,
                     block_k: int = 128, auto_tile: bool = False,
-                    device=None) -> torch.Tensor:
+                    device=None, measure: Optional[str] = None,
+                    policy=None, options=None,
+                    cache=None) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D).
 
     GQA: head h reads kv head h // (Hq // Hkv).  Query row i sits at
@@ -283,7 +287,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     group = hq // hkv
     scale = scale if scale is not None else d ** -0.5
     if auto_tile:
-        block_q, block_k = _auto_blocks(sq, sk, d, q.device)
+        block_q, block_k = _auto_blocks(sq, sk, d, q.device,
+                                        measure=measure, policy=policy,
+                                        options=options, cache=cache)
     block_q, block_k = min(block_q, sq), min(block_k, sk)
     if sq % block_q or sk % block_k:
         raise ValueError(f"blocks ({block_q}, {block_k}) must divide "

@@ -14,7 +14,7 @@ charges), the blocks' partials added in block order inside the kernel.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,9 +22,10 @@ from ..device import place
 from .filter_reduce import filter_fold_plain, inputs, launch
 
 
-def _auto_blocks(t: int, device) -> Tuple[int, int]:
+def _auto_blocks(t: int, device, **tuning) -> Tuple[int, int]:
     from .ops import resolve_plan
-    bt, plan = resolve_plan("fused_filter_fold", t, device=device)
+    bt, plan = resolve_plan("fused_filter_fold", t, device=device,
+                            **tuning)
     return bt, plan.depth
 
 
@@ -36,7 +37,9 @@ def fused_filter_fold_plain(x: torch.Tensor, weight: torch.Tensor, lo,
 
 
 def fused_filter_fold(x, weight, lo, hi, *, block_t: int = 1024,
-                      auto_tile: bool = False, device=None) -> torch.Tensor:
+                      auto_tile: bool = False, device=None,
+                      measure: Optional[str] = None, policy=None,
+                      options=None, cache=None) -> torch.Tensor:
     """``sum(where(lo <= x < hi, x * weight, 0))`` as a fused two-stage
     kernel, the bounds rounded to float32 first.  x and weight are (t,)
     floating point, read as float32; ``block_t`` rows per grid step must
@@ -50,7 +53,9 @@ def fused_filter_fold(x, weight, lo, hi, *, block_t: int = 1024,
     depth = 2
     if auto_tile:
         x, weight = place((x, weight), device)
-        block_t, depth = _auto_blocks(x.shape[0], x.device)
+        block_t, depth = _auto_blocks(
+            x.shape[0], x.device, measure=measure, policy=policy,
+            options=options, cache=cache)
     x, weight, lo, hi, block_t = inputs(x, weight, lo, hi, block_t, device)
     if x.device.type == "cpu":
         return filter_fold_plain(x, weight, lo, hi)

@@ -155,9 +155,11 @@ def library(k: int, d: int, block_n: int, depth: int,
     return _LIBS[key]
 
 
-def _auto_plan(n: int, k: int, d: int, device) -> Tuple[int, int]:
+def _auto_plan(n: int, k: int, d: int, device,
+               **tuning) -> Tuple[int, int]:
     from .ops import resolve_plan
-    bn, plan = resolve_plan("fused_kmeans", n, k, d, device=device)
+    bn, plan = resolve_plan("fused_kmeans", n, k, d, device=device,
+                            **tuning)
     return bn, plan.depth
 
 
@@ -191,7 +193,9 @@ def fused_kmeans_plain(points: torch.Tensor, centroids: torch.Tensor
 
 def fused_kmeans_step(points, centroids, *, block_n: int = 128,
                       depth: int = 2, lanes: Optional[int] = None,
-                      auto_tile: bool = False, device=None
+                      auto_tile: bool = False, device=None,
+                      measure: Optional[str] = None, policy=None,
+                      options=None, cache=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One k-means update step as a single two-output kernel: returns
     ``(sums, counts)``, ``sums[c]`` the sum of the points nearest
@@ -209,7 +213,9 @@ def fused_kmeans_step(points, centroids, *, block_n: int = 128,
     points, centroids = _inputs(points, centroids, device)
     (n, d), k = points.shape, centroids.shape[0]
     if auto_tile:
-        block_n, depth = _auto_plan(n, k, d, points.device)
+        block_n, depth = _auto_plan(
+            n, k, d, points.device, measure=measure, policy=policy,
+            options=options, cache=cache)
     block_n = min(block_n, n)
     if n % block_n:
         raise ValueError(f"block_n {block_n} must divide n = {n}")

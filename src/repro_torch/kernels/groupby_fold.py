@@ -13,7 +13,7 @@ Used by MoE routing (expert counts) and the histogram benchmarks.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -135,9 +135,10 @@ def library(num_keys: int, ew: int, block_t: int, form: str,
     return _LIBS[key]
 
 
-def _auto_blocks(t: int, num_keys: int, ew: int, device) -> int:
+def _auto_blocks(t: int, num_keys: int, ew: int, device, **tuning) -> int:
     from .ops import resolve_plan
-    bt, _ = resolve_plan("groupby", t, num_keys, ew, device=device)
+    bt, _ = resolve_plan("groupby", t, num_keys, ew, device=device,
+                         **tuning)
     return bt
 
 
@@ -172,7 +173,9 @@ def groupby_fold_plain(keys: torch.Tensor, values: torch.Tensor,
 
 
 def groupby_fold(keys, values, num_keys: int, *, block_t: int = 256,
-                 auto_tile: bool = False, device=None) -> torch.Tensor:
+                 auto_tile: bool = False, device=None,
+                 measure: Optional[str] = None, policy=None, options=None,
+                 cache=None) -> torch.Tensor:
     """out[k] = sum over i with keys[i] == k of values[i].
 
     keys (t,) integers, cast to int32; values (t,) or (t, E) floating
@@ -190,7 +193,9 @@ def groupby_fold(keys, values, num_keys: int, *, block_t: int = 256,
     vals = values[:, None] if squeeze else values
     t, ew = vals.shape
     if auto_tile:
-        block_t = _auto_blocks(t, num_keys, ew, keys.device)
+        block_t = _auto_blocks(t, num_keys, ew, keys.device,
+                               measure=measure, policy=policy,
+                               options=options, cache=cache)
     block_t = min(block_t, t)
     if t % block_t:
         raise ValueError(f"block_t {block_t} must divide t = {t}")

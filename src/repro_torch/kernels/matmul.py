@@ -57,9 +57,10 @@ LIB = build.Library("matmul", SOURCE, {
     "matmul_ffma": [_VP] * 3 + [_INT] * 5 + [_VP]})
 
 
-def _auto_blocks(m: int, n: int, k: int, device) -> Tuple[int, int, int]:
+def _auto_blocks(m: int, n: int, k: int, device,
+                 **tuning) -> Tuple[int, int, int]:
     from .ops import resolve_plan
-    blocks, _ = resolve_plan("gemm", m, n, k, device=device)
+    blocks, _ = resolve_plan("gemm", m, n, k, device=device, **tuning)
     return blocks
 
 
@@ -88,7 +89,9 @@ def matmul_plain(x: torch.Tensor, y: torch.Tensor,
 
 def matmul(x, y, *, block_m: int = 128, block_n: int = 128,
            block_k: int = 128, out_dtype: Optional[torch.dtype] = None,
-           auto_tile: bool = False, device=None) -> torch.Tensor:
+           auto_tile: bool = False, device=None,
+           measure: Optional[str] = None, policy=None, options=None,
+           cache=None) -> torch.Tensor:
     """``x @ y`` with explicit tiling; the blocks must divide the shape.
 
     x (m, k) and y (k, n) of any floating type: two bfloat16 inputs run
@@ -110,7 +113,9 @@ def matmul(x, y, *, block_m: int = 128, block_n: int = 128,
     out_dtype = out_dtype or x.dtype
     (m, k), n = x.shape, y.shape[1]
     if auto_tile:
-        block_m, block_n, block_k = _auto_blocks(m, n, k, x.device)
+        block_m, block_n, block_k = _auto_blocks(
+            m, n, k, x.device, measure=measure, policy=policy,
+            options=options, cache=cache)
     block_m, block_n, block_k = min(block_m, m), min(block_n, n), \
         min(block_k, k)
     if m % block_m or n % block_n or k % block_k:

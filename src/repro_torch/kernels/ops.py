@@ -39,31 +39,42 @@ _SELECTORS = {
 _PLAN_MEMO: dict = {}
 
 
-def resolve_plan(kind: str, *shape: int, tier=None, device=None, **tuning):
+def resolve_plan(kind: str, *shape: int, tier=None, device=None,
+                 measure: Optional[str] = None, policy=None, options=None,
+                 cache=None):
     """Resolve the DSE tile plan for ``kind`` at ``shape``.
 
     Returns the selector's ``(blocks, plan)``: ``blocks`` is the tile
     tuple (or scalar) the kernel consumes, ``plan`` the full
     ``TilePlan`` / ``PipelinePlan``.  The plan is for ``tier``, else for
     the tier of ``device`` (the card unless the caller names another
-    device).  Results are memoised in-process per (kind, shape, tier or
-    device), so a kernel's ``auto_tile=True`` call does no planning
-    after its first.
-    The reference's tuning-runtime arguments raise
-    ``NotImplementedError``.
+    device).  ``measure="top_k"`` backs it with timings on ``device``;
+    ``policy``, ``options`` and ``cache`` pass through to the DSE.
+    Results are memoised in-process per (kind, shape, tier or device,
+    tuning arguments) -- counted as ``ops.memo_hits`` -- so a kernel's
+    ``auto_tile=True`` call does no planning after its first.
     """
-    from ..core import dse
+    from ..core import dse, telemetry
 
     if kind not in _SELECTORS:
         raise ValueError(f"unknown plan kind {kind!r}; "
                          f"one of {sorted(_SELECTORS)}")
-    select = getattr(dse, _SELECTORS[kind])
-    if tuning:
-        return select(*shape, tier=tier, device=device, **tuning)
-    key = (kind, shape, tier, None if tier is not None else str(device))
-    if key not in _PLAN_MEMO:
-        _PLAN_MEMO[key] = select(*shape, tier=dse.tier_of(tier, device))
-    return _PLAN_MEMO[key]
+    key = (kind, shape, tier, None if tier is not None else str(device),
+           measure, policy, options, cache)
+    try:
+        hit = _PLAN_MEMO.get(key)
+    except TypeError:      # unhashable policy/options/cache: no memo
+        key = hit = None
+    if hit is not None:
+        telemetry.count("ops.memo_hits")
+        return hit
+    with telemetry.span("ops.resolve_plan", kind=kind, shape=list(shape)):
+        result = getattr(dse, _SELECTORS[kind])(
+            *shape, tier=dse.tier_of(tier, device), device=device,
+            measure=measure, policy=policy, options=options, cache=cache)
+    if key is not None:
+        _PLAN_MEMO[key] = result
+    return result
 
 
 def clear_plan_memo() -> None:

@@ -20,7 +20,7 @@ the kernels tile it in rows of ``TILE`` and steps of ``SLAB``
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -97,9 +97,9 @@ def workspace_bytes(bsz: int, seq: int, h: int, dh: int, n: int,
             "cum": 4 * bsz * h * seq, "dt": 4 * bsz * h * seq}
 
 
-def _auto_chunk(seq: int, n: int, dh: int, device) -> int:
+def _auto_chunk(seq: int, n: int, dh: int, device, **tuning) -> int:
     from .ops import resolve_plan
-    chunk, _ = resolve_plan("scan", seq, n, dh, device=device)
+    chunk, _ = resolve_plan("scan", seq, n, dh, device=device, **tuning)
     return chunk
 
 
@@ -208,7 +208,8 @@ def _inputs(x, dt, A, B, C, device):
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, auto_tile: bool = False,
-             device=None) -> torch.Tensor:
+             device=None, measure: Optional[str] = None, policy=None,
+             options=None, cache=None) -> torch.Tensor:
     """Mamba-2 SSD scan; see ``ref.ssd_scan`` for the semantics.
 
     x (batch, seq, heads, dh), dt (batch, seq, heads), B and C (batch,
@@ -223,7 +224,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, auto_tile: bool = False,
     bsz, seq, h, dh = x.shape
     n = B.shape[-1]
     if auto_tile:
-        chunk = _auto_chunk(seq, n, dh, x.device)
+        chunk = _auto_chunk(seq, n, dh, x.device, measure=measure,
+                            policy=policy, options=options, cache=cache)
     chunk = min(chunk, seq)
     if seq % chunk:
         raise ValueError(f"chunk {chunk} must divide seq = {seq}")

@@ -17,13 +17,18 @@ set of decode slots every step over one shared paged pool
 the fused CUDA kernel (``codegen_cuda.lower_paged_decode``, one launch
 per layer), and the KV layout and page size come from the joint DSE
 plan.  Before serving trusts the kernel it is certified against the
-dense ``decode_step`` oracle: a token the oracle does not score within
-the model type's tolerance of its best raises (no quiet fallback).
-Runs on the card unless ``device="cpu"``.
+dense ``decode_step`` oracle under the resilience policy's deadline and
+retry (``resilience.call_guarded``): a token the oracle does not score
+within the model type's tolerance of its best raises (no quiet
+fallback).  Prefill, decode steps, admissions and evictions are traced
+as the reference's spans (``serve.prefill``, ``serve.decode_step``,
+``serve.admit``, ``serve.evict``) with its ``serve.*_s`` histograms;
+spans time the host and add no synchronization.  Runs on the card
+unless ``device="cpu"``.
 
 Not yet ported: the shape-bucket tuning layer (``bucketing=True`` raises,
-ROADMAP §1 step 3), telemetry spans and metrics (step 3a), and the
-recurrent, MoE, audio and VLM families (step 4).
+ROADMAP §1 step 3) and the recurrent, MoE, audio and VLM families
+(step 4).
 """
 from __future__ import annotations
 
@@ -36,17 +41,12 @@ import numpy as np
 import torch
 
 from ..configs import ARCHS, get_config
+from ..core import resilience, telemetry
+from ..core.options import refuse_bucketing
 from ..device import resolve
 from ..models import model
 from ..models.transformer import check_dense
 from . import steps as steps_mod
-
-
-def _refuse_bucketing(bucketing: bool) -> None:
-    if bucketing:
-        raise NotImplementedError(
-            "bucketing: the shape-bucket tuning layer arrives with the "
-            "tuning-runtime slice (ROADMAP §1 step 3)")
 
 
 def _sync(dev: torch.device) -> None:
@@ -85,7 +85,7 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
     lengths are re-grouped internally).  ``params`` defaults to
     ``model.init_params(cfg, seed)``; ``stats_out``, when given, is
     filled with prefill/decode wall times."""
-    _refuse_bucketing(bucketing)
+    refuse_bucketing(bucketing)
     dev = resolve(device)
     cfg = get_config(arch, smoke=smoke)
     check_dense(cfg)
@@ -119,15 +119,22 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
         ring = _ring_len(cfg, ln + gen)
 
         t0 = time.perf_counter()
-        nxt, cache = _prefill(prefill_fn, params, cache, prompt, ring)
-        _sync(dev)
-        prefill_s += time.perf_counter() - t0
+        with telemetry.span("serve.prefill", prompt_len=ln, batch=gb):
+            nxt, cache = _prefill(prefill_fn, params, cache, prompt, ring)
+            _sync(dev)
+        dt = time.perf_counter() - t0
+        prefill_s += dt
+        telemetry.observe("serve.prefill_s", dt)
 
         group_out = []
         t0 = time.perf_counter()
         for i in range(ln, ln + gen):
-            nxt, cache = step_fn(params, cache, nxt.reshape(gb, 1), i)
-            group_out.append(nxt.cpu().numpy())
+            ts = time.perf_counter()
+            with telemetry.span("serve.decode_step", index=i, batch=gb):
+                nxt, cache = step_fn(params, cache, nxt.reshape(gb, 1), i)
+                group_out.append(nxt.cpu().numpy())
+            telemetry.observe("serve.decode_token_s",
+                              time.perf_counter() - ts)
         decode_s += time.perf_counter() - t0
         out[rows] = np.stack(group_out, axis=1)
 
@@ -158,46 +165,61 @@ def near_best(logits: torch.Tensor, token: int, dtype: str) -> bool:
 
 def _certify_paged_decode(cfg, params, *, layout: str, page_size: int,
                           prompt_len: int = 5, gen: int = 4, seed: int = 0,
-                          device=None) -> str:
+                          device=None, policy=None) -> str:
     """Certify the fused paged-decode kernel against the
     ``model.decode_step`` oracle: one short request is decoded greedily
     through both paths, both fed the oracle's tokens (the oracle's dense
     cache sized to the page-padded extent).  At every generated step the
     kernel's token must be the oracle's, or one the oracle scores within
     the model type's tolerance of its best (a tie the two summation
-    orders break differently).  Returns what was compared; raises
-    ``RuntimeError`` otherwise (the reference falls back to its
-    reference path instead; the port does not hide the kernel)."""
+    orders break differently).  The probe runs under ``policy``'s
+    deadline and transient retry (``resilience.call_guarded``); a sticky
+    CUDA error propagates.  Returns what was compared; raises
+    ``RuntimeError`` on a failed or unverifiable certification (the
+    reference falls back to its reference path instead; the port does
+    not hide the kernel)."""
     from ..models import paged
 
     dev = resolve(device)
-    ln = prompt_len
-    cmax = -(-(ln + gen) // page_size) * page_size
-    prompt = np.random.RandomState(seed).randint(0, cfg.vocab, (1, ln))
-    oc = model.init_cache(cfg, 1, cmax, device=dev)
-    pc = paged.PagedKVCache.init(cfg, 1, cmax, page_size=page_size,
-                                 layout=layout, device=dev)
-    tok, same = None, 0
-    for i in range(ln + gen - 1):
-        if i < ln:
-            tok = torch.as_tensor(prompt[:, i:i + 1], dtype=torch.int32,
-                                  device=dev)
-        lo, oc = model.decode_step(params, cfg, oc, tok, i)
-        lp, pc = paged.paged_decode_step(params, cfg, pc, tok,
-                                         use_kernel=True)
-        to, tp = steps_mod.greedy(lo, cfg), steps_mod.greedy(lp, cfg)
-        if i >= ln - 1:
-            row = model.mask_vocab_pad(lo, cfg)[0, -1].float()
-            if not near_best(row, int(tp[0]), cfg.dtype):
-                raise RuntimeError(
-                    f"paged_decode/{layout}/p{page_size} failed "
-                    f"certification at step {i - ln + 1}: the kernel's token "
-                    f"{int(tp[0])} scores {float(row[int(tp[0])]):.4g}, the "
-                    f"oracle's {int(to[0])} {float(row.max()):.4g}")
-            same += int(to[0]) == int(tp[0])
-        tok = to.reshape(1, 1)
-    return (f"{same} of {gen} tokens identical, the rest within the "
-            f"{cfg.dtype} tolerance of the oracle's best")
+
+    def probe() -> Tuple[bool, str]:
+        ln = prompt_len
+        cmax = -(-(ln + gen) // page_size) * page_size
+        prompt = np.random.RandomState(seed).randint(0, cfg.vocab, (1, ln))
+        oc = model.init_cache(cfg, 1, cmax, device=dev)
+        pc = paged.PagedKVCache.init(cfg, 1, cmax, page_size=page_size,
+                                     layout=layout, device=dev)
+        tok, same = None, 0
+        for i in range(ln + gen - 1):
+            if i < ln:
+                tok = torch.as_tensor(prompt[:, i:i + 1], dtype=torch.int32,
+                                      device=dev)
+            lo, oc = model.decode_step(params, cfg, oc, tok, i)
+            lp, pc = paged.paged_decode_step(params, cfg, pc, tok,
+                                             use_kernel=True)
+            to, tp = steps_mod.greedy(lo, cfg), steps_mod.greedy(lp, cfg)
+            if i >= ln - 1:
+                row = model.mask_vocab_pad(lo, cfg)[0, -1].float()
+                if not near_best(row, int(tp[0]), cfg.dtype):
+                    return False, (
+                        f"at step {i - ln + 1}: the kernel's token "
+                        f"{int(tp[0])} scores {float(row[int(tp[0])]):.4g},"
+                        f" the oracle's {int(to[0])} "
+                        f"{float(row.max()):.4g}")
+                same += int(to[0]) == int(tp[0])
+            tok = to.reshape(1, 1)
+        return True, (f"{same} of {gen} tokens identical, the rest within "
+                      f"the {cfg.dtype} tolerance of the oracle's best")
+
+    key = f"paged_decode/{layout}/p{page_size}"
+    try:
+        ok, why = resilience.call_guarded(probe, stage="certify", key=key,
+                                          policy=policy)
+    except resilience.CandidateFailure as exc:
+        ok, why = False, f"{exc.kind}: {exc.detail}"
+    if not ok:
+        raise RuntimeError(f"{key} failed certification {why}")
+    return why
 
 
 def serve_continuous(arch: str, smoke: bool, slots: int, gen: int,
@@ -208,8 +230,8 @@ def serve_continuous(arch: str, smoke: bool, slots: int, gen: int,
                      layout: Optional[str] = None,
                      use_kernel: bool = True, certify: bool = True,
                      bucketing: bool = False, params=None,
-                     device=None,
-                     dtype: Optional[str] = None) -> Tuple[np.ndarray, Dict]:
+                     device=None, dtype: Optional[str] = None,
+                     policy=None) -> Tuple[np.ndarray, Dict]:
     """Continuous-batching serve over one shared paged KV pool.
 
     ``slots`` concurrent decode lanes share a page pool; each decode
@@ -221,7 +243,9 @@ def serve_continuous(arch: str, smoke: bool, slots: int, gen: int,
     (``ops.resolve_plan("paged_decode", ...)``, for the device's tier)
     unless given; it raises where the DSE finds no plan.  With
     ``use_kernel`` and ``certify`` the fused kernel is certified against
-    the ``decode_step`` oracle first, and a mismatch raises.  ``params``
+    the ``decode_step`` oracle first, under ``policy`` (a
+    ``resilience.Policy``; its deadline and retry), and a mismatch
+    raises.  ``params``
     defaults to ``model.init_params(cfg, seed)``; ``dtype`` (say
     "float32") replaces the config's type.
 
@@ -234,7 +258,7 @@ def serve_continuous(arch: str, smoke: bool, slots: int, gen: int,
     from ..kernels import ops
     from ..models import paged
 
-    _refuse_bucketing(bucketing)
+    refuse_bucketing(bucketing)
     dev = resolve(device)
     cfg = get_config(arch, smoke=smoke)
     if dtype is not None:
@@ -257,7 +281,8 @@ def serve_continuous(arch: str, smoke: bool, slots: int, gen: int,
     certified = None
     if use_kernel and certify:
         print("certified paged_decode:", _certify_paged_decode(
-            cfg, params, layout=layout, page_size=page_size, device=dev))
+            cfg, params, layout=layout, page_size=page_size, device=dev,
+            policy=policy))
         certified = True
 
     npm = -(-max_ctx // page_size)
@@ -295,16 +320,21 @@ def serve_continuous(arch: str, smoke: bool, slots: int, gen: int,
             queue.popleft()
             pages = [free_pages.pop() for _ in range(need)]
             t0 = time.perf_counter()
-            dcache = model.init_cache(cfg, 1, ln, device=dev)
-            prompt = torch.as_tensor(prompt_pool[r:r + 1, :ln],
-                                     dtype=torch.int32, device=dev)
-            first, dcache = _prefill(prefill_fn, params, dcache, prompt,
-                                     _ring_len(cfg, ln))
-            cache = cache.assign_pages(s, pages, ln)
-            cache = cache.write_tokens(s, dcache["k"][:, 0, :, :ln],
-                                       dcache["v"][:, 0, :, :ln], 0)
-            next_tok[s] = int(first[0])
-            prefill_s += time.perf_counter() - t0
+            with telemetry.span("serve.admit", request=r, slot=s,
+                                prompt_len=ln, pages=need):
+                dcache = model.init_cache(cfg, 1, ln, device=dev)
+                prompt = torch.as_tensor(prompt_pool[r:r + 1, :ln],
+                                         dtype=torch.int32, device=dev)
+                first, dcache = _prefill(prefill_fn, params, dcache,
+                                         prompt, _ring_len(cfg, ln))
+                cache = cache.assign_pages(s, pages, ln)
+                cache = cache.write_tokens(s, dcache["k"][:, 0, :, :ln],
+                                           dcache["v"][:, 0, :, :ln], 0)
+                next_tok[s] = int(first[0])
+            dt = time.perf_counter() - t0
+            prefill_s += dt
+            telemetry.observe("serve.admit_s", dt)
+            telemetry.observe("serve.prefill_s", dt)
             slot_req[s], slot_pages[s], slot_done[s] = r, pages, 0
             admitted += 1
 
@@ -318,11 +348,15 @@ def serve_continuous(arch: str, smoke: bool, slots: int, gen: int,
         paged_words += cfg.n_layers * cost_mod.paged_decode_traffic_words(
             live, page_size, hkv, head_dim)
         t0 = time.perf_counter()
-        tok = torch.as_tensor(next_tok.reshape(slots, 1), device=dev)
-        logits, cache = paged.paged_decode_step(params, cfg, cache, tok,
-                                                use_kernel=use_kernel)
-        nxt = steps_mod.greedy(logits, cfg).cpu().numpy()
-        decode_s += time.perf_counter() - t0
+        with telemetry.span("serve.decode_step", step=steps,
+                            active=len(active)):
+            tok = torch.as_tensor(next_tok.reshape(slots, 1), device=dev)
+            logits, cache = paged.paged_decode_step(params, cfg, cache, tok,
+                                                    use_kernel=use_kernel)
+            nxt = steps_mod.greedy(logits, cfg).cpu().numpy()
+        dt = time.perf_counter() - t0
+        decode_s += dt
+        telemetry.observe("serve.decode_token_s", dt / max(len(active), 1))
         steps += 1
         active_steps += len(active)
 
@@ -339,9 +373,12 @@ def serve_continuous(arch: str, smoke: bool, slots: int, gen: int,
             next_tok[s] = nxt[s]
             slot_done[s] += 1
             if slot_done[s] == gen:                          # evict
-                free_pages.extend(slot_pages[s])
-                cache = cache.assign_pages(s, [0] * npm, 0)
-                slot_req[s], slot_pages[s] = None, []
+                te = time.perf_counter()
+                with telemetry.span("serve.evict", request=r, slot=s):
+                    free_pages.extend(slot_pages[s])
+                    cache = cache.assign_pages(s, [0] * npm, 0)
+                    slot_req[s], slot_pages[s] = None, []
+                telemetry.observe("serve.evict_s", time.perf_counter() - te)
                 evicted += 1
 
     occupancy = active_steps / max(steps * slots, 1)

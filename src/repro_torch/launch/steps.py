@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import telemetry
 from ..models import model
 from ..models.config import ModelConfig
 from ..models.transformer import check_dense
@@ -25,13 +26,15 @@ def greedy(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def make_serve_step(cfg: ModelConfig):
     """``(params, cache, tokens (B, S), index) -> (next, cache)``: one
     decode step (or block) and the greedy token after it."""
-    check_dense(cfg)
+    with telemetry.span("steps.build.serve", family=cfg.family):
+        check_dense(cfg)
 
-    def serve_step(params, cache, tokens, index):
-        logits, cache = model.decode_step(params, cfg, cache, tokens, index)
-        return greedy(logits, cfg), cache
+        def serve_step(params, cache, tokens, index):
+            logits, cache = model.decode_step(params, cfg, cache, tokens,
+                                              index)
+            return greedy(logits, cfg), cache
 
-    return serve_step
+        return serve_step
 
 
 def make_cache_prefill_step(cfg: ModelConfig):
@@ -43,4 +46,5 @@ def make_cache_prefill_step(cfg: ModelConfig):
     causal within the block); it must not wrap the KV ring buffer
     (``launch.serve._prefill`` chunks long prompts).  The recurrent
     families' token scan waits for ROADMAP §1 step 4."""
-    return make_serve_step(cfg)
+    with telemetry.span("steps.build.cache_prefill", family=cfg.family):
+        return make_serve_step(cfg)

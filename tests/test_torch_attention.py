@@ -381,9 +381,26 @@ def test_select_attention_blocks_matches_the_reference_exactly(case):
 
 @pytest.mark.parametrize("arg", ["cache", "measure", "policy", "options"])
 def test_select_attention_blocks_refuses_the_tuning_runtime(arg):
-    with pytest.raises(NotImplementedError, match="tuning-runtime"):
-        dse.select_attention_blocks(256, 256, 64, tier=cost.TPU,
-                                    **{arg: "x"})
+    """The selector takes the tuning runtime's arguments (an analytic
+    plan is the same with or without a cache or a policy) and refuses
+    only shape-bucketed warm starts."""
+    call = functools.partial(dse.select_attention_blocks, 256, 256, 64,
+                             tier=cost.TPU)
+    from repro_torch.core import resilience
+    from repro_torch.core.options import Options
+    if arg == "options":      # bucketing: the one part still refused
+        with pytest.raises(NotImplementedError, match="tuning-runtime"):
+            call(options=Options(bucketing=True))
+        return
+    if arg == "measure":      # validated as the reference validates it
+        with pytest.raises(ValueError, match="measure"):
+            call(measure="x")
+        return
+    value = {"cache": False, "policy": resilience.Policy(timeout_s=0)}[arg]
+    got = call(**{arg: value})
+    want = call(cache=False)
+    assert got[0] == want[0]
+    assert got[1].to_json() == dict(want[1].to_json(), key=got[1].key)
 
 
 def test_attention_proxy_evaluates_as_the_reference():

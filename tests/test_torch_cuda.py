@@ -1501,3 +1501,115 @@ def test_kernels_take_the_reference_kernels_input_types_on_the_card():
                                fr.filter_reduce_plain(xv.float(), wv.float(),
                                                       -0.5, 0.8),
                                rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------- the tuning runtime
+@pytest.mark.cuda
+def test_measured_explore_certifies_on_the_card_then_hits(tmp_path):
+    """``explore(measure="top_k")`` on the card: candidates built first
+    (nvcc outside the timed window), timed on the tiled-Map template,
+    the winner certified against the eager oracle on the card; the
+    second call is a cache hit that builds and lowers nothing."""
+    _card()
+    from repro_torch.core import dse, resilience, telemetry
+
+    resilience.LOG.reset()
+    p = an.outerprod(1024, 2048)[0]
+    stores = dict(cache=str(tmp_path / "dse.json"),
+                  timing_db=str(tmp_path / "timing.json"),
+                  policy=resilience.Policy(timeout_s=300, retries=0))
+    telemetry.enable()
+    try:
+        before = cc.tiled_map.launches
+        plan = dse.explore(p, measure="top_k", **stores)
+        assert plan.measured and plan.timed >= 2
+        assert cc.tiled_map.launches > before
+        cert = dse.explain_dict(plan)["provenance"]["certification"]
+        assert cert and cert[-1]["ok"] and "cuda-vs-oracle" \
+            in cert[-1]["reason"]
+        assert resilience.LOG.events() == []
+        builds, spans = build.compile_all.builds, len(telemetry.span_log())
+        again = dse.explore(p, measure="top_k", **stores)
+        assert again.cached and again.sizes == plan.sizes
+        assert build.compile_all.builds == builds
+        assert not [s for s in telemetry.span_log()[spans:]
+                    if s["name"].startswith("codegen.")]
+    finally:
+        telemetry.reset()
+
+
+STICKY_PROBE = r'''
+import ctypes, sys, torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.core import codegen_cuda as cc, resilience
+from repro_torch.device import StickyCudaError
+from repro_torch.kernels import build
+lib = cc._gemm_library(64, 64, 64, 2)
+stream = torch.cuda.current_stream().cuda_stream
+bad = ctypes.c_void_p(16)
+
+def launch():
+    build.check(lib, lib.gemm_launch(bad, bad, bad, 256, 256, 256, stream),
+                "planted launch")
+    torch.cuda.synchronize()
+
+try:
+    resilience.call_guarded(launch, stage="time", key="planted",
+                            policy=resilience.Policy(timeout_s=60))
+except StickyCudaError as e:
+    print("sticky", resilience.classify(e.__cause__ or e))
+except resilience.CandidateFailure as e:
+    print("quarantined", e.kind)
+try:
+    build.check(lib, lib.gemm_launch(bad, bad, bad, 256, 256, 256, stream),
+                "after")
+except StickyCudaError:
+    print("check sticky")
+print("events", len(resilience.LOG.events()))
+'''
+
+
+@pytest.mark.cuda
+def test_a_planted_illegal_address_is_sticky_not_quarantined(tmp_path):
+    """A kernel fed an illegal address poisons the context (run in a
+    throwaway process): ``call_guarded`` raises ``StickyCudaError``
+    instead of quarantining the candidate, and ``build.check`` raises
+    it for every launch after."""
+    _card()
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    script = tmp_path / "probe.py"
+    script.write_text(STICKY_PROBE)
+    out = subprocess.run([sys.executable, str(script), src],
+                         capture_output=True, text=True, timeout=600)
+    lines = out.stdout.split("\n")
+    assert "sticky cuda-sticky" in lines, out.stdout + out.stderr
+    assert "check sticky" in lines and "events 0" in lines
+
+
+@pytest.mark.cuda
+def test_measure_excludes_its_warmup_on_the_card():
+    """The first call (here a 0.2 s sleep before its launch) is warm-up,
+    excluded; every timed call is fenced by ``torch.cuda.synchronize``,
+    so it covers the kernel, not its issue."""
+    _card()
+    import time
+    from repro_torch.core import measure
+
+    x = torch.randn(4096, 4096, device="cuda")
+    calls = []
+
+    def fn():
+        calls.append(1)
+        if len(calls) == 1:
+            time.sleep(0.2)
+        return x @ x
+
+    m = measure.measure(fn, warmup=1, repeat=5, device="cuda")
+    assert len(calls) == 6 and m.max_s < 0.1
+    assert m.device == measure.device_kind("cuda") and not m.interpret
+    # fenced: the median covers a 4096^3 FFMA product (~2 ms at peak)
+    assert m.median_s > 1e-3

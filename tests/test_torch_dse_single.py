@@ -104,21 +104,28 @@ def test_plan_json_crosses_packages(name, jbuild, tbuild):
     got = dse.TilePlan.from_json(want.to_json())
     assert _fields(got) == _fields(want)
     assert dse.TilePlan.from_json(got.to_json()) == got
-    # the same JSON, but for the reference's tuning-cache key
-    assert got.to_json() == dict(want.to_json(), key="")
+    # the same JSON, the reference's tuning-cache key and measured
+    # fields included
+    assert got.to_json() == want.to_json()
     back = jdse.TilePlan.from_json(
         dse.explore(tbuild(), tier=cost.TPU).to_json())
     assert _fields(back) == _fields(want)
 
 
-def test_tuning_runtime_arguments_raise():
+def test_tuning_runtime_arguments_raise(tmp_path):
+    """Only bucketing is refused; ``align`` and a cache path are taken
+    as the reference takes them."""
     p = an.outerprod()[0]
     with pytest.raises(NotImplementedError, match="tuning-runtime"):
-        dse.explore(p, tier=cost.TPU, cache="x.json")
-    with pytest.raises(NotImplementedError, match="tuning-runtime"):
-        dse.explore(p, tier=cost.TPU, measure="top_k")
-    with pytest.raises(TypeError, match="align"):
-        dse.explore(p, tier=cost.TPU, align=8)
+        dse.explore(p, tier=cost.TPU, bucketing=True)
+    with pytest.raises(ValueError, match="measure"):
+        dse.explore(p, tier=cost.TPU, measure="all")
+    got = dse.explore(p, tier=cost.TPU, align=8, cache=False)
+    want = jdse.explore(jan.outerprod()[0], align=8, cache=False)
+    assert _fields(got) == _fields(want)
+    path = str(tmp_path / "x.json")
+    dse.explore(p, tier=cost.TPU, cache=path)
+    assert dse.explore(p, tier=cost.TPU, cache=path).cached
     with pytest.raises(ValueError, match="no tile candidate fits"):
         dse.explore(p, tier=cost.TPU, vmem_budget=64)
 

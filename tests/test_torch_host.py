@@ -130,14 +130,22 @@ def test_h100_plans_fit_the_card(name):
     assert pipe.shared_extent % plan.block == 0
 
 
-def test_tuning_runtime_arguments_raise():
+def test_tuning_runtime_arguments_raise(tmp_path, monkeypatch):
+    """Only bucketing is refused; measured mode runs on the card unless
+    the caller names the CPU; a cache path is a tuning cache."""
     pipe = _pipes("tpchq6")[1]
     with pytest.raises(NotImplementedError, match="tuning-runtime"):
-        dse.explore_pipeline(pipe, tier=TPU, cache="x.json")
-    with pytest.raises(NotImplementedError, match="tuning-runtime"):
+        dse.explore_pipeline(pipe, tier=TPU, bucketing=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         dse.explore_pipeline(pipe, tier=TPU, measure="top_k")
     with pytest.raises(ValueError, match="no tile candidate fits"):
         dse.explore_pipeline(pipe, tier=TPU, vmem_budget=64)
+    path = str(tmp_path / "x.json")
+    plan = dse.explore_pipeline(pipe, tier=TPU, cache=path)
+    assert dse.explore_pipeline(pipe, tier=TPU, cache=path).cached
+    assert plan.block == dse.explore_pipeline(pipe, tier=TPU,
+                                              cache=False).block
 
 
 # ------------------------------------------------------------- boundary

@@ -8,6 +8,8 @@ reference gives at those shapes.  Also: the proxy programs' torch bodies
 evaluate as the reference's JAX bodies do, and the tuning-runtime
 arguments are refused.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -88,8 +90,26 @@ def test_selectors_plan_for_the_card_off_the_card():
 ])
 @pytest.mark.parametrize("arg", ["cache", "measure", "policy", "options"])
 def test_selectors_refuse_the_tuning_runtime(name, shape, arg):
-    with pytest.raises(NotImplementedError, match="tuning-runtime"):
-        getattr(dse, name)(*shape, tier=cost.TPU, **{arg: "x"})
+    """Every selector takes the tuning runtime's arguments (an analytic
+    plan is the same with or without a cache or a policy) and refuses
+    only shape-bucketed warm starts."""
+    import functools
+    call = functools.partial(getattr(dse, name), *shape, tier=cost.TPU)
+    from repro_torch.core import resilience
+    from repro_torch.core.options import Options
+    if arg == "options":      # bucketing: the one part still refused
+        with pytest.raises(NotImplementedError, match="tuning-runtime"):
+            call(options=Options(bucketing=True))
+        return
+    if arg == "measure":      # validated as the reference validates it
+        with pytest.raises(ValueError, match="measure"):
+            call(measure="x")
+        return
+    value = {"cache": False, "policy": resilience.Policy(timeout_s=0)}[arg]
+    got = call(**{arg: value})
+    want = call(cache=False)
+    assert got[0] == want[0]
+    assert got[1].to_json() == dict(want[1].to_json(), key=got[1].key)
 
 
 def test_plans_cross_the_packages_as_json():
@@ -97,8 +117,10 @@ def test_plans_cross_the_packages_as_json():
     back = jdse.PipelinePlan.from_json(plan.to_json())
     assert back.block == plan.block and back.depths == plan.depths
     _, tplan = dse.select_groupby_blocks(4096, 8, 4, tier=cost.TPU)
+    # a plan read back from JSON is a cached one
     assert dse.TilePlan.from_json(
-        jdse.TilePlan.from_json(tplan.to_json()).to_json()) == tplan
+        jdse.TilePlan.from_json(tplan.to_json()).to_json()) \
+        == dataclasses.replace(tplan, cached=True)
 
 
 def _inputs(shapes, seed=0):

@@ -515,7 +515,7 @@ def test_resolve_plan_memoises_and_dispatches(monkeypatch):
     first = ops.resolve_plan("filter_reduce", 4096, tier=cost.TPU)
     again = ops.resolve_plan("filter_reduce", 4096, tier=cost.TPU)
     assert again is first and len(calls) == 1
-    assert first == select(4096, tier=cost.TPU)
+    assert first == select(4096, tier=cost.TPU, cache=False)
     ops.resolve_plan("filter_reduce", 4096, device="cpu")
     assert len(calls) == 2         # another tier: another plan
     ops.clear_plan_memo()
@@ -532,9 +532,10 @@ def test_resolve_plan_refuses_unknown_later_and_tuning_kinds():
     from repro.core import dse as jdse
     assert ops.resolve_plan("paged_decode", 128, 64, tier=cost.TPU)[0] \
         == jdse.select_paged_decode_blocks(128, 64, cache=False)[0]
+    from repro_torch.core.options import Options
     with pytest.raises(NotImplementedError, match="tuning-runtime"):
-        ops.resolve_plan("gemm", 512, 512, 512, measure="top_k",
-                         device="cpu")
+        ops.resolve_plan("gemm", 512, 512, 512, device="cpu",
+                         options=Options(bucketing=True))
 
 
 @pytest.mark.parametrize("budget", [None, cost.H100_SXM.onchip_bytes])
