@@ -104,7 +104,26 @@ ptxas must report no stack frame for any of those), then:
     request's tokens and a served run with the kernel's append skipped
     (which certification must also refuse).  One decode step is profiled
     (host clock, device busy time, the paged kernels' share), and the
-    kernel is timed at the serving shapes.
+    kernel is timed at the serving shapes;
+  * ``[moe]``: serves llama4-maverick-400b-a17b at its published widths
+    (d_model 5120, 40/8 heads of 128, 128 experts top-1 and a shared
+    expert, vocab 202,048, bf16) cut to 2 layers, one dense and one MoE
+    (18.55e9 random parameters, 37.1 GB, made on the card), through
+    ``launch.serve._serve_continuous`` with the same trace as granite's:
+    the planted skipped append first (certification must raise, its
+    tokens fail the bf16 rule), then the served run held against the
+    teacher-forced dense oracle (the served tokens in blocks of a
+    step's routing group) by the bf16 rule, one step profiled beside its
+    byte floor (every weight but the embedding table, all 128 experts
+    included, and the live K/V); the router's ``groupby_fold`` over 128
+    experts (the shared form) on a prefill's hidden states, exactly the
+    plain version's after proving a dropped row is caught;
+    ``lower_paged_decode`` at Llama-4's attention widths (group 5, head
+    dim 128) over 32 requests up to 8,191 tokens, both layouts, planted
+    faults first; and one mixtral-8x22b MoE layer at full width on
+    2 x 4096 tokens in bf16, held against float64 on its own routing
+    (the margins of the k-th logit printed; a routing that differs from
+    a float32 run's must be a tie).
 
 Each run resets the kernel's launch count just before, reads it just
 after, and fails if the kernel did not run.  Each result is held
@@ -1004,7 +1023,9 @@ def keyed_libraries(dev, torch) -> list:
     """(label, library) of each instantiation of the keyed kernels the
     hand-kernel phases run: ``groupby_fold`` at 64 x 8 and at the
     router's 8 x 1, ``fused_kmeans`` at both forms of ``kmeans_forms``,
-    each at the DSE's plan for the card."""
+    each at the DSE's plan for the card, and ``groupby_fold`` at
+    Llama-4's 128 experts at ``ops.groupby``'s block (the ``[moe]``
+    phase's router)."""
     from repro_torch.kernels import fused_kmeans as fkm
     from repro_torch.kernels import groupby_fold as gbf
     from repro_torch.kernels import ops
@@ -1016,6 +1037,9 @@ def keyed_libraries(dev, torch) -> list:
         block = ops.resolve_plan("groupby", ROWS, k, ew, device=dev)[0]
         out.append((label, gbf.library(k, ew, block,
                                        *gbf.table_form(k, ew, optin))))
+    # Llama-4's router through moe.router_counts: ops.groupby's block
+    out.append((ROUTER_LABEL, gbf.library(MOE_EXPERTS, 1, 256, *gbf.table_form(
+        MOE_EXPERTS, 1, optin))))
     block, plan = ops.resolve_plan("fused_kmeans", ROWS, 8, 16, device=dev)
     for lanes in kmeans_forms():
         out.append((f"fused_kmeans[P={lanes}]",
@@ -1859,8 +1883,8 @@ def run_paged(label: str, cfg, lens, ps: int, npm: int, layout: str,
     bound_ms, by = bound(nbytes, flops, tier)
     print(f"[{label}] paged_decode {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s"
           f" of live pages and operands), plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}: {nbytes} B); library {PD_LIBRARY}",
-          flush=True)
+          f"{bound_ms:.4f} ms ({by}: {nbytes} B; ratio {ms / bound_ms:.2f});"
+          f" library {PD_LIBRARY}", flush=True)
     print(f"[{label}] device time per call: " + device_breakdown(run, torch))
     return {"name": f"paged_decode[{label[13:-1]}]", "route": "cuda",
             "source": PD_SRC, "replaces": PD_TPU, "launches": launches,
@@ -1908,45 +1932,121 @@ def forced_oracle(cfg, params, prompt, toks, cmax: int, torch, dev):
     prompt's length), then one block over the prompt, that token and the
     server's tokens but the last, from position 0, into a no-wrap cache
     of the page-padded extent.  Row t scores the server's token t (pad
-    vocab masked).  Returns (gen, vocab) float32 logits."""
+    vocab masked).  A MoE layer routes a token with the others of its
+    block (capacity is per routing group), so for MoE the prompt's
+    prefilled cache is kept as the server keeps it and the served tokens
+    follow in blocks of SERVE_SLOTS, the size of a served step's group
+    (at top-1 no choice of such a group is dropped, as in the server's
+    steps).  A token whose k-th and (k+1)-th router logits lie within
+    the model type's tolerance is a routing tie, which two summation
+    orders break either way as they break a tie of the greedy token: its
+    row of ``alt`` holds the logits with that choice taken by the
+    (k+1)-th expert (the block rerun on a copy of the cache), its other
+    rows are ``rows``'.  Returns ``(rows, alt)``, (gen, vocab) float32
+    logits each (``alt`` None without MoE)."""
     from repro_torch.launch import serve, steps
-    from repro_torch.models import model
+    from repro_torch.models import model, moe
 
     ln = prompt.shape[1]
     dc = model.init_cache(cfg, 1, ln, device=dev)
-    first, _ = serve._prefill(steps.make_cache_prefill_step(cfg), params, dc,
-                              prompt, ln)
+    first, dc = serve._prefill(steps.make_cache_prefill_step(cfg), params,
+                               dc, prompt, ln)
     seq = torch.cat([prompt, first.reshape(1, 1),
                      torch.as_tensor(toks[None, :-1], dtype=torch.int32,
                                      device=dev)], 1)
     cache = model.init_cache(cfg, 1, cmax, device=dev)
-    logits, _ = model.decode_step(params, cfg, cache, seq, 0)
-    return model.mask_vocab_pad(logits, cfg)[0, ln:].float()
+    if not cfg.n_experts:
+        logits, _ = model.decode_step(params, cfg, cache, seq, 0)
+        return model.mask_vocab_pad(logits, cfg)[0, ln:].float(), None
+    for name in ("k", "v"):
+        cache[name][:, :, :, :ln] = dc[name]
+    rtol, atol = serve.TOLERANCES[cfg.dtype]
+    real, k = moe.route, cfg.top_k
+    rows, alts = [], []
+    for i in range(ln, seq.shape[1], SERVE_SLOTS):
+        block = seq[:, i:i + SERVE_SLOTS]
+        ties = []                           # one mask per MoE layer
+
+        def record(logits, c, cap):
+            v = moe.top_k(logits, k + 1)[0]
+            ties.append(v[..., k - 1] - v[..., k]
+                        <= atol + rtol * v[..., k - 1].abs())
+            return real(logits, c, cap)
+
+        def flipped(logits, c, cap):
+            tie = ties.pop(0)
+            kth = moe.top_k(logits, k)[1][..., k - 1:]
+            logits = logits.scatter(-1, kth, torch.where(
+                tie[..., None], float("-inf"), logits.gather(-1, kth)))
+            return real(logits, c, cap)
+
+        copy = {name: t.clone() for name, t in cache.items()}
+        moe.route = record
+        try:
+            logits, cache = model.decode_step(params, cfg, cache, block, i)
+        finally:
+            moe.route = real
+        row = model.mask_vocab_pad(logits, cfg)[0].float()
+        tied = torch.stack(ties).any(0).reshape(-1)
+        alt = row
+        if bool(tied.any()):
+            moe.route = flipped
+            try:
+                other, _ = model.decode_step(params, cfg, copy, block, i)
+            finally:
+                moe.route = real
+            alt = torch.where(tied[:, None], model.mask_vocab_pad(
+                other, cfg)[0].float(), row)
+        rows.append(row)
+        alts.append(alt)
+    return torch.cat(rows), torch.cat(alts)
 
 
-def serve_once(cfg, lens, dtype: str, torch, dev):
-    """``serve_continuous`` of granite-3-2b in ``dtype`` with the kernel,
-    certified first, its launch count reset just before and read just
-    after; fails unless it launched once per layer and step (plus the
-    certification's), admitted and evicted every request and modeled
-    fewer words than a dense cache.  Returns (tokens, stats, params,
-    launches)."""
-    from repro_torch.core import codegen_cuda as cc
+def serve_call(cfg, lens, params, dev, **kw):
+    """Serve ``lens`` over SERVE_SLOTS slots, SERVE_GEN tokens each:
+    through ``serve_continuous`` for a published config (in ``cfg``'s
+    type), through ``_serve_continuous`` for one whose depth was cut."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
+
+    if cfg == get_config(cfg.name).with_(dtype=cfg.dtype):
+        return serve.serve_continuous(
+            cfg.name, False, SERVE_SLOTS, SERVE_GEN, prompt_lens=lens,
+            params=params, device=dev, dtype=cfg.dtype, **kw)
+    return serve._serve_continuous(cfg, SERVE_SLOTS, SERVE_GEN,
+                                   prompt_lens=lens, params=params,
+                                   device=dev, **kw)
+
+
+def make_params(what: str, cfg, torch, dev):
+    """``model.init_params(cfg, 0)`` on the card, with its count, bytes,
+    time and the card's peak memory while they were made."""
     from repro_torch.models import model
 
-    what = f"serving[{dtype}]"
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params = model.init_params(cfg.with_(dtype=dtype), 0, dev)
+    params = model.init_params(cfg, 0, dev)
     torch.cuda.synchronize()
-    print(f"[{what}] {sum(t.numel() for t in params.values())} random "
-          f"{dtype} weights made on the card in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    n = sum(t.numel() for t in params.values())
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    print(f"[{what}] {n} random {cfg.dtype} weights ({nbytes / 1e9:.2f} GB) "
+          f"made on the card in {time.perf_counter() - t0:.2f} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} "
+          "GB", flush=True)
+    return params
+
+
+def serve_once(cfg, lens, params, torch, dev, what: str):
+    """``serve_call`` of ``cfg`` with the kernel, certified first, its
+    launch count reset just before and read just after; fails unless it
+    launched once per layer and step (plus the certification's), admitted
+    and evicted every request and modeled fewer words than a dense cache.
+    Returns (tokens, stats, launches)."""
+    from repro_torch.core import codegen_cuda as cc
+
     pd_counts(cc, reset=True)
-    toks, stats = serve.serve_continuous(
-        cfg.name, False, SERVE_SLOTS, SERVE_GEN, prompt_lens=lens,
-        use_kernel=True, certify=True, params=params, device=dev,
-        dtype=dtype)
+    toks, stats = serve_call(cfg, lens, params, dev, use_kernel=True,
+                             certify=True)
     torch.cuda.synchronize()
     launches, attend, combine = pd_counts(cc)
     cert = cfg.n_layers * (5 + 4 - 1)        # _certify_paged_decode's steps
@@ -1977,7 +2077,7 @@ def serve_once(cfg, lens, dtype: str, torch, dev):
             or toks.max() >= cfg.vocab:
         fail(f"{what}: tokens of shape {toks.shape} in "
              f"[{toks.min()}, {toks.max()}]")
-    return toks, stats, params, launches
+    return toks, stats, launches
 
 
 def forced_rows(cfg, params, lens, toks, cmax: int, torch, dev) -> list:
@@ -1994,42 +2094,63 @@ def forced_rows(cfg, params, lens, toks, cmax: int, torch, dev) -> list:
     return rows
 
 
+def torch_equal(a, b) -> bool:
+    return bool((a == b).all())
+
+
 def first_misses(rows, toks, dtype: str) -> list:
     """Per request, the first step whose served token the check refuses,
     or None.  float32: the token must be the oracle's greedy token;
     bfloat16: one the oracle scores within the bf16 tolerance of its
     best (``serve.near_best``), since two summation orders break its
-    ties differently.  Also returns how many served tokens pass."""
+    ties differently; at a routing tie (``forced_oracle``'s ``alt``),
+    within that tolerance of the best of either routing's logits.  Also
+    returns how many served tokens pass."""
     from repro_torch.launch import serve
 
     misses, passed = [], 0
-    for r, logits in enumerate(rows):
+    for r, (logits, alt) in enumerate(rows):
         best = logits.argmax(-1).cpu().numpy()
         miss = None
         for t in range(toks.shape[1]):
             tok = int(toks[r, t])
             ok = tok == best[t] if dtype == "float32" else \
-                serve.near_best(logits[t], tok, dtype)
+                serve.near_best(logits[t], tok, dtype) or (
+                    alt is not None and serve.near_best(alt[t], tok, dtype))
             passed += ok
             if not ok and miss is None:
                 miss = (t, f"request {r} token {t}: {tok} scores "
                            f"{float(logits[t, tok]):.4g}, the oracle's "
-                           f"{int(best[t])} {float(logits[t].max()):.4g}")
+                           f"{int(best[t])} {float(logits[t].max()):.4g}"
+                           + ("" if alt is None or torch_equal(alt[t],
+                                                               logits[t])
+                              else f" (other routing: {tok} scores "
+                              f"{float(alt[t, tok]):.4g} of "
+                              f"{float(alt[t].max()):.4g})"))
         misses.append(miss)
     return misses, passed
 
 
-def check_tokens(cfg, params, lens, toks, cmax: int, dtype: str, torch, dev):
+def check_tokens(cfg, params, lens, toks, cmax: int, dtype: str, torch, dev,
+                 what: str = ""):
     """Hold the server's tokens against the teacher-forced dense oracle
     (``first_misses``); in bfloat16, first prove the limit rejects
     another request's tokens."""
-    what = f"serving[{dtype}]"
+    from repro_torch.launch import serve
+
+    what = what or f"serving[{dtype}]"
     t0 = time.perf_counter()
     rows = forced_rows(cfg.with_(dtype=dtype), params, lens, toks, cmax,
                        torch, dev)
-    same = ties = 0
+    same = ties = routing = by_alt = 0
     worst = 0.0
-    for r, logits in enumerate(rows):
+    for r, (logits, alt) in enumerate(rows):
+        if alt is not None:
+            flip = (alt != logits).any(-1)
+            routing += int(flip.sum())
+            for t in torch.nonzero(flip).reshape(-1).tolist():
+                by_alt += not serve.near_best(logits[t], int(toks[r, t]),
+                                              dtype)
         top = torch.topk(logits, 2, dim=-1)
         ties += int((top.values[:, 0] == top.values[:, 1]).sum())
         same += int((top.indices[:, 0].cpu().numpy() == toks[r]).sum())
@@ -2040,7 +2161,10 @@ def check_tokens(cfg, params, lens, toks, cmax: int, dtype: str, torch, dev):
     print(f"[{what}] teacher-forced dense oracle ({cmax}-slot cache) in "
           f"{time.perf_counter() - t0:.1f} s: {same} of {n} tokens the "
           f"oracle's greedy token, {ties} steps with a tie at the top, "
-          f"largest deficit of a served token's logit {worst:.4g}")
+          f"largest deficit of a served token's logit {worst:.4g}"
+          + ("" if not cfg.n_experts else
+             f"; {routing} steps with a routing tie, {by_alt} served tokens "
+             "within the tolerance only of the other routing's logits"))
     if dtype != "float32":
         other = np.roll(toks, -1, axis=0)
         caught = sum(m is not None for m in first_misses(rows, other,
@@ -2088,8 +2212,8 @@ def append_skipped(cc, torch):
     return undo
 
 
-def faulted_serving(cfg, params, lens, cmax: int, stats, torch,
-                    dev) -> None:
+def faulted_serving(cfg, params, lens, cmax: int, layout: str, ps: int,
+                    torch, dev, what: str) -> None:
     """Prove the bfloat16 checks reject a real kernel fault on the
     serving path (``append_skipped``): certification raises, and the
     tokens of an uncertified faulted run fail ``first_misses`` in at
@@ -2097,21 +2221,17 @@ def faulted_serving(cfg, params, lens, cmax: int, stats, torch,
     from repro_torch.core import codegen_cuda as cc
     from repro_torch.launch import serve
 
-    what = "serving[bfloat16,append skipped]"
     undo = append_skipped(cc, torch)
     try:
         try:
-            serve._certify_paged_decode(cfg, params, layout=stats["layout"],
-                                        page_size=stats["page_size"],
-                                        device=dev)
+            serve._certify_paged_decode(cfg, params, layout=layout,
+                                        page_size=ps, device=dev)
         except RuntimeError as e:
             print(f"[{what}] certification raised: {e}")
         else:
             fail(f"{what}: certification passed the faulted kernel")
-        toks, _ = serve.serve_continuous(
-            cfg.name, False, SERVE_SLOTS, SERVE_GEN, prompt_lens=lens,
-            use_kernel=True, certify=False, params=params, device=dev,
-            dtype=cfg.dtype)
+        toks, _ = serve_call(cfg, lens, params, dev, use_kernel=True,
+                             certify=False)
     finally:
         undo()
     rows = forced_rows(cfg, params, lens, toks, cmax, torch, dev)
@@ -2155,6 +2275,45 @@ def device_busy(fn, torch, calls: int = 3) -> tuple:
     return wall, busy, names or "not measured", by_name
 
 
+def serve_lens(seed: int) -> list:
+    """SERVE_REQUESTS seeded prompt lengths in SERVE_PROMPTS, one of them
+    the longest."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
+                       SERVE_REQUESTS)
+    lens[rng.randint(SERVE_REQUESTS)] = SERVE_PROMPTS[1]
+    return [int(n) for n in lens]
+
+
+def profile_step(label: str, cfg, params, lens, cmax: int, ps: int,
+                 layout: str, torch, dev) -> tuple:
+    """One decode step at the serving shapes (the first SERVE_SLOTS
+    requests halfway through their generation) under torch.profiler:
+    prints and returns (host ms, device busy ms, the paged kernels' ms);
+    fails if the trace shows no paged kernel."""
+    from repro_torch.models import paged
+
+    mid = [lens[i % len(lens)] + SERVE_GEN // 2 for i in range(SERVE_SLOTS)]
+    cache = paged.PagedKVCache.init(cfg, SERVE_SLOTS, cmax, page_size=ps,
+                                    layout=layout, device=dev)
+    cache.seq_lens.copy_(torch.as_tensor(mid, device=dev))
+    tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device=dev)
+    wall, busy, names, by_name = device_busy(
+        lambda: paged.paged_decode_step(params, cfg, cache, tok,
+                                        use_kernel=True), torch)
+    paged_ms = sum(ms for name, ms in by_name.items()
+                   if "pdec::" in name or "splitk::" in name)
+    print(f"[{label}] one decode step of {SERVE_SLOTS} requests at seq_len "
+          f"{min(mid)}..{max(mid)}: {wall:.3f} ms on the host clock, device "
+          f"busy {busy:.3f} ms (idle share {1 - busy / wall:.4f}); the paged "
+          f"kernels (attend and combine) {paged_ms:.3f} ms, "
+          f"{paged_ms / busy:.4f} of device busy; costliest kernels: {names}",
+          flush=True)
+    if not paged_ms:
+        fail(f"{label}: the profiled step shows no paged kernel")
+    return wall, busy, paged_ms
+
+
 def run_serving(tier, torch, dev) -> dict:
     """``serve_continuous`` on granite-3-2b at full width (40 layers, 16
     requests over 8 slots, 64 tokens each, prompts up to 960 tokens, the
@@ -2166,16 +2325,12 @@ def run_serving(tier, torch, dev) -> dict:
     serving shapes with the bfloat16 run's launch count."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import paged
 
     cfg = get_config("granite-3-2b")
-    rng = np.random.RandomState(50)
-    lens = rng.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
-                       SERVE_REQUESTS)
-    lens[rng.randint(SERVE_REQUESTS)] = SERVE_PROMPTS[1]
-    lens = [int(n) for n in lens]
+    lens = serve_lens(50)
     max_ctx = max(lens) + SERVE_GEN
     blocks, plan = ops.resolve_plan("paged_decode", max_ctx, cfg.head_dim,
+                                    cfg.n_heads // cfg.n_kv_heads, cfg.dtype,
                                     device=dev)
     print(f"[serving] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
@@ -2186,40 +2341,20 @@ def run_serving(tier, torch, dev) -> dict:
           f"on-chip bytes {plan.vmem_bytes}", flush=True)
     out = {}
     for dtype in ("bfloat16", "float32"):
-        toks, stats, params, launches = serve_once(cfg, lens, dtype, torch,
-                                                   dev)
+        what = f"serving[{dtype}]"
+        params = make_params(what, cfg.with_(dtype=dtype), torch, dev)
+        toks, stats, launches = serve_once(cfg.with_(dtype=dtype), lens,
+                                           params, torch, dev, what)
         ps = stats["page_size"]
         cmax = -(-max_ctx // ps) * ps
         check_tokens(cfg, params, lens, toks, cmax, dtype, torch, dev)
         if dtype == "bfloat16":
-            faulted_serving(cfg, params, lens, cmax, stats, torch, dev)
+            faulted_serving(cfg, params, lens, cmax, stats["layout"], ps,
+                            torch, dev, "serving[bfloat16,append skipped]")
         out[dtype] = (stats, launches)
         if dtype == "bfloat16":
-            # one decode step at the serving shapes: the first 8 requests
-            # halfway through their generation
-            mid = [lens[i % len(lens)] + SERVE_GEN // 2
-                   for i in range(SERVE_SLOTS)]
-            cache = paged.PagedKVCache.init(cfg, SERVE_SLOTS, cmax,
-                                            page_size=ps,
-                                            layout=stats["layout"],
-                                            device=dev)
-            cache.seq_lens.copy_(torch.as_tensor(mid, device=dev))
-            tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32,
-                              device=dev)
-            wall, busy, names, by_name = device_busy(
-                lambda: paged.paged_decode_step(params, cfg, cache, tok,
-                                                use_kernel=True), torch)
-            paged_ms = sum(ms for name, ms in by_name.items()
-                           if "pdec::" in name or "splitk::" in name)
-            print(f"[serving] one decode step of {SERVE_SLOTS} requests at "
-                  f"seq_len {min(mid)}..{max(mid)}: {wall:.3f} ms on the "
-                  f"host clock, device busy {busy:.3f} ms (idle share "
-                  f"{1 - busy / wall:.4f}); the paged kernels (attend and "
-                  f"combine) {paged_ms:.3f} ms, {paged_ms / busy:.4f} of "
-                  f"device busy; costliest kernels: {names}", flush=True)
-            if not paged_ms:
-                fail("serving: the profiled step shows no paged kernel")
-            del cache
+            profile_step("serving", cfg, params, lens, cmax, ps,
+                         stats["layout"], torch, dev)
         del params
         torch.cuda.empty_cache()
     stats, launches = out["bfloat16"]
@@ -2231,6 +2366,329 @@ def run_serving(tier, torch, dev) -> dict:
                     stats["layout"], 51, tier, torch, dev)
     row["launches"] = launches
     return row
+
+
+# ------------------------------------------------------- the MoE family
+MOE_ARCH = "llama4-maverick-400b-a17b"
+MOE_LAYERS = 2               # one dense layer, one MoE layer
+MOE_EXPERTS = 128
+ROUTER_LABEL = "groupby_fold[llama4,router]"
+ROUTER_PROMPTS = (2, 512)    # the router's prefill: 1,024 tokens
+MIXTRAL = "mixtral-8x22b"
+MIXTRAL_TOKENS = (2, 4096)   # two routing groups of 4096 tokens
+MOE_TOL = 2e-2               # bfloat16, atol x the largest magnitude
+
+
+def moe_reckoning(cfg, tier) -> int:
+    """Print the cut model's parameters and bytes, its three expert
+    tensors, and the peak ``init_params`` should reach (each tensor drawn
+    in float32, scaled in place, then cast); returns the bytes a decode
+    step reads: every weight but the embedding table."""
+    import math
+
+    from repro_torch.models import model
+
+    shapes = model.param_shapes(cfg)
+    n = sum(math.prod(s) for s, _ in shapes.values())
+    experts = [name for name in shapes if name[4:] in ("we1", "we2", "we3")]
+    ex = math.prod(shapes[experts[0]][0])
+    made = peak = 0
+    for name, (shape, _) in sorted(shapes.items()):
+        size = math.prod(shape)
+        peak = max(peak, made + 6 * size)
+        made += 2 * size
+    step = 2 * (n - math.prod(shapes["embed"][0]))
+    print(f"[moe] {cfg.name} at its published widths cut to {cfg.n_layers} "
+          f"layers (one dense, one MoE): {n} parameters, {2 * n / 1e9:.2f} GB"
+          f" in bf16; the three expert tensors {shapes[experts[0]][0]} "
+          f"{2 * ex / 1e9:.2f} GB each; init_params' peak about "
+          f"{peak / 1e9:.1f} GB (a float32 draw scaled in place and its bf16 "
+          f"copy beside the {made / 1e9:.1f} GB kept); a decode step reads "
+          f"every weight but the embedding table, {step / 1e9:.2f} GB "
+          f"({3 * 2 * ex / 1e9:.2f} GB of it the {cfg.n_experts} experts, "
+          "which the capacity dispatch computes whatever the routing): "
+          f"{step / tier.hbm_bytes_per_s * 1e3:.3f} ms at "
+          f"{tier.hbm_bytes_per_s / 1e12:.2f} TB/s", flush=True)
+    return step
+
+
+def run_router(cfg, params, tier, torch, dev) -> dict:
+    """``moe.router_counts(use_kernel=True)`` on the hidden states that
+    enter the MoE layer in a prefill of ROUTER_PROMPTS tokens (captured
+    from ``moe_ffn``'s input): ``groupby_fold`` over 128 experts at the
+    form ``table_form`` gives, its launch count reset just before and read
+    just after; the counts exactly the plain version's and the ``ref``
+    oracle's (``use_kernel=False``), two calls bitwise equal, after
+    proving exact equality catches one dropped row; timed beside the
+    plain version and ``index_add_``."""
+    from repro_torch.kernels import groupby_fold as gbf
+    from repro_torch.kernels import ops
+    from repro_torch.models import model, moe
+
+    label = ROUTER_LABEL
+    b, s = ROUTER_PROMPTS
+    prompt = torch.as_tensor(np.random.RandomState(64).randint(
+        0, cfg.vocab, (b, s)), dtype=torch.int32, device=dev)
+    seen = []
+    real = moe.moe_ffn
+    moe.moe_ffn = lambda p, x, c: seen.append(x) or real(p, x, c)
+    try:
+        model.decode_step(params, cfg, model.init_cache(cfg, b, s, device=dev),
+                          prompt, 0)
+    finally:
+        moe.moe_ffn = real
+    if len(seen) != 1:
+        fail(f"{label}: the prefill ran {len(seen)} MoE layers, expected 1")
+    h = seen[0]
+    layer = {k[4:]: v[0] for k, v in params.items() if k.startswith("moe_")}
+    e = cfg.n_experts
+    form = keyed_form(label, e, 1, dev, torch)
+    torch.cuda.synchronize()
+    gbf.groupby_fold.launches = 0
+    got = moe.router_counts(layer, h, cfg, use_kernel=True)
+    torch.cuda.synchronize()
+    launches = gbf.groupby_fold.launches
+    ran_form(label, gbf.groupby_fold.form, form)
+    keys = torch.argmax(h.reshape(b * s, -1).float() @ layer["router"]
+                        .float(), dim=-1).to(torch.int32)
+    ones = torch.ones(b * s, device=dev)
+    plain = gbf.groupby_fold_plain(keys, ones, e)
+    ref = moe.router_counts(layer, h, cfg, use_kernel=False)
+    dropped = keys.clone()
+    dropped[int(torch.argmax(got[keys.long()]))] = -1     # a busy expert
+    if torch.equal(got, gbf.groupby_fold_plain(dropped, ones, e)):
+        fail(f"{label}: exact equality would not catch a dropped row")
+    for what, want in (("plain", plain), ("ref", ref)):
+        if not torch.equal(got, want):
+            fail(f"{label}: counts differ from the {what} version by "
+                 f"{float((got - want).abs().max())}")
+    if not torch.equal(got, moe.router_counts(layer, h, cfg,
+                                              use_kernel=True)):
+        fail(f"{label}: two calls differ")
+    if launches < 1 or float(got.sum()) != b * s:
+        fail(f"{label}: {launches} launches, {float(got.sum())} counted")
+    busy = int((got > 0).sum())
+    print(f"[{label}] {b} x {s} prefill tokens of {cfg.name}'s MoE layer "
+          f"into {e} experts ({busy} used, the largest "
+          f"{int(got.max())}): groupby_fold launches={launches}, counts "
+          "exactly the plain version's and the ref oracle's, two calls "
+          "bitwise equal; planted fault caught: a dropped row", flush=True)
+
+    def run():
+        return ops.groupby(keys, ones, e)
+    ms = median_ms(run, torch)
+    plain_ms = median_ms(lambda: gbf.groupby_fold_plain(keys, ones, e),
+                         torch)
+    lib_ms = median_ms(lambda: torch.zeros(e, device=dev).index_add_(
+        0, keys, ones), torch)
+    nbytes = nbytes_of(keys, ones) + 4 * e
+    bound_ms, by = bound(nbytes, b * s, tier)
+    print(f"[{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{lib_ms:.4f} ms (index_add_), bound {bound_ms:.3g} ms ({nbytes} "
+          f"B, {b * s} ops)", flush=True)
+    breakdown(label, run, [f"{form}_kernel", "combine_partials"], torch)
+    return {"name": label, "route": "cuda",
+            "source": f"{CSRC}/groupby_fold.cuh",
+            "replaces": f"{HAND}/groupby_fold.py:43", "launches": launches,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
+
+
+def run_moe_serving(tier, torch, dev) -> list:
+    """Llama-4 Maverick at its published widths, cut to MOE_LAYERS
+    layers, served through ``_serve_continuous`` (16 requests over 8
+    slots, prompts up to 960 tokens, 64 tokens each, the card's paged
+    plan): the planted fault first (the kernel's append skipped:
+    certification must raise and the faulted tokens fail the bf16 rule),
+    then the served run (kernel certified first) held against the
+    teacher-forced dense oracle by the bf16 rule, one step profiled
+    beside its byte floor, the router's ``groupby_fold`` on a prefill's
+    hidden states, and the kernel timed at the serving shapes.  Returns
+    the kernel rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import codegen_cuda as cc
+    from repro_torch.kernels import ops
+
+    cfg = get_config(MOE_ARCH).with_(n_layers=MOE_LAYERS)
+    group = cfg.n_heads // cfg.n_kv_heads
+    lens = serve_lens(60)
+    max_ctx = max(lens) + SERVE_GEN
+    blocks, plan = ops.resolve_plan("paged_decode", max_ctx, cfg.head_dim,
+                                    group, cfg.dtype, device=dev)
+    layout, ps = blocks[0], blocks[1]
+    charge = cc.pd_smem_bytes(cc.PD_STAGES, cc.PD_KC,
+                              cc.pd_launch_group(group), cfg.head_dim,
+                              cfg.dtype)
+    print(f"[moe] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim} (group {group}), d_ff "
+          f"{cfg.d_ff}, {cfg.n_experts} experts top-{cfg.top_k}, shared "
+          f"expert {cfg.shared_expert}, vocab {cfg.padded_vocab}; "
+          f"{SERVE_REQUESTS} requests, prompts {lens}, {SERVE_SLOTS} slots, "
+          f"{SERVE_GEN} tokens each; DSE plan for paged_decode({max_ctx}, "
+          f"{cfg.head_dim}, group {group}, {cfg.dtype}): (layout, page size, "
+          f"block, depth) = {blocks}, on-chip bytes {plan.vmem_bytes} (the "
+          f"kernel's smem_bytes: {charge})", flush=True)
+    if plan.vmem_bytes != charge or blocks[2:] != (cc.PD_KC, cc.PD_STAGES):
+        fail(f"moe: the plan charges {plan.vmem_bytes} B at {blocks[2:]}, "
+             f"the kernel stages {charge} B at ({cc.PD_KC}, {cc.PD_STAGES})")
+    step_bytes = moe_reckoning(cfg, tier)
+    params = make_params("moe", cfg, torch, dev)
+    cmax = -(-max_ctx // ps) * ps
+    faulted_serving(cfg, params, lens, cmax, layout, ps, torch, dev,
+                    "moe[serving,append skipped]")
+    what = "moe[serving]"
+    toks, stats, launches = serve_once(cfg, lens, params, torch, dev, what)
+    check_tokens(cfg, params, lens, toks, cmax, cfg.dtype, torch, dev, what)
+    wall, busy, paged_ms = profile_step(what, cfg, params, lens, cmax, ps,
+                                        layout, torch, dev)
+    mid = [lens[i % len(lens)] + SERVE_GEN // 2 for i in range(SERVE_SLOTS)]
+    kv = sum(-(-(n + 1) // ps) * ps for n in mid) * cfg.n_layers * 2 \
+        * cfg.n_kv_heads * cfg.head_dim * 2
+    floor_ms = (step_bytes + kv) / tier.hbm_bytes_per_s * 1e3
+    print(f"[{what}] byte floor of a step: {step_bytes} B of weights + {kv} "
+          f"B of live K/V = {floor_ms:.3f} ms at "
+          f"{tier.hbm_bytes_per_s / 1e12:.2f} TB/s; the profiled step's "
+          f"device busy {busy:.3f} ms ({busy / floor_ms:.2f}x the floor), "
+          f"host clock {wall:.3f} ms", flush=True)
+    rows = [run_router(cfg, params, tier, torch, dev)]
+    del params
+    torch.cuda.empty_cache()
+    row = run_paged(f"paged_decode[llama4,serving,{layout},p{ps}]", cfg, mid,
+                    ps, cmax // ps, layout, 61, tier, torch, dev)
+    row["launches"] = launches
+    return [row] + rows
+
+
+def run_moe_paged(tier, torch, dev) -> list:
+    """``lower_paged_decode`` at Llama-4 Maverick's attention widths (8 kv
+    heads, group 5, head dim 128, bf16 pools): 32 requests of seeded
+    lengths up to 8,191 tokens at the card's plan's page size, both
+    layouts (``run_paged``: planted faults first, bound and ratio)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = get_config(MOE_ARCH)
+    (_, ps, _, _), _ = ops.resolve_plan(
+        "paged_decode", PD_CTX, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads,
+        cfg.dtype, device=dev)
+    lens = paged_lens(ps, np.random.RandomState(62))
+    return [run_paged(f"paged_decode[llama4,{layout},p{ps}]", cfg, lens, ps,
+                      PD_CTX // ps, layout, 63, tier, torch, dev)
+            for layout in ("split", "fused")]
+
+
+def run_mixtral_layer(torch, dev) -> None:
+    """One MoE layer of mixtral-8x22b at its published widths (d_model
+    6144, d_ff 16384, 8 experts, top-2) in bf16 on 2 x 4096 tokens (two
+    routing groups), random weights from a seed, held against the same
+    layer in float64 on the routing of the run under test (captured from
+    ``moe.route``) by the bf16 rule of ``tests/test_torch_moe.py``: rtol
+    MOE_TOL and an atol of MOE_TOL x the oracle's largest magnitude,
+    after proving that limit catches one token's second choice dropped
+    (the error over each token's root mean square is printed beside it).
+    Prints each token's margin between its k-th and (k+1)-th logit; a
+    routing that differs from a float32 run's must be a tie (margin
+    within float32 rounding of the logit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+
+    label = "moe[mixtral]"
+    cfg = get_config(MIXTRAL)
+    b, s = MIXTRAL_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(70)
+    p = {name: L.dense_init(gen, shape[1:], -2, torch.bfloat16, dev)
+         for name, shape in sorted(moe.param_shapes(cfg, 1).items())}
+    x = lm_randn((b, s, cfg.d_model), 71, torch, dev).to(torch.bfloat16)
+    seen = []
+    real = moe.route
+
+    def record(logits, c, cap):
+        out = real(logits, c, cap)
+        seen.append((logits,) + out)
+        return out
+    moe.route = record
+    try:
+        t0 = time.perf_counter()
+        y = moe.moe_ffn(p, x, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        moe.moe_ffn({k: v.float() for k, v in p.items()}, x.float(),
+                    cfg.with_(dtype="float32"))
+    finally:
+        moe.route = real
+    (logits, topi, gates, dest), (_, topi32, _, dest32) = seen
+    k, e = cfg.top_k, cfg.n_experts
+    g, gsz = logits.shape[:2]
+    cap = moe.capacity(cfg, gsz)
+    vals = moe.top_k(logits, k + 1)[0]
+    margin = (vals[..., k - 1] - vals[..., k]).reshape(-1)
+    ulp = torch.finfo(torch.float32).eps * vals[..., k - 1].abs().reshape(-1)
+    order = torch.argsort(margin)
+    differ = (topi != topi32).any(-1).reshape(-1)
+    print(f"[{label}] {cfg.name}: d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"{e} experts top-{k}, {b} x {s} tokens in {g} routing groups of "
+          f"{gsz}, capacity {cap}; {int((dest == e * cap).sum())} choices "
+          f"dropped; margin between each token's {k}th and {k + 1}th logit: "
+          f"min {float(margin.min()):.4g}, median "
+          f"{float(margin.median()):.4g}, {int((margin < 1e-3).sum())} "
+          f"below 1e-3; the smallest five "
+          + ", ".join(f"token {int(i)}: {float(margin[i]):.3g}"
+                      for i in order[:5])
+          + f"; routing of a float32 run differs in {int(differ.sum())} "
+          "tokens", flush=True)
+    for i in torch.nonzero(differ).reshape(-1).tolist():
+        print(f"[{label}] token {i}: routing differs from the float32 run's,"
+              f" margin {float(margin[i]):.4g} (float32 rounding of its "
+              f"logit {float(ulp[i]):.4g})")
+        if margin[i] > ulp[i]:
+            fail(f"{label}: token {i}'s routing differs from the float32 "
+                 f"run's at a margin of {float(margin[i]):.4g}, past float32 "
+                 "rounding: not a tie")
+    if not differ.any() and not torch.equal(dest, dest32):
+        fail(f"{label}: dispatch slots differ from the float32 run's")
+    p64 = {k_: v.double() for k_, v in p.items()}
+    xt = x.double().reshape(g, gsz, cfg.d_model)
+    gates64 = torch.softmax(torch.einsum("gtd,de->gte", xt, p64["router"])
+                            .gather(-1, topi), dim=-1)
+    want = moe.experts(p64, xt, gates64, dest, cfg).reshape(y.shape)
+    atol = MOE_TOL * float(want.abs().max())
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    # the planted fault: the token with the heaviest second choice loses it
+    tok = int(torch.argmax(gates64[..., 1]))
+    faulted_dest = dest.clone().reshape(-1, k)
+    faulted_dest[tok, 1] = e * cap
+    faulted = moe.experts(p64, xt, gates64, faulted_dest.reshape(dest.shape),
+                          cfg).reshape(y.shape)
+    shift = float((faulted - want).abs().max())
+    if not catches(faulted, want, MOE_TOL, atol):
+        fail(f"{label}: rtol {MOE_TOL} / atol {fmt_atol(atol)} would not "
+             f"catch token {tok}'s second choice dropped (shift {shift:.4g})")
+    del faulted, faulted_dest, p64
+    err = check_close(y, want, MOE_TOL, atol, torch, f"{label} vs float64")
+    per_rms = float(((y.double() - want).abs() / rms.clamp_min(1e-300))
+                    .max())
+    ms = median_ms(lambda: moe.moe_ffn(p, x, cfg), torch, LM_REPS, LM_BATCH)
+    print(f"[{label}] bf16 layer vs float64 on its routing: max abs err "
+          f"{err:.4g} (at most {per_rms:.4g} of its token's root mean "
+          f"square); rtol {MOE_TOL}, atol {fmt_atol(atol)}; planted fault "
+          f"caught: token {tok}'s second choice dropped shifts it by "
+          f"{shift:.4g}; the layer (torch.einsum on cuBLAS, no hand kernel) "
+          f"{ms:.3f} ms a call, first call {first_s:.3f} s", flush=True)
+
+
+def run_moe(tier, torch, dev) -> list:
+    """The ``[moe]`` phase: Llama-4 Maverick served at full width (two
+    layers), row 6 at its attention widths, row 10 as its router, and a
+    Mixtral MoE layer at full width.  Returns the kernel rows."""
+    t0 = time.perf_counter()
+    rows = run_moe_serving(tier, torch, dev)
+    rows.extend(run_moe_paged(tier, torch, dev))
+    torch.cuda.empty_cache()
+    run_mixtral_layer(torch, dev)
+    torch.cuda.empty_cache()
+    print(f"[moe] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
 
 
 TUNING_PROGRAMS = ("outerprod", "gda", "gemm", "filter")
@@ -2650,6 +3108,7 @@ def main() -> int:
     kernels.extend(run_lm_kernels(tier, torch, dev))
     kernels.extend(run_paged_kernels(tier, torch, dev))
     kernels.append(run_serving(tier, torch, dev))
+    kernels.extend(run_moe(tier, torch, dev))
     run_tuning(tier, torch, dev, stores / "tuning")
 
     print(json.dumps({"kernels": kernels}))

@@ -2461,9 +2461,36 @@ PAGED_DECODE_LIB = build.Library("paged_decode", PAGED_DECODE_SOURCE, {
     "paged_decode_limits": [_VP]})
 _pd_limits: List[int] = []
 _PD_SMS: Dict[torch.device, int] = {}   # SMs of each card, read once
+# pdec's constants for planning off the card (tests/test_torch_paged.py
+# holds them to the .cuh; the wrapper asks the library for its limits)
 PD_KC = 64                # pdec::KC: keys of a chunk
+PD_STAGES = 2             # pdec::STAGES: chunk slots of the ring
+PD_GMAX = 16              # pdec::GMAX: query rows of a kv head, at most
+PD_DMAX = 128             # pdec::DMAX: head dim, at most
 PD_SPLIT_CHUNKS = 16      # a split holds at most this many chunks ...
 PD_SPLITS_MAX = 64        # ... and there are at most pdec::SMAX splits
+
+
+def pd_launch_group(group: int) -> int:
+    """The query rows G a block is instantiated for at ``group`` query
+    heads per kv head (``pdec::launch``: 4, 8 or GMAX)."""
+    if not 1 <= group <= PD_GMAX:
+        raise ValueError(f"group {group}: the kernel takes 1..{PD_GMAX}")
+    return 4 if group <= 4 else 8 if group <= 8 else PD_GMAX
+
+
+def pd_smem_bytes(stages: int, kc: int, g: int, d: int, dtype) -> int:
+    """A block's shared bytes (``pdec::smem_bytes<T, G>(d)``): the ring of
+    ``stages`` x {K, V} x ``kc`` key rows of ``d`` elements of the pool
+    type ``dtype`` (a ``torch.dtype`` or its name), then the chunk's
+    scores (``kc`` x ``g``) and m, l, alpha (``g`` each) in float32."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    if dtype not in _PD_TYPES:
+        raise ValueError(f"paged_decode pools are float32 or bfloat16, got "
+                         f"{dtype}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return stages * 2 * kc * d * itemsize + (g * kc + 3 * g) * 4
 
 
 def _pd_refuse(b: int, group: int, dh: int, ps: int, itemsize: int) -> None:

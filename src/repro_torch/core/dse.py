@@ -1234,21 +1234,27 @@ def _pipeline_candidates(pipe, align: int = MXU,
 
 def _price_pipeline_group(sub_pipe, b: int, *, vmem_budget: int, tier: Tier,
                           counters: Dict[str, int], profile=None,
-                          depth: int = 2):
+                          depth: int = 2,
+                          onchip_bytes: Optional[int] = None):
     """Price the sub-pipeline fused at tile ``b`` with stage-buffer
     ``depth``: returns ``(words, onchip_bytes, analytic_s,
     calibrated_s, steps)`` or None when it busts the budget or cannot
     fuse.  Uncalibrated (``profile`` None), ``calibrated_s`` is the
-    analytic time."""
+    analytic time.  ``onchip_bytes``, when given, is the charge in place
+    of ``plan_memory``'s (what a hand kernel allocates)."""
     budget_words = max(vmem_budget // 4, 1)
     try:
         fdag = plmod.fuse_dag(sub_pipe, b, vmem_budget_words=budget_words)
     except (ValueError, NotImplementedError):
         return None
     counters["explored"] += 1
-    mem = plan_memory(fdag.patterns, vmem_budget_bytes=vmem_budget,
-                      depth=depth)
-    if not mem.fits:
+    if onchip_bytes is None:
+        mem = plan_memory(fdag.patterns, vmem_budget_bytes=vmem_budget,
+                          depth=depth)
+        fits, onchip_bytes = mem.fits, mem.total_bytes
+    else:
+        fits = onchip_bytes <= vmem_budget
+    if not fits:
         counters["pruned"] += 1
         return None
     for t in fdag.patterns:   # streaming fallback left in place
@@ -1278,7 +1284,7 @@ def _price_pipeline_group(sub_pipe, b: int, *, vmem_budget: int, tier: Tier,
     calibrated = calibrate.predicted_seconds(
         "Pipeline", seconds * tier.hbm_bytes_per_s, steps,
         profile=profile, tier=tier)
-    return (reads + out_w, mem.total_bytes, seconds, calibrated, steps)
+    return (reads + out_w, onchip_bytes, seconds, calibrated, steps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2087,22 +2093,34 @@ def paged_decode_pipeline(max_len: int, page_size: int, d: int,
 
 
 def select_paged_decode_blocks(
-        max_len: int, d: int, *, tier: Optional[Tier] = None,
+        max_len: int, d: int, group: Optional[int] = None,
+        dtype: Optional[str] = None, *, tier: Optional[Tier] = None,
         vmem_budget: Optional[int] = None, device=None, **tuning
         ) -> Tuple[Tuple[str, int, int, int], TilePlan]:
     """``(layout, page_size, block, depth)`` for
-    ``codegen_cuda.lower_paged_decode``: a joint search over KV layout x
-    page size x streaming block x buffer depth.
+    ``codegen_cuda.lower_paged_decode``.
 
-    Every (layout, page_size) pair prices its own ``decode_attention``
-    proxy DAG through ``explore_pipeline`` (block x depth inside, with
-    the tuning arguments and cache); the argmin on modeled seconds wins.
+    Under ``cost.TPU`` this is the reference's joint search over KV
+    layout x page size x streaming block x buffer depth: every (layout,
+    page_size) pair prices its own ``decode_attention`` proxy DAG
+    through ``explore_pipeline`` (block x depth inside, with the tuning
+    arguments and cache); the argmin on modeled seconds wins.  Under a
+    GPU tier the candidates are the CUDA kernel's own
+    (``_paged_kernel_plan``); ``group`` (query heads per kv head) and
+    ``dtype`` (the pools' type) size its shared memory there, the
+    largest when not given.
+
     ``plan`` is a summary ``TilePlan`` recording the joint axes:
     ``sizes["pd_kv"]`` the streaming block, ``sizes["pd_page"]`` the
     page size, ``sizes["pd_layout"]`` the layout's ``PAGED_LAYOUTS``
     index, ``depths["pd_kv"]`` the depth.  Raises ``ValueError`` when
     no candidate of any pair fits the budget, as the reference does.
     """
+    tier = tier_of(tier, device)
+    if tier.name != TPU.name:
+        return _paged_kernel_plan(max_len, d, group, dtype, tier=tier,
+                                  vmem_budget=vmem_budget, device=device,
+                                  **tuning)
     page_sizes = [p for p in PAGE_SIZES if p <= max(max_len, PAGE_SIZES[0])]
     best = None
     explored = pruned = timed = 0
@@ -2127,3 +2145,87 @@ def select_paged_decode_blocks(
         measured_seconds=pplan.measured_seconds, timed=timed,
         depths={"pd_kv": int(pplan.depth)}, key=pplan.key)
     return (layout, int(ps), int(pplan.block), int(pplan.depth)), summary
+
+
+def _paged_kernel_plan(max_len: int, d: int, group: Optional[int],
+                       dtype: Optional[str], *, tier: Tier,
+                       vmem_budget: Optional[int], device, **tuning
+                       ) -> Tuple[Tuple[str, int, int, int], TilePlan]:
+    """The paged-decode plan on a GPU tier, over the axes
+    ``csrc/paged_decode.cuh`` has: the layout and a page size of at most
+    its chunk (``PD_KC`` keys), with the streaming block fixed at the
+    chunk and the depth at its ring's ``PD_STAGES`` slots.  A candidate
+    is charged the shared bytes the kernel allocates
+    (``codegen_cuda.pd_smem_bytes`` at ``group`` rounded as the launch
+    rounds it, the head dim and the pools' type; GMAX and float32 when
+    not given) and priced by the proxy's traffic and time model over the
+    context rounded up to whole chunks, the extent the kernel's chunk
+    loop covers; page sizes then price alike and the first wins.  The
+    kernel is priced, not timed: ``measure`` records a
+    ``lower-unsupported`` fallback to this plan, as for a program no
+    template takes.  Raises ``ValueError`` when the kernel cannot take
+    the shape or its bytes pass the budget."""
+    from .codegen_cuda import (PD_DMAX, PD_GMAX, PD_KC, PD_STAGES,
+                               pd_launch_group, pd_smem_bytes)
+
+    o = _resolve_options(tuning.pop("options", None),
+                         vmem_budget=vmem_budget, **tuning)
+    target = _target(tier, device, o.vmem_budget, False)
+    budget = target.vmem_budget
+    dtype = dtype or "float32"
+    group = PD_GMAX if group is None else int(group)
+    g = pd_launch_group(group) if group <= PD_GMAX else 0
+    itemsize = 2 if str(dtype).endswith("bfloat16") else 4
+    if not g or d > PD_DMAX or (d * itemsize) % 16:
+        raise ValueError(
+            f"pipeline DSE: no tile candidate fits on-chip budget {budget} "
+            f"B: the paged kernel takes head dims up to {PD_DMAX} in whole "
+            f"16-byte rows and groups up to {PD_GMAX} (head dim {d}, group "
+            f"{group}, {dtype} pools)")
+    smem = pd_smem_bytes(PD_STAGES, PD_KC, g, d, dtype)
+    chunked = -(-max_len // PD_KC) * PD_KC
+    page_sizes = [p for p in PAGE_SIZES
+                  if p <= min(max(max_len, PAGE_SIZES[0]), PD_KC)]
+    charge = {"kernel": "paged_decode.cuh", "stages": PD_STAGES,
+              "kc": PD_KC, "g": g, "head_dim": d, "dtype": str(dtype),
+              "smem_bytes": smem}
+    prof = _resolve_profile(o.profile, target.kind)
+    with telemetry.span("dse.paged_kernel_plan", max_len=max_len,
+                        head_dim=d) as sp:
+        best = None
+        counters = {"explored": 0, "pruned": 0}
+        for layout in PAGED_LAYOUTS:
+            for ps in page_sizes:
+                pipe = paged_decode_pipeline(chunked, ps, d, layout)
+                res = _price_pipeline_group(
+                    plmod.sub_pipeline(pipe, 0, len(pipe.stages)), PD_KC,
+                    vmem_budget=budget, tier=tier, counters=counters,
+                    profile=prof, depth=PD_STAGES, onchip_bytes=smem)
+                if res is not None and (best is None or res[3] < best[2][3]):
+                    best = (layout, ps, res, pipe)
+        if best is None:
+            raise ValueError(
+                "pipeline DSE: no tile candidate fits on-chip budget "
+                f"{budget} B: the paged kernel allocates {smem} B "
+                f"({charge})")
+        layout, ps, (words, _, _, s_cal, _), pipe = best
+        if o.measure:
+            resilience.record(
+                "explore", "lower-unsupported",
+                f"Pipeline:{pipe.name}:{pipe.shared_extent}", "fallback",
+                "the paged kernel's plan is priced, not timed: the proxy "
+                "DAG is not the kernel")
+        key = pipeline_key(pipe, vmem_budget=budget, device=target.kind,
+                           extra=(("paged-kernel",) + tuple(charge.items()),
+                                  _tier_sig(tier)))
+        plan = TilePlan(
+            sizes={"pd_kv": (PD_KC,), "pd_page": (int(ps),),
+                   "pd_layout": (PAGED_LAYOUTS.index(layout),)},
+            traffic_words=int(words), vmem_bytes=smem,
+            modeled_seconds=float(s_cal), explored=counters["explored"],
+            pruned=counters["pruned"], depths={"pd_kv": PD_STAGES}, key=key)
+        sp.set(source="explored", layout=layout, page_size=ps,
+               smem_bytes=smem)
+    _record_plan(plan, source="explored", enumerated=plan.explored,
+                 pruned={"vmem": plan.pruned}, charge=charge)
+    return (layout, int(ps), PD_KC, PD_STAGES), plan

@@ -1,6 +1,6 @@
 """Serving: batched prefill + greedy decode with a KV cache, and
 continuous batching over a paged KV pool (the reference's
-``launch/serve.py``, dense attention family).
+``launch/serve.py``, dense and MoE attention families).
 
     python -m repro_torch.launch.serve --arch granite-3-2b --smoke \\
         --batch 4 --prompt-len 32 --gen 16
@@ -27,8 +27,7 @@ spans time the host and add no synchronization.  Runs on the card
 unless ``device="cpu"``.
 
 Not yet ported: the shape-bucket tuning layer (``bucketing=True`` raises,
-ROADMAP §1 step 3) and the recurrent, MoE, audio and VLM families
-(step 4).
+ROADMAP §1 step 3) and the recurrent, audio and VLM families (step 4).
 """
 from __future__ import annotations
 
@@ -45,7 +44,7 @@ from ..core import resilience, telemetry
 from ..core.options import refuse_bucketing
 from ..device import resolve
 from ..models import model
-from ..models.transformer import check_dense
+from ..models.transformer import check_family
 from . import steps as steps_mod
 
 
@@ -72,7 +71,7 @@ def _prefill(prefill_fn, params, cache, prompt, ring: int,
 
 def _ring_len(cfg, max_len: int) -> int:
     """Slot count of the KV ring buffer (= the prompt-chunk bound)."""
-    check_dense(cfg)
+    check_family(cfg)
     return model.cache_specs(cfg, 1, max_len)["k"].shape[3]
 
 
@@ -88,7 +87,7 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
     refuse_bucketing(bucketing)
     dev = resolve(device)
     cfg = get_config(arch, smoke=smoke)
-    check_dense(cfg)
+    check_family(cfg)
     if params is None:
         params = model.init_params(cfg, seed, dev)
     lens = list(prompt_lens) if prompt_lens else [prompt_len] * batch
@@ -254,16 +253,34 @@ def serve_continuous(arch: str, smoke: bool, slots: int, gen: int,
     reference's keys (``use_pallas`` says whether the fused kernel
     served).
     """
+    cfg = get_config(arch, smoke=smoke)
+    if dtype is not None:
+        cfg = cfg.with_(dtype=dtype)
+    return _serve_continuous(
+        cfg, slots, gen, seed=seed, prompt_lens=prompt_lens,
+        prompt_len=prompt_len, page_size=page_size, layout=layout,
+        use_kernel=use_kernel, certify=certify, bucketing=bucketing,
+        params=params, device=device, policy=policy)
+
+
+def _serve_continuous(cfg, slots: int, gen: int, *, seed: int = 0,
+                      prompt_lens: Optional[Sequence[int]] = None,
+                      prompt_len: int = 32, page_size: Optional[int] = None,
+                      layout: Optional[str] = None, use_kernel: bool = True,
+                      certify: bool = True, bucketing: bool = False,
+                      params=None, device=None,
+                      policy=None) -> Tuple[np.ndarray, Dict]:
+    """``serve_continuous`` of the model ``cfg`` (a config the caller may
+    have cut, as chip_smoke.py cuts one's depth); the arguments are
+    ``serve_continuous``'s.  The paged plan is sized for ``cfg``'s
+    group (query heads per kv head) and type."""
     from ..core import cost as cost_mod
     from ..kernels import ops
     from ..models import paged
 
     refuse_bucketing(bucketing)
     dev = resolve(device)
-    cfg = get_config(arch, smoke=smoke)
-    if dtype is not None:
-        cfg = cfg.with_(dtype=dtype)
-    check_dense(cfg)
+    check_family(cfg)
     if params is None:
         params = model.init_params(cfg, seed, dev)
     lens = list(prompt_lens) if prompt_lens else [prompt_len] * slots
@@ -274,7 +291,8 @@ def serve_continuous(arch: str, smoke: bool, slots: int, gen: int,
     max_ctx = max(lens) + gen
 
     (sel_layout, sel_ps, blk, depth), plan = ops.resolve_plan(
-        "paged_decode", int(max_ctx), int(head_dim), device=dev)
+        "paged_decode", int(max_ctx), int(head_dim),
+        cfg.n_heads // max(cfg.n_kv_heads, 1), cfg.dtype, device=dev)
     layout = layout or sel_layout
     page_size = int(page_size or sel_ps)
 

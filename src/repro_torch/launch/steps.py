@@ -13,7 +13,7 @@ import torch
 from ..core import telemetry
 from ..models import model
 from ..models.config import ModelConfig
-from ..models.transformer import check_dense
+from ..models.transformer import check_family
 
 
 def greedy(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -27,7 +27,7 @@ def make_serve_step(cfg: ModelConfig):
     """``(params, cache, tokens (B, S), index) -> (next, cache)``: one
     decode step (or block) and the greedy token after it."""
     with telemetry.span("steps.build.serve", family=cfg.family):
-        check_dense(cfg)
+        check_family(cfg)
 
         def serve_step(params, cache, tokens, index):
             logits, cache = model.decode_step(params, cfg, cache, tokens,
@@ -44,7 +44,8 @@ def make_cache_prefill_step(cfg: ModelConfig):
     attention families this is the serve step itself: the block runs
     through ``decode_step`` (S tokens written to the cache contiguously,
     causal within the block); it must not wrap the KV ring buffer
-    (``launch.serve._prefill`` chunks long prompts).  The recurrent
-    families' token scan waits for ROADMAP §1 step 4."""
+    (``launch.serve._prefill`` chunks long prompts).  The dense and MoE
+    families run it; the recurrent families' token scan waits for
+    ROADMAP §1 step 4."""
     with telemetry.span("steps.build.cache_prefill", family=cfg.family):
         return make_serve_step(cfg)

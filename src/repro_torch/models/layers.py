@@ -1,13 +1,13 @@
-"""Shared building blocks: norms, RoPE, activations, inits, and the
-layer loop over stacked parameters (the reference's ``models/layers.py``
-in PyTorch).
+"""Shared building blocks: norms, RoPE, activations and inits (the
+reference's ``models/layers.py`` in PyTorch; its ``scan_layers`` is
+``transformer.super_blocks``' loop).
 
 ``causal_conv1d`` (Mamba) and ``softmax_xent`` (training) arrive with
 the slices that use them.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -61,7 +61,9 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
     std = fan_in ** -0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * std).to(dtype)
+    # scaled in place: one float32 temporary (an expert stack at full
+    # width is 21 GB of them)
+    return w.mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.bfloat16,
@@ -69,31 +71,3 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.bfloat16,
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=device)
     return (w * 0.02).to(dtype)
-
-
-def scan_layers(body, carry, xs: Tuple[Dict[str, torch.Tensor], ...]):
-    """The reference's ``lax.scan`` over stacked layer parameters as a
-    Python loop: ``xs`` is a tuple of dicts (or tensors) whose leading
-    axis is the layer; ``body(carry, slice) -> (carry, y)``.  The ``y``
-    of every layer is returned as a list (None when ``body`` gives
-    None)."""
-    def leading(t):
-        if isinstance(t, dict):
-            return next((leading(v) for v in t.values()), None)
-        if isinstance(t, (tuple, list)):
-            return next((n for n in map(leading, t) if n is not None), None)
-        return t.shape[0]
-
-    def pick(t, i):
-        if isinstance(t, dict):
-            return {k: pick(v, i) for k, v in t.items()}
-        if isinstance(t, (tuple, list)):
-            return type(t)(pick(v, i) for v in t)
-        return t[i]
-
-    n = leading(xs)
-    ys = []
-    for i in range(n):
-        carry, y = body(carry, pick(xs, i))
-        ys.append(y)
-    return carry, (ys if ys and ys[0] is not None else None)

@@ -1,13 +1,13 @@
-"""Unified model API (the reference's ``models/model.py``), dense
-family:
+"""Unified model API (the reference's ``models/model.py``), dense and
+MoE families:
 
     shapes  = model.param_shapes(cfg)
     params  = model.init_params(cfg, seed, device)
     logits  = model.forward(params, cfg, batch)
     logits, cache = model.decode_step(params, cfg, cache, tokens, idx)
 
-The SSM and hybrid families (and MoE, audio, VLM) raise
-``NotImplementedError`` until ROADMAP §1 step 4.
+The SSM, hybrid, audio and VLM families raise ``NotImplementedError``
+until ROADMAP §1 step 4.
 """
 from __future__ import annotations
 

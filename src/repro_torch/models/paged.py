@@ -36,8 +36,8 @@ import torch
 from ..core.dse import PAGED_LAYOUTS
 from . import layers as L
 from .config import ModelConfig
-from .transformer import (Params, _dense_ffn, _embed_tokens, _head,
-                          _layer_stacks, _proj, _qkv, check_dense, dtype_of)
+from .transformer import (Params, _embed_tokens, _ffn, _head, _proj, _qkv,
+                          check_family, dtype_of, super_blocks)
 
 
 class PagedKVCache:
@@ -247,21 +247,16 @@ def paged_decode_step(params: Params, cfg: ModelConfig,
     """One decode step for every request: tokens ``(B, 1)``, per-request
     positions from ``cache.seq_lens``.  Returns ``(logits, cache')`` with
     every request's length advanced by one (the pools of ``cache`` are
-    written in place and shared by ``cache'``).  Dense attention family
-    only."""
-    check_dense(cfg)
+    written in place and shared by ``cache'``).  Dense and MoE attention
+    families (the recurrent ones have no KV cache to page); the layers
+    run in the reference's super-block order (``transformer.
+    super_blocks``)."""
+    check_family(cfg)
     x = _embed_tokens(params, cfg, tokens)
-    attn, dense = _layer_stacks(params, cfg)
     table, lens = cache.page_table, cache.seq_lens
     layout, ps = cache.layout, cache.page_size
-
-    def body(x, slices):
-        a_slc, d_slc, pools = slices
-        sl = {**a_slc, **d_slc}
-        x = x + _paged_attn(sl, L.rms_norm(x, sl["ln1"]), cfg, pools,
+    for sl, is_moe in super_blocks(params, cfg, *cache.buffers):
+        x = x + _paged_attn(sl, L.rms_norm(x, sl["ln1"]), cfg, sl["extra"],
                             table, lens, layout, ps, use_kernel)
-        x = x + _dense_ffn(sl, L.rms_norm(x, sl["ln2"]), cfg)
-        return x, None
-
-    x, _ = L.scan_layers(body, x, (attn, dense, cache.buffers))
+        x = x + _ffn(sl, L.rms_norm(x, sl["ln2"]), cfg, is_moe)
     return _head(params, x), cache.replace(seq_lens=lens + 1)

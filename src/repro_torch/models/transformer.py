@@ -1,18 +1,20 @@
-"""Decoder-only transformer, dense GQA family (the reference's
+"""Decoder-only transformer, dense GQA and MoE families (the reference's
 ``models/transformer.py`` in PyTorch).
 
 Params are a dict of tensors with a stacked leading layer axis, as in
-the reference, and the layer loop walks that axis (``layers.
-scan_layers``).  Supports GQA / MQA attention with RoPE, optional QKV
+the reference, and the layer loop walks that axis in the reference's
+super-block order (``super_blocks``).  Supports GQA / MQA attention with RoPE, optional QKV
 bias (Qwen-2), optional sliding window, and the swiglu, squared-ReLU
-and gelu FFNs; full-sequence forward and single-token (or block) decode
+and gelu FFNs, MoE FFN layers (every ``moe_layer_period``-th layer,
+``models.moe``; Mixtral every layer, Llama-4 every other one with a
+shared expert); full-sequence forward and single-token (or block) decode
 with a preallocated KV cache (sliding-window configs keep a ring buffer
 of ``min(window, max_len)``).
 
 The decode cache is written in place and returned (the reference's
-serving steps donate it).  MoE layers, multi-codebook heads and the VLM
-prefix wait for ROADMAP §1 step 4; their configs raise
-``NotImplementedError``.
+serving steps donate it).  Multi-codebook heads (audio), the VLM prefix
+and the recurrent families wait for ROADMAP §1 step 4; their configs
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import layers as L
+from . import moe as moe_mod
 from .config import ModelConfig
 from .sharding import hint, hint_first
 
@@ -33,10 +36,15 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise for the families this slice of the port does not run (MoE,
-    SSM, hybrid, audio, VLM)."""
-    if cfg.family != "dense" or cfg.n_experts or cfg.n_codebooks:
+FAMILIES = ("dense", "moe")   # the attention families the port runs
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise for the families the port does not run yet (SSM, hybrid,
+    audio, VLM: multi-codebook heads and prefix embeddings)."""
+    if cfg.family not in FAMILIES or cfg.n_codebooks \
+            or cfg.frontend_tokens or (cfg.family == "moe") \
+            != bool(cfg.n_experts):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family arrives with the "
             "LM-model slice (ROADMAP §1 step 4)")
@@ -45,7 +53,7 @@ def check_dense(cfg: ModelConfig) -> None:
 # ----------------------------------------------------------------- shapes
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     """name -> (shape, init_kind); init_kind in {embed, dense, zeros}."""
-    check_dense(cfg)
+    check_family(cfg)
     d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     nl = cfg.n_layers
     qk, kv = cfg.qk_dim, cfg.kv_dim
@@ -64,9 +72,15 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
         shapes.update({"bq": ((nl, qk), "zeros"),
                        "bk": ((nl, kv), "zeros"),
                        "bv": ((nl, kv), "zeros")})
-    shapes.update({"w1": ((nl, d, f), "dense"), "w2": ((nl, f, d), "dense")})
-    if cfg.activation == "swiglu":
-        shapes["w3"] = ((nl, d, f), "dense")
+    n_moe = nl // cfg.moe_layer_period if cfg.n_experts else 0
+    n_dense = nl - n_moe
+    if n_dense:
+        shapes.update({"w1": ((n_dense, d, f), "dense"),
+                       "w2": ((n_dense, f, d), "dense")})
+        if cfg.activation == "swiglu":
+            shapes["w3"] = ((n_dense, d, f), "dense")
+    for k_, s_ in moe_mod.param_shapes(cfg, n_moe).items() if n_moe else ():
+        shapes[f"moe_{k_}"] = (s_, "dense")
     return shapes
 
 
@@ -224,12 +238,21 @@ def _dense_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _proj(h, p["w2"])
 
 
-def _block(slc: Dict, x, cfg: ModelConfig, positions, kv_cache=None,
-           cache_index=None):
+def _ffn(slc: Dict, h, cfg: ModelConfig, is_moe: bool):
+    """The layer's FFN on the normed residual ``h``: the MoE sublayer on
+    the ``moe_*`` slices, else the dense FFN."""
+    if is_moe:
+        return moe_mod.moe_ffn({k[4:]: v for k, v in slc.items()
+                                if k.startswith("moe_")}, h, cfg)
+    return _dense_ffn(slc, h, cfg)
+
+
+def _block(slc: Dict, x, cfg: ModelConfig, positions, is_moe: bool = False,
+           kv_cache=None, cache_index=None):
     a, new_cache = _attn(slc, L.rms_norm(x, slc["ln1"]), cfg, positions,
                          kv_cache, cache_index)
     x = x + a
-    x = x + _dense_ffn(slc, L.rms_norm(x, slc["ln2"]), cfg)
+    x = x + _ffn(slc, L.rms_norm(x, slc["ln2"]), cfg, is_moe)
     x = hint(x, "data", "model", None)
     return x, new_cache
 
@@ -239,10 +262,39 @@ _DENSE_KEYS = ("w1", "w2", "w3")
 
 
 def _layer_stacks(params: Params, cfg: ModelConfig):
-    """The per-layer stacks: attention (all layers) and the dense FFN."""
+    """The per-layer stacks: attention (all layers), the dense FFN (dense
+    layers) and the MoE FFN (MoE layers)."""
     attn = {k: params[k] for k in _ATTN_KEYS if k in params}
     dense = {k: params[k] for k in _DENSE_KEYS if k in params}
-    return attn, dense
+    moe = {k: v for k, v in params.items() if k.startswith("moe_")}
+    return attn, dense, moe
+
+
+def super_blocks(params: Params, cfg: ModelConfig, *stacks):
+    """The reference's super-block loop, flattened: for each layer in
+    order, ``(slices, is_moe)``.  A super-block is ``period``
+    layers, ``period - 1`` dense ones then one MoE layer (period 1, as
+    Mixtral's, is MoE only; a dense model has period 1 and no MoE); the
+    attention stack and each extra per-layer stack in ``stacks`` (a
+    cache or pool axis) are indexed by layer, the dense stacks by dense
+    layer and the MoE stacks by MoE layer.  ``slices`` holds the
+    layer's attention, FFN and extra slices under their names, the
+    extras in order under ``"extra"``."""
+    attn, dense, moe = _layer_stacks(params, cfg)
+    period = cfg.moe_layer_period if cfg.n_experts else 1
+    n_dense_per = period - 1 if moe else period
+    for sb in range(cfg.n_layers // period):
+        for i in range(period):
+            layer = sb * period + i
+            is_moe = bool(moe) and i == period - 1
+            sl = {k: v[layer] for k, v in attn.items()}
+            if is_moe:
+                sl.update({k: v[sb] for k, v in moe.items()})
+            else:
+                sl.update({k: v[sb * n_dense_per + i]
+                           for k, v in dense.items()})
+            sl["extra"] = tuple(t[layer] for t in stacks)
+            yield sl, is_moe
 
 
 def _embed_tokens(params: Params, cfg: ModelConfig,
@@ -258,17 +310,11 @@ def forward(params: Params, cfg: ModelConfig,
             tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward.  tokens: (B, S) integers -> logits (B, S,
     padded vocab) in the model's type."""
-    check_dense(cfg)
+    check_family(cfg)
     x = hint(_embed_tokens(params, cfg, tokens), "data", None, None)
     positions = torch.arange(x.shape[1], device=x.device)
-    attn, dense = _layer_stacks(params, cfg)
-
-    def body(x, slices):
-        a_slc, d_slc = slices
-        x, _ = _block({**a_slc, **d_slc}, x, cfg, positions)
-        return x, None
-
-    x, _ = L.scan_layers(body, x, (attn, dense))
+    for sl, is_moe in super_blocks(params, cfg):
+        x, _ = _block(sl, x, cfg, positions, is_moe)
     return _head(params, x)
 
 
@@ -280,7 +326,7 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 
 def _cache_shape(cfg: ModelConfig, batch: int, max_len: int):
-    check_dense(cfg)
+    check_family(cfg)
     return (cfg.n_layers, batch, cfg.n_kv_heads, cache_len(cfg, max_len),
             cfg.head_dim)
 
@@ -313,17 +359,11 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
     contiguously at ``index`` and attend causally among themselves and
     over the cache; the block must not wrap the ring buffer.  The cache
     is updated in place; returns ``(logits, cache)``."""
-    check_dense(cfg)
+    check_family(cfg)
     x = _embed_tokens(params, cfg, tokens)
     index = int(index)
     positions = index + torch.arange(x.shape[1], device=x.device)
-    attn, dense = _layer_stacks(params, cfg)
-
-    def body(x, slices):
-        a_slc, d_slc, kc, vc = slices
-        x, _ = _block({**a_slc, **d_slc}, x, cfg, positions,
-                      kv_cache=(kc, vc), cache_index=index)
-        return x, None
-
-    x, _ = L.scan_layers(body, x, (attn, dense, cache["k"], cache["v"]))
+    for sl, is_moe in super_blocks(params, cfg, cache["k"], cache["v"]):
+        x, _ = _block(sl, x, cfg, positions, is_moe,
+                      kv_cache=sl["extra"], cache_index=index)
     return _head(params, x), cache

@@ -1613,3 +1613,58 @@ def test_measure_excludes_its_warmup_on_the_card():
     assert m.device == measure.device_kind("cuda") and not m.interpret
     # fenced: the median covers a 4096^3 FFMA product (~2 ms at peak)
     assert m.median_s > 1e-3
+
+
+# ------------------------------------------------ the MoE family's shapes
+# (b, hkv, group, d, ps, npm): Llama-4 Maverick's attention (8 kv heads,
+# group 5: the kernel's 8-row instantiation, head dim 128), page sizes 8
+# and 64, one split and several
+LLAMA4_PAGED = [(6, 8, 5, 128, 8, 24), (3, 8, 5, 128, 64, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LLAMA4_PAGED, ids=str)
+@pytest.mark.parametrize("layout", ["split", "fused"])
+def test_paged_decode_at_llama4_widths(case, layout):
+    """bf16 pools bitwise as the plain version's, the output within 2e-4,
+    one attend launch and, with splits, one combine."""
+    _card()
+    b, hkv, group, d, ps, npm = case
+    q, k, v, pools, table, lens = paged_case(*case, layout, torch.bfloat16,
+                                             seed=5)
+    plain_pools = tuple(p.clone() for p in pools)
+    splits = cc.paged_splits(b, hkv, npm, ps, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    kern = cc.lower_paged_decode(batch=b, kv_heads=hkv, group=group,
+                                 head_dim=d, page_size=ps, n_pages_max=npm,
+                                 layout=layout)
+    before = _paged_launches()
+    out, _ = kern(q, k, v, pools, table, lens)
+    torch.cuda.synchronize()
+    after = _paged_launches()
+    assert tuple(a - b_ for a, b_ in zip(after, before)) == \
+        (1, 1, int(splits > 1))
+    want = cc.paged_decode_plain(q, k, v, plain_pools, table, lens,
+                                 layout=layout)
+    for got, exp in zip(pools, plain_pools):
+        assert torch.equal(got, exp)
+    torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_groupby_fold_as_llama4s_router():
+    """The router's histogram over 128 experts (values one): the shared
+    form by ``table_form``, counts exactly ``bincount``'s, two calls
+    bitwise equal."""
+    _card()
+    assert gbf.table_form(128, 1, _optin())[0] == "shared"
+    t = 4096
+    keys = torch.as_tensor(np.random.RandomState(128).randint(0, 128, t)
+                           .astype(np.int32)).cuda()
+    ones = torch.ones(t, device="cuda")
+    before = gbf.groupby_fold.shared_launches
+    out = ops.groupby(keys, ones, 128)
+    torch.cuda.synchronize()
+    assert gbf.groupby_fold.shared_launches == before + 1
+    assert torch.equal(out, torch.bincount(keys, minlength=128).float())
+    assert torch.equal(out, ops.groupby(keys, ones, 128))

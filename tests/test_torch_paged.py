@@ -10,10 +10,14 @@ both ``use_kernel`` values); the kernel's flash-decoding split
 plain version and the reference; ``dse.select_paged_decode_blocks`` plan JSON
 exactly as the reference's (``cache=False``) under ``cost.TPU`` at the
 TPU's 16 MiB and the H100's 232,448 B, raising where it raises (960 and
-1040 tokens on the H100's budget); the traffic model and
+1040 tokens on the H100's budget); under the H100's tier a plan at every
+context over the kernel's own axes, charged the bytes
+``codegen_cuda.pd_smem_bytes`` gives, which equal ``smem_bytes`` read
+from ``csrc/paged_decode.cuh``; the traffic model and
 ``pipeline.ragged_extent``.
 """
 import dataclasses
+import re
 import sys
 from pathlib import Path
 
@@ -333,15 +337,122 @@ def test_select_paged_decode_blocks_matches_the_reference(max_len, budget):
 
 
 def test_paged_plan_for_the_card_off_the_card():
-    """Without a tier the plan is the H100's: ('split', 8, 256, 3) at a
-    context of 1024, as chip_smoke.py's serving phase plans it; at 960 the
-    DSE finds none and serving raises with it."""
+    """Without a tier the plan is the H100's, over the kernel's own axes:
+    a layout and a page size, the block at the kernel's chunk of PD_KC
+    keys and the depth at its PD_STAGES ring slots, as chip_smoke.py's
+    serving phase plans it; at 960 tokens, where the reference's search
+    has no plan at this budget, the card's selector plans too."""
     ops.clear_plan_memo()
     blocks, plan = ops.resolve_plan("paged_decode", 1024, 64, device="cpu")
-    assert blocks == ("split", 8, 256, 3)
-    assert plan.sizes["pd_page"] == (8,) and plan.depths["pd_kv"] == 3
+    assert blocks == ("split", 8, cc.PD_KC, cc.PD_STAGES)
+    assert plan.sizes["pd_page"] == (8,)
+    assert plan.sizes["pd_kv"] == (cc.PD_KC,)
+    assert plan.depths["pd_kv"] == cc.PD_STAGES
+    blocks, plan = ops.resolve_plan("paged_decode", 960, 64, device="cpu")
+    assert blocks[2:] == (cc.PD_KC, cc.PD_STAGES)
+    assert plan.vmem_bytes <= H100_BUDGET
+
+
+# the contexts the card's selector must plan at every head dim, the
+# reference's raises at its budget among them
+CARD_CONTEXTS = (256, 512, 544, 576, 640, 768, 896, 960, 1024, 1040, 1056,
+                 1088, 1152, 1280, 1536, 2048, 4096, 8192)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("max_len", CARD_CONTEXTS)
+def test_paged_plan_on_the_card_charges_the_kernels_bytes(max_len, d):
+    """Under the H100's tier every context plans, at the kernel's block
+    and depth, charged the shared bytes the kernel allocates: the
+    largest group and float32 pools unless told, else the group rounded
+    as the launch rounds it and the pools' type."""
+    blocks, plan = dse.select_paged_decode_blocks(max_len, d,
+                                                  tier=cost.H100_SXM)
+    layout, ps, blk, depth = blocks
+    assert layout in dse.PAGED_LAYOUTS and ps <= cc.PD_KC
+    assert (blk, depth) == (cc.PD_KC, cc.PD_STAGES)
+    assert plan.vmem_bytes == cc.pd_smem_bytes(
+        cc.PD_STAGES, cc.PD_KC, cc.PD_GMAX, d, torch.float32)
+    for group, dtype in ((5, "bfloat16"), (4, "float32"), (12, "bfloat16")):
+        _, plan = dse.select_paged_decode_blocks(
+            max_len, d, group, dtype, tier=cost.H100_SXM)
+        assert plan.vmem_bytes == cc.pd_smem_bytes(
+            cc.PD_STAGES, cc.PD_KC, cc.pd_launch_group(group), d, dtype)
+        assert plan.vmem_bytes <= H100_BUDGET
+
+
+def _cuh_constants():
+    """``pdec``'s constants, its ``smem_bytes`` formula and the groups its
+    ``launch`` instantiates, read from ``csrc/paged_decode.cuh``."""
+    text = (Path(cc.__file__).resolve().parent.parent / "kernels" / "csrc"
+            / "paged_decode.cuh").read_text()
+    consts = {n: int(v) for n, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    body = re.search(r"smem_bytes\(int d\) \{\s*return ([^;]+);",
+                     text).group(1)
+    launch = re.search(
+        r"const auto run = group <= (\d+) \? &launch_g<T, Q, (\d+)>\s*"
+        r": group <= (\d+) \? &launch_g<T, Q, (\d+)>\s*"
+        r": &launch_g<T, Q, (\w+)>;", text).groups()
+    return consts, body, launch
+
+
+def test_paged_kernel_bytes_match_the_cuh():
+    """``pd_smem_bytes`` and the Python constants are the kernel's:
+    ``smem_bytes<T, G>(d)`` evaluated from its source text at every group
+    rounding, head dim and pool type; ``pd_launch_group`` picks the
+    instantiation ``launch`` picks."""
+    consts, body, launch = _cuh_constants()
+    assert (consts["KC"], consts["STAGES"], consts["GMAX"],
+            consts["DMAX"]) == (cc.PD_KC, cc.PD_STAGES, cc.PD_GMAX,
+                                cc.PD_DMAX)
+    lim4, g4, lim8, g8, gmax = launch
+    assert (int(lim4), int(g4), int(lim8), int(g8), gmax) == \
+        (4, 4, 8, 8, "GMAX")
+    for group in range(1, cc.PD_GMAX + 1):
+        want = 4 if group <= 4 else 8 if group <= 8 else consts["GMAX"]
+        assert cc.pd_launch_group(group) == want
+    for g in (4, 8, 16):
+        for d in (8, 64, 80, 128):
+            for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+                expr = body.replace("(int)sizeof(T)", str(size))
+                want = eval(expr, {}, {"STAGES": consts["STAGES"],
+                                       "KC": consts["KC"], "G": g, "d": d})
+                assert cc.pd_smem_bytes(cc.PD_STAGES, cc.PD_KC, g, d,
+                                        dtype) == want
+    assert cc.pd_smem_bytes(2, 64, 8, 128, "bfloat16") == 67_680
+    with pytest.raises(ValueError):
+        cc.pd_launch_group(cc.PD_GMAX + 1)
+
+
+def test_paged_plan_on_the_card_is_priced_not_timed():
+    """``measure="top_k"`` on the card's tier keeps the priced plan (the
+    proxy DAG is not the kernel) and records a ``lower-unsupported``
+    fallback, as for a program no template takes."""
+    from repro_torch.core import resilience
+
+    n = len(resilience.LOG.events(stage="explore"))
+    blocks, plan = dse.select_paged_decode_blocks(1024, 64,
+                                                  tier=cost.H100_SXM,
+                                                  measure="top_k")
+    assert blocks == dse.select_paged_decode_blocks(
+        1024, 64, tier=cost.H100_SXM)[0] and not plan.measured
+    events = resilience.LOG.events(stage="explore")[n:]
+    assert [(e.kind, e.action) for e in events] == \
+        [("lower-unsupported", "fallback")]
+
+
+def test_paged_plan_on_the_card_raises_past_the_kernel():
+    """A head dim past DMAX, or one whose rows are not whole 16-byte
+    pieces, has no plan on the card; under ``cost.TPU`` the reference's
+    search still raises where it raises."""
+    for d, dtype in ((cc.PD_DMAX * 2, "float32"), (36, "bfloat16")):
+        with pytest.raises(ValueError, match="no tile candidate fits"):
+            dse.select_paged_decode_blocks(1024, d, 4, dtype,
+                                           tier=cost.H100_SXM)
     with pytest.raises(ValueError, match="no tile candidate fits"):
-        ops.resolve_plan("paged_decode", 960, 64, device="cpu")
+        dse.select_paged_decode_blocks(960, 64, tier=cost.TPU,
+                                       vmem_budget=H100_BUDGET)
 
 
 def test_paged_decode_pipeline_bodies_match_jax():

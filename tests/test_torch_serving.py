@@ -7,6 +7,8 @@ to the JAX package's ``serve_continuous`` on the same weights (carried
 across with ``convert.params_from_numpy``): in bfloat16 as the reference's
 test runs it and in float32, where a tie at the top cannot decide a
 token.  Certification raises on a faulty kernel instead of falling back.
+On the card's tier the paged plan is the kernel's own, so serving plans
+at a context where the reference's search raises at the card's budget.
 """
 import jax
 import numpy as np
@@ -19,6 +21,7 @@ from repro.models import model as jmodel
 
 from repro_torch.configs import get_config
 from repro_torch.core import codegen_cuda as cc
+from repro_torch.core import cost, dse
 from repro_torch.launch import serve, steps
 from repro_torch.models import convert, model
 
@@ -209,12 +212,23 @@ def test_certification_raises_on_a_faulty_kernel(monkeypatch):
 
 
 def test_serving_raises_where_the_dse_has_no_plan():
-    """At the card's budget the DSE has no paged-decode plan for a
-    context of 960 (the reference's selector raises there too), so
-    serving raises rather than guess a plan."""
+    """On the card's tier the paged plan is the kernel's (its chunk, its
+    ring, its shared bytes), so a context of 960, where the reference's
+    search has no plan at the card's budget, now plans and serves; under
+    ``cost.TPU`` at that budget the reference's raise is reproduced.
+    Where the kernel cannot take the shape (a head dim past its DMAX)
+    the DSE has no plan and serving raises rather than guess one."""
+    toks, stats = serve.serve_continuous(ARCH, True, 2, 64,
+                                         prompt_lens=(896, 5), device="cpu")
+    assert toks.shape == (2, 64) and stats["certified"] is True
+    assert (stats["block"], stats["depth"]) == (cc.PD_KC, cc.PD_STAGES)
     with pytest.raises(ValueError, match="no tile candidate fits"):
-        serve.serve_continuous(ARCH, True, 2, 64, prompt_lens=(896, 5),
-                               device="cpu")
+        dse.select_paged_decode_blocks(960, 64, tier=cost.TPU,
+                                       vmem_budget=cost.H100_SXM.onchip_bytes)
+    wide = get_config(ARCH, smoke=True).with_(head_dim=2 * cc.PD_DMAX)
+    with pytest.raises(ValueError, match="no tile candidate fits"):
+        serve._serve_continuous(wide, 2, 4, prompt_lens=(5, 3),
+                                device="cpu")
 
 
 def test_serving_refuses_what_this_slice_does_not_run(monkeypatch):
