@@ -123,7 +123,28 @@ ptxas must report no stack frame for any of those), then:
     faults first; and one mixtral-8x22b MoE layer at full width on
     2 x 4096 tokens in bf16, held against float64 on its own routing
     (the margins of the k-th logit printed; a routing that differs from
-    a float32 run's must be a tie).
+    a float32 run's must be a tie);
+  * the LM kernels at the card's own plans (``auto_tile=True``):
+    ``flash_attention`` at qwen2-72b's widths (64 / 8 heads of 128:
+    prefill 2 x 4096, decode 32 x 32,768 keys) and ``ssd_scan`` at
+    mamba2-370m's state 128, each plan's charged bytes printed beside
+    the bytes the kernel's library reports (they must be equal), held
+    and timed as the fixed-block rows are;
+  * ``[buckets]``: ``serve(bucketing=True)`` of qwen2-72b at published
+    widths cut to 2 layers on prompts 100, 100, 110, 110: one miss, one
+    warm start with no build in the foreground, its background re-tune
+    certified on the card and promoted, then (memo cleared) a second
+    serve of exact hits only, with the same tokens;
+  * ``[ssm]`` and ``[hybrid]``: mamba2-370m and zamba2-2.7b at their
+    published widths (random weights), bf16 and f32, serving 16
+    requests in prompt groups of 32, 96 and 160 tokens, 32 tokens each
+    (a token scan prefills each group), held to a teacher-forced oracle
+    (``model.forward`` with the chunked SSD through ``ssd_scan_plain``):
+    f32 tokens identical, bf16 tokens within the larger of the bf16
+    tolerance and the oracle's own bf16 error, a rule first shown to
+    reject a run whose conv state is not carried; one decode step
+    profiled (host ms, device busy, idle share, launches) beside its
+    byte floor.
 
 Each run resets the kernel's launch count just before, reads it just
 after, and fails if the kernel did not run.  Each result is held
@@ -169,6 +190,7 @@ GEMM_N = 4096
 OUTER_N = 16_384             # outer product: a 1 GiB float32 output
 CHECK_ROWS = 256             # outer-product rows held against numpy
 WARMUP, REPS, BATCH = 3, 10, 10
+TRACES = 6                   # profiler sessions of one trace (``trace``)
 REPLACES = "src/repro/core/codegen_pallas.py"
 HAND = "src/repro/kernels"   # the TPU kernels written by hand
 CSRC = "src/repro_torch/kernels/csrc"
@@ -300,62 +322,77 @@ def check_sum(key, got, plain, ref, shifts, torch, what: str):
     return e_plain, e_ref, limit
 
 
-def device_breakdown(fn, torch, calls: int = 3) -> str:
+def trace(fn, torch, calls: int = 3, want=()) -> list:
+    """(name, device us, launches) of each CUDA kernel in a
+    torch.profiler trace of ``calls`` calls of ``fn``, after one call
+    that is not traced.  Later in a process's life the profiler may see
+    no kernel in every other session, and some sessions see only part of
+    them, so up to TRACES traces, each a profiler session of its own,
+    until one shows a kernel and every name in ``want``; [] when none
+    showed a kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = []
+    for _ in range(TRACES):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+                torch.cuda.synchronize()
+        seen = []
+        for e in prof.key_averages():
+            if "CUDA" not in str(getattr(e, "device_type", "")):
+                continue
+            us = getattr(e, "self_device_time_total", None) or \
+                getattr(e, "device_time_total", 0.0)
+            if us > 0 and e.count:
+                seen.append((e.key, us, e.count))
+        if seen:
+            out = seen
+            if all(any(w in key for key, _, _ in seen) for w in want):
+                break
+    return out
+
+
+def device_breakdown(fn, torch, calls: int = 3, want=()) -> str:
     """Mean device time per launch of each CUDA kernel ``fn`` launches,
     from torch.profiler (each kernel's total over its own launch count)
-    over ``calls`` calls after one traced but discarded warm-up call (the
-    tracer drops the first kernels it sees); "not measured" when the
-    profiler sees no device time."""
+    over ``calls`` calls; "not measured" when the profiler sees no
+    device time."""
     parts = [f"{name} {ms:.4f} ms x{count}"
-             for name, ms, count in device_kernels(fn, torch, calls)]
+             for name, ms, count in device_kernels(fn, torch, calls, want)]
     return ", ".join(parts) if parts else "not measured"
 
 
-def device_kernels(fn, torch, calls: int = 3) -> list:
+def device_kernels(fn, torch, calls: int = 3, want=()) -> list:
     """(name, mean device ms per launch, launches) of each CUDA kernel
-    ``fn`` launches over ``calls`` traced calls (``device_breakdown``)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=calls,
-                                   repeat=1)) as prof:
-        for _ in range(1 + calls):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+    ``fn`` launches over ``calls`` traced calls (``trace``)."""
     parts = []
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0.0)
-        if us > 0 and e.count:
-            name = e.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("::")[-1][:40]
-            parts.append((name, us / e.count / 1e3, e.count))
+    for key, us, count in trace(fn, torch, calls, want):
+        name = key.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("::")[-1][:40]
+        parts.append((name, us / count / 1e3, count))
     return parts
 
 
-def one_kernel(label: str, fn, kernel: str, torch, calls: int = 5) -> float:
+def one_kernel(label: str, fn, kernel: str, torch, calls: int = 5) -> None:
     """Trace ``calls`` calls of ``fn`` and fail unless the trace shows
     ``kernel`` and no other kernel (no combine, no memset): with the
-    wrapper's launch count (one a call), one kernel a call.  The tracer
-    drops some kernels of a trace (it shows at most ``calls`` launches,
-    often fewer), so up to three traces.  Prints and returns the kernel's
-    device ms per launch."""
-    for _ in range(3):
-        seen = device_kernels(fn, torch, calls)
-        if seen:
-            break
+    wrapper's launch count (one a call), one kernel a call.  When the
+    tracer sees no kernel in any of its TRACES traces the check cannot be
+    made, and the script says so ("not measured") and goes on: the
+    kernel's time is the CUDA-event time printed before.  Prints the
+    kernel's device ms per launch."""
+    seen = device_kernels(fn, torch, calls, (kernel,))
     print(f"[{label}] device time per call: " + (", ".join(
         f"{name} {ms:.4f} ms x{count}" for name, ms, count in seen)
-        or "not measured") + f" ({calls} calls traced)")
-    if len(seen) != 1 or kernel not in seen[0][0] \
-            or not 1 <= seen[0][2] <= calls:
+        or f"not measured (the tracer saw no kernel in {TRACES} traces)")
+        + f" ({calls} calls traced)")
+    if seen and (len(seen) != 1 or kernel not in seen[0][0]
+                 or not 1 <= seen[0][2] <= calls):
         fail(f"{label}: expected {kernel} alone, at most once a call, in "
              f"the trace of {calls} calls; it shows {seen}")
-    return seen[0][1]
 
 
 def aba(label: str, run, plain, a, b, same, torch) -> None:
@@ -459,15 +496,14 @@ def dag_breakdown(label: str, fn, spec, torch) -> None:
 
 def breakdown(label: str, fn, want, torch) -> None:
     """Print the device time of each kernel ``fn`` launches; the profiler
-    may drop a kernel of a trace, so up to three traces; fail if one of
-    the kernels named in ``want`` stays unmeasured."""
-    for _ in range(3):
-        parts = device_breakdown(fn, torch)
-        missing = [k for k in want if k not in parts]
-        if not missing:
-            break
+    may drop a kernel of a trace (``trace``); fail if the tracer saw
+    kernels but one of those named in ``want`` stays unmeasured (a
+    tracer that sees no kernel at all is "not measured", as in
+    ``one_kernel``)."""
+    parts = device_breakdown(fn, torch, want=want)
+    missing = [k for k in want if k not in parts]
     print(f"[{label}] device time per call: {parts}")
-    if missing:
+    if missing and parts != "not measured":
         fail(f"{label}: device time of {missing} not measured")
 
 
@@ -1394,17 +1430,26 @@ def run_attention(label: str, cfg, b: int, sq: int, sk: int, dtype, *,
     k = lm_randn((b, hkv, sk, d), seed + 1, torch, dev).to(dtype)
     v = lm_randn((b, hkv, sk, d), seed + 2, torch, dev).to(dtype)
     kw = {"causal": causal, "window": window}
+    shape = (sq, sk, d, hq // hkv, str(dtype)[6:])
+    which = fa.variant(q.dtype, k.dtype, v.dtype, d)
     if blocks is None:
-        show_plan(label, "attention", sq, sk, d, dev=dev)
-        block_q, block_k = ops.resolve_plan("attention", sq, sk, d,
-                                            device=dev)[0]
+        show_plan(label, "attention", *shape, dev=dev)
+        (block_q, block_k), plan = ops.resolve_plan("attention", *shape,
+                                                    device=dev)
+        own = fa.kernel_smem_bytes(which, block_q, d)
+        print(f"[{label}] the plan charges {plan.vmem_bytes} B at a tile of "
+              f"{block_q} packed rows over {block_k}-key chunks; the "
+              f"{which} kernel allocates {own} B there", flush=True)
+        if plan.vmem_bytes != own:
+            fail(f"{label}: the plan charges {plan.vmem_bytes} B, the "
+                 f"kernel allocates {own} B")
 
         def run():
             return fa.flash_attention(q, k, v, auto_tile=True, **kw)
     else:
         block_q, block_k = blocks
         try:
-            show_plan(label, "attention", sq, sk, d, dev=dev)
+            show_plan(label, "attention", *shape, dev=dev)
         except ValueError as e:
             print(f"[{label}] DSE: {e}; fixed blocks {blocks}")
 
@@ -1412,13 +1457,13 @@ def run_attention(label: str, cfg, b: int, sq: int, sk: int, dtype, *,
             return fa.flash_attention(q, k, v, block_q=block_q,
                                       block_k=block_k, **kw)
     tol = BF16_TOL if dtype == torch.bfloat16 else RTOL
-    which = fa.variant(q.dtype, k.dtype, v.dtype, d)
     if dtype == torch.bfloat16 and which != "wgmma":
         fail(f"{label}: bfloat16 attention at head dim {d} would not run "
              "the wgmma kernel")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tile_q, tiles, splits = fa.launch_plan(b, hkv, hq // hkv, sq, sk, which,
-                                           sms)
+    tile_q, tiles, splits = fa.launch_plan(
+        b, hkv, hq // hkv, sq, sk, which, sms,
+        block_q if blocks is None else None)
     torch.cuda.synchronize()
     counters = ("launches", "wgmma_launches", "ffma_launches",
                 "combine_launches")
@@ -1571,7 +1616,7 @@ def bf16_ulps(got, want32, torch) -> tuple:
             float((diff / ulp).max()))
 
 
-def run_ssd(label: str, cfg, b: int, seq: int, chunk: int, dtype, seed: int,
+def run_ssd(label: str, cfg, b: int, seq: int, chunk, dtype, seed: int,
             tier, torch, dev) -> dict:
     """``ssd_scan`` at one model's SSD widths through its entry point:
     its four passes each launched once, held against its plain version
@@ -1581,8 +1626,11 @@ def run_ssd(label: str, cfg, b: int, seq: int, chunk: int, dtype, seed: int,
     in bfloat16, held against the float32 kernel on the widened inputs
     within 1 bf16 ulp; two calls bitwise equal; device time per pass;
     timed beside its plain version (no single PyTorch call computes the
-    scan)."""
-    from repro_torch.kernels import ref
+    scan).  ``chunk`` None takes the DSE's plan (``auto_tile=True``),
+    whose charge is held to the library's own ``ssd_scan_smem``."""
+    import ctypes
+
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as ssd
 
     h, dh, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -1595,13 +1643,28 @@ def run_ssd(label: str, cfg, b: int, seq: int, chunk: int, dtype, seed: int,
     A = -F.softplus(lm_randn((h,), seed + 2, torch, dev)) - 0.1
     B = lm_randn((b, seq, n), seed + 3, torch, dev).to(dtype)
     C = lm_randn((b, seq, n), seed + 4, torch, dev).to(dtype)
-    try:
+    auto = chunk is None
+    if auto:
         show_plan(label, "scan", seq, n, dh, dev=dev)
-    except ValueError as e:
-        print(f"[{label}] DSE: {e}; fixed chunk {chunk}")
+        chunk, plan = ops.resolve_plan("scan", seq, n, dh, device=dev)
+        own = ctypes.c_int(0)
+        ssd.LIB("ssd_scan_smem", chunk, ctypes.byref(own))
+        print(f"[{label}] the plan charges {plan.vmem_bytes} B at chunk "
+              f"{chunk}; the kernel allocates {own.value} B there",
+              flush=True)
+        if plan.vmem_bytes != own.value:
+            fail(f"{label}: the plan charges {plan.vmem_bytes} B, the "
+                 f"kernel allocates {own.value} B")
+    else:
+        try:
+            show_plan(label, "scan", seq, n, dh, dev=dev)
+        except ValueError as e:
+            print(f"[{label}] DSE: {e}; fixed chunk {chunk}")
     tol = BF16_TOL if dtype == torch.bfloat16 else SSD_F32_TOL
 
     def run():
+        if auto:
+            return ssd.ssd_scan(x, dt, A, B, C, auto_tile=True)
         return ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
 
     def plain():
@@ -1666,14 +1729,7 @@ def run_ssd(label: str, cfg, b: int, seq: int, chunk: int, dtype, seed: int,
     bound_ms, by = bound(nbytes_of(x, dt, A, B, C, y), flops, tier)
     print(f"[{label}] ssd_scan {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
           f"none, bound {bound_ms:.4f} ms ({by})", flush=True)
-    for _ in range(3):
-        parts = device_breakdown(run, torch)
-        missing = [p for p, k in SSD_KERNELS.items() if k not in parts]
-        if not missing:
-            break
-    print(f"[{label}] device time per call: {parts}")
-    if missing:
-        fail(f"{label}: device time of pass(es) {missing} not measured")
+    breakdown(label, run, list(SSD_KERNELS.values()), torch)
     return {"name": f"ssd_scan[{label[4:-1]}]", "route": "cuda",
             "source": f"{CSRC}/ssd_scan.cuh", "replaces": SSD_TPU,
             "launches": launches, "max_abs_err": e_plain, "ms": ms,
@@ -1683,10 +1739,13 @@ def run_ssd(label: str, cfg, b: int, seq: int, chunk: int, dtype, seed: int,
 
 def run_lm_kernels(tier, torch, dev) -> list:
     """flash_attention and ssd_scan through their entry points at the
-    published widths of granite-3-2b, mixtral-8x22b and mamba2-370m."""
+    published widths of granite-3-2b, mixtral-8x22b, qwen2-72b (head dim
+    128, the card's own plan) and mamba2-370m (state 128; fixed and
+    planned chunks)."""
     from repro_torch.configs import SHAPES, get_config
 
     granite = get_config("granite-3-2b")
+    qwen2 = get_config("qwen2-72b")
     mixtral = get_config("mixtral-8x22b")
     mamba = get_config("mamba2-370m")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1707,9 +1766,18 @@ def run_lm_kernels(tier, torch, dev) -> list:
         "attention[mixtral,swa,bf16]", mixtral, 1, 8192, 8192, bf16,
         causal=True, window=mixtral.sliding_window, blocks=(128, 128),
         seed=27, tier=tier, torch=torch, dev=dev))
-    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
-        rows.append(run_ssd(f"ssd[mamba2,{tag}]", mamba, 4, 4096, 128, dtype,
-                            30, tier, torch, dev))
+    rows.append(run_attention(
+        "attention[qwen2,prefill,bf16,auto]", qwen2, 2, 4096, 4096, bf16,
+        causal=True, window=None, blocks=None, seed=33, tier=tier,
+        torch=torch, dev=dev))
+    rows.append(run_attention(
+        "attention[qwen2,decode,bf16,auto]", qwen2, 32, 1, ctx, bf16,
+        causal=True, window=None, blocks=None, seed=36, tier=tier,
+        torch=torch, dev=dev))
+    for dtype, chunk, tag in ((f32, 128, "f32"), (bf16, 128, "bf16"),
+                              (bf16, None, "bf16,auto")):
+        rows.append(run_ssd(f"ssd[mamba2,{tag}]", mamba, 4, 4096, chunk,
+                            dtype, 30, tier, torch, dev))
     return rows
 
 
@@ -2245,12 +2313,10 @@ def faulted_serving(cfg, params, lens, cmax: int, layout: str, ps: int,
         fail(f"{what}: the bf16 tolerance passes every faulted token")
 
 
-def device_busy(fn, torch, calls: int = 3) -> tuple:
+def device_busy(fn, torch, calls: int = 3, want=()) -> tuple:
     """(wall ms per call on the host clock, device-busy ms per call, the
     five costliest CUDA kernels, device ms per call by kernel name) of
-    ``fn`` under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
+    ``fn`` under torch.profiler (``trace``, which looks for ``want``)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2258,20 +2324,12 @@ def device_busy(fn, torch, calls: int = 3) -> tuple:
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / calls * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if "CUDA" in str(getattr(e, "device_type", ""))]
-    def us(e):
-        return getattr(e, "self_device_time_total", None) or \
-            getattr(e, "device_time_total", 0.0)
-    busy = sum(us(e) for e in kernels) / calls / 1e3
-    top = sorted(kernels, key=us, reverse=True)[:5]
-    names = ", ".join(f"{e.key.split('(')[0][:40]} {us(e) / calls / 1e3:.3f}"
-                      f" ms x{e.count // calls}" for e in top)
-    by_name = {e.key: us(e) / calls / 1e3 for e in kernels}
+    kernels = trace(fn, torch, calls, want)
+    busy = sum(us for _, us, _ in kernels) / calls / 1e3
+    top = sorted(kernels, key=lambda k: k[1], reverse=True)[:5]
+    names = ", ".join(f"{key.split('(')[0][:40]} {us / calls / 1e3:.3f}"
+                      f" ms x{count // calls}" for key, us, count in top)
+    by_name = {key: us / calls / 1e3 for key, us, _ in kernels}
     return wall, busy, names or "not measured", by_name
 
 
@@ -2300,7 +2358,8 @@ def profile_step(label: str, cfg, params, lens, cmax: int, ps: int,
     tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device=dev)
     wall, busy, names, by_name = device_busy(
         lambda: paged.paged_decode_step(params, cfg, cache, tok,
-                                        use_kernel=True), torch)
+                                        use_kernel=True), torch,
+        want=("pdec::",))
     paged_ms = sum(ms for name, ms in by_name.items()
                    if "pdec::" in name or "splitk::" in name)
     print(f"[{label}] one decode step of {SERVE_SLOTS} requests at seq_len "
@@ -2689,6 +2748,369 @@ def run_moe(tier, torch, dev) -> list:
     torch.cuda.empty_cache()
     print(f"[moe] phase {time.perf_counter() - t0:.1f} s", flush=True)
     return rows
+
+
+# ------------------------------------------------------- bucketed serving
+BUCKET_ARCH = "qwen2-72b"
+BUCKET_LAYERS = 2            # of qwen2-72b's 80
+BUCKET_LENS = (100, 100, 110, 110)   # two prompt groups, one bucket
+BUCKET_GEN = 8
+
+
+def run_buckets(torch, dev) -> None:
+    """``[buckets]``: ``serve(bucketing=True)`` of qwen2-72b at its
+    published widths cut to BUCKET_LAYERS layers (random bf16 weights
+    made on the card) on prompts of 100 and 110 tokens: the 100-token
+    group's attention plan (the card's own, at head dim 128) misses and
+    is explored; the 110-token group lies in the same bucket and is
+    warm-started, nothing built in the foreground, while a background
+    re-tune certifies the exact plan by running the kernel on the card
+    and promotes it.  After ``drain`` and a cleared plan memo (a fresh
+    process's view: the tuning cache alone), a second serve of the same
+    lengths is all exact hits.  Fails unless the counts are these, every
+    certification ran on the card and passed, and both serves return the
+    same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import buckets, resilience
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    cfg = get_config(BUCKET_ARCH).with_(n_layers=BUCKET_LAYERS)
+    print(f"[buckets] {cfg.name} cut to {cfg.n_layers} layers: d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.padded_vocab}; prompts "
+          f"{list(BUCKET_LENS)}, {BUCKET_GEN} tokens each", flush=True)
+    params = make_params("buckets", cfg, torch, dev)
+    certs = []
+    real = resilience.certify_attention_plan
+
+    def recording(*a, **k):
+        ok, why = real(*a, **k)
+        certs.append((a[:5], str(k.get("device")), ok, why))
+        return ok, why
+
+    resilience.certify_attention_plan = recording
+    try:
+        buckets.reset_stats()
+        ops.clear_plan_memo()
+        builds = build.compile_all.builds
+        first = {}
+        toks = serve._serve(cfg, len(BUCKET_LENS), 0, BUCKET_GEN,
+                            prompt_lens=BUCKET_LENS, bucketing=True,
+                            params=params, device=dev, stats_out=first)
+        fg_builds = build.compile_all.builds - builds
+        buckets.drain(timeout=300.0)
+        after = buckets.stats()
+        ops.clear_plan_memo()
+        second = {}
+        toks2 = serve._serve(cfg, len(BUCKET_LENS), 0, BUCKET_GEN,
+                             prompt_lens=BUCKET_LENS, bucketing=True,
+                             params=params, device=dev, stats_out=second)
+        buckets.drain(timeout=300.0)
+    finally:
+        resilience.certify_attention_plan = real
+    for name, st in (("first", first), ("second", second)):
+        for row in st["plans"]:
+            print(f"[buckets] {name} serve: {row}")
+    d1, d2 = first["plans"][-1]["bucket_stats"], second["plans"][-1][
+        "bucket_stats"]
+    rows1, rows2 = first["plans"][:-1], second["plans"][:-1]
+    print(f"[buckets] first serve: {d1['misses']} miss, {d1['warm_hits']} "
+          f"warm start, {d1['exact_hits']} exact hits (hit rate "
+          f"{first['plans'][-1]['bucket_hit_rate']:.4f}), {fg_builds} nvcc "
+          f"builds in the foreground; re-tunes {after['retunes']}, "
+          f"promotions {after['promotions']}, failures "
+          f"{after['retune_failures']}; certifications: "
+          + "; ".join(f"{a} on {where}: {'passed' if ok else 'FAILED'} "
+                      f"({why})" for a, where, ok, why in certs))
+    print(f"[buckets] second serve: {d2['exact_hits']} exact hits of "
+          f"{len(rows2)} groups (hit rate "
+          f"{second['plans'][-1]['bucket_hit_rate']:.4f}); phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    if (d1["misses"], d1["warm_hits"], d1["exact_hits"]) != (1, 1, 0) \
+            or rows1[0]["warm_start"] or not rows1[1]["warm_start"]:
+        fail(f"buckets: the first serve should miss once and warm-start "
+             f"once: {d1}")
+    if fg_builds:
+        fail(f"buckets: {fg_builds} builds in the foreground")
+    if (after["retunes"], after["promotions"],
+            after["retune_failures"]) != (1, 1, 0):
+        fail(f"buckets: re-tunes {after}")
+    if len(certs) != after["promotions"] or not all(
+            ok and where.startswith("cuda") for _, where, ok, _ in certs):
+        fail(f"buckets: promotions not all certified on the card: {certs}")
+    if d2["exact_hits"] != len(rows2) or d2["misses"] or d2["warm_hits"] \
+            or not all(r["cached"] and not r["warm_start"] for r in rows2):
+        fail(f"buckets: the second serve should be all exact hits: {d2}")
+    if not np.array_equal(toks, toks2):
+        fail("buckets: the two serves returned different tokens")
+
+
+# ------------------------------------------- the SSM and hybrid families
+FAMILY_GEN = 32
+# 16 requests in three prompt groups; each prompt + FAMILY_GEN is a whole
+# number of the chunked SSD's 64-step chunks, as the oracle's forward
+# needs
+FAMILY_LENS = (32,) * 6 + (96,) * 5 + (160,) * 5
+
+
+def plain_ssd_chunked(x, dt, A, B, C, chunk=None):
+    """``ssm.ssd_chunked`` for the oracle: the same chunked parallel form
+    through ``ssd_scan_plain`` (the kernel's plain version, float32, no
+    rounding of the intra-chunk operands to bfloat16); no final state."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    return ssd_scan_plain(x, dt, A, B, C, chunk=chunk or 64), None
+
+
+def family_oracle(cfg, params, lens, toks, first, torch, dev) -> list:
+    """Per request, the teacher-forced oracle's logits (pad vocab masked,
+    float32) scoring its prefill token and its served tokens: one
+    ``model.forward`` over the prompt, the prefill token and the served
+    tokens but the last, in the served type, its SSD in the chunked
+    parallel form (``plain_ssd_chunked``) -- independent of the served
+    step, which carries the recurrence token by token.  Row t scores
+    token t of ``[first] + toks``."""
+    from repro_torch.models import model, ssm
+
+    pool = np.random.RandomState(0).randint(0, cfg.vocab,
+                                            (len(lens), max(lens)))
+    real = ssm.ssd_chunked
+    ssm.ssd_chunked = plain_ssd_chunked
+    rows = [None] * len(lens)
+    try:
+        with torch.no_grad():
+            for ln in sorted(set(lens)):
+                rs = [r for r, n in enumerate(lens) if n == ln]
+                seq = np.concatenate([pool[rs, :ln], first[rs, None],
+                                      toks[rs, :-1]], 1)
+                logits = model.forward(params, cfg, {"tokens": torch.as_tensor(
+                    seq, dtype=torch.int32, device=dev)})
+                masked = model.mask_vocab_pad(logits, cfg)[:, ln - 1:].float()
+                for i, r in enumerate(rs):
+                    rows[r] = masked[i]
+    finally:
+        ssm.ssd_chunked = real
+    return rows
+
+
+def bf16_drift(cfg, params, lens, toks, first, rows, torch, dev) -> list:
+    """Per request, the oracle's own bfloat16 error at every scored step
+    and token: its bfloat16 logits (``rows``) less the same oracle's
+    float32 logits on the same weights (pad columns zero).  Over 48 or
+    more recurrent layers two correct bfloat16 computations of a logit
+    drift apart by more than the bf16 tolerance (on an H100, mamba2-370m
+    at 48 layers: 0.15-0.4 on logits near 4; the oracle's largest error
+    a step 0.73 to 2.7, its median 0.18)."""
+    p32 = {k: v.float() for k, v in params.items()}
+    rows32 = family_oracle(cfg.with_(dtype="float32"), p32, lens, toks,
+                           first, torch, dev)
+    del p32
+    out = []
+    for r, r32 in zip(rows, rows32):
+        d = (r - r32).abs()
+        d[:, cfg.vocab:] = 0.0               # the pad columns are -1e30
+        out.append(d)
+    return out
+
+
+def family_misses(rows, toks, first, dtype: str, drift=None) -> tuple:
+    """Per request, the first step of its prefill token and served tokens
+    that the rule refuses, or None, and how many pass: float32 must be
+    the oracle's greedy token; bfloat16 one the oracle scores within the
+    bf16 tolerance of its best or, where larger, within the largest bf16
+    error the oracle itself makes on a logit of that step (``drift``).
+    A tighter limit, twice the oracle's own error on the two logits
+    compared, refused 3 of 528 correct bfloat16 tokens of mamba2-370m on
+    an H100 by 0.07-0.3: the served run's own bf16 error at a token is
+    not the oracle's."""
+    ext = np.concatenate([first[:, None], toks], 1)
+    if dtype == "float32":
+        return first_misses([(r, None) for r in rows], ext, dtype)
+    from repro_torch.launch import serve
+    rtol, atol = serve.TOLERANCES[dtype]
+    misses, passed = [], 0
+    for r, logits in enumerate(rows):
+        best = logits.max(-1).values
+        index = torch_index(ext[r], logits)
+        got = logits.gather(1, index)[:, 0]
+        limit = atol + rtol * best.abs()
+        if drift is not None:
+            limit = limit.maximum(drift[r].amax(-1))
+        ok = (got >= best - limit).cpu().numpy()
+        passed += int(ok.sum())
+        bad = np.flatnonzero(~ok)
+        misses.append(None if not bad.size else (int(bad[0]), (
+            f"request {r} token {int(bad[0]) - 1}: {int(ext[r, bad[0]])} "
+            f"scores {float(got[bad[0]]):.4g}, the oracle's "
+            f"{int(logits[bad[0]].argmax())} {float(best[bad[0]]):.4g} "
+            f"(limit {float(limit[bad[0]]):.4g})")))
+    return misses, passed
+
+
+def torch_index(values, like):
+    """``values`` as a column of int64 indices on ``like``'s device."""
+    import torch
+    return torch.as_tensor(values, dtype=torch.int64,
+                           device=like.device)[:, None]
+
+
+def serve_family(cfg, params, lens, torch, dev) -> tuple:
+    from repro_torch.launch import serve
+    stats = {}
+    toks = serve._serve(cfg, len(lens), 0, FAMILY_GEN, prompt_lens=lens,
+                        params=params, device=dev, stats_out=stats)
+    torch.cuda.synchronize()
+    return toks, stats
+
+
+def conv_state_dropped():
+    """A planted fault of the recurrent path: the causal conv ignores the
+    state carried from the step before.  Returns a function that undoes
+    it."""
+    from repro_torch.models import layers
+
+    real = layers.causal_conv1d
+    layers.causal_conv1d = lambda x, w, state=None: real(x, w, None)
+
+    def undo():
+        layers.causal_conv1d = real
+    return undo
+
+
+def family_step(label: str, cfg, params, torch, dev, tier) -> None:
+    """One decode step of the first group's batch (6 requests) halfway
+    through its context, under torch.profiler: host ms, device busy ms,
+    the idle share, kernel launches per step, and the step's byte floor
+    (every weight but the embedding table, plus the live K/V of the
+    hybrid's shared block, over the tier's bandwidth)."""
+    from repro_torch.models import model
+
+    b, ctx = FAMILY_LENS.count(FAMILY_LENS[0]), FAMILY_LENS[0] + FAMILY_GEN
+    index = FAMILY_LENS[0] + FAMILY_GEN // 2
+    cache = model.init_cache(cfg, b, ctx, device=dev)
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+
+    def step():
+        with torch.no_grad():
+            return model.decode_step(params, cfg, cache, tok, index)
+    wall, busy, names, _ = device_busy(step, torch)
+    kernels = device_kernels(step, torch)
+    launches = sum(count for _, _, count in kernels) / 3
+    weights = sum(t.numel() * t.element_size() for n, t in params.items()
+                  if n != "embed")
+    kv = 0
+    if "k" in cache:
+        kv = 2 * cache["k"][:, :, :, :index + 1].numel() \
+            * cache["k"].element_size()
+    floor_ms = (weights + kv) / tier.hbm_bytes_per_s * 1e3
+    print(f"[{label}] one decode step of {b} requests at position {index}: "
+          f"{wall:.3f} ms on the host clock, device busy {busy:.3f} ms (idle "
+          f"share {1 - busy / wall:.4f}), {launches:.0f} kernel launches a "
+          f"step; byte floor {weights} B of weights + {kv} B of live K/V = "
+          f"{floor_ms:.3f} ms at {tier.hbm_bytes_per_s / 1e12:.2f} TB/s "
+          f"(busy {busy / floor_ms:.2f}x it); costliest kernels: {names}",
+          flush=True)
+    if not busy:
+        fail(f"{label}: the profiled step shows no device time")
+
+
+def run_family(tag: str, arch: str, tier, torch, dev) -> None:
+    """``[ssm]`` / ``[hybrid]``: ``arch`` at its published widths, random
+    weights made on the card, served through ``serve`` (the dense-cache
+    path: a token scan prefills each prompt group, then FAMILY_GEN greedy
+    decode steps) on FAMILY_LENS, in bfloat16 and float32.  In bfloat16
+    the token rule is first shown to reject a planted fault (the conv
+    state not carried from one step to the next, over the first group);
+    then each served run is held to the teacher-forced oracle
+    (``family_oracle``): float32 tokens identical, bfloat16 within the
+    bf16 tolerance of the oracle's best.  Prints decode ms per token and
+    per step, prefill s, and one profiled step (``family_step``)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    base = get_config(arch)
+    lens = list(FAMILY_LENS)
+    extra = (f"; shared block: {base.n_heads} heads of {base.head_dim} "
+             f"every {base.shared_attn_every} layers, d_ff {base.d_ff}, "
+             f"{base.activation}" if base.family == "hybrid" else "")
+    print(f"[{tag}] {base.name}: {base.n_layers} layers, d_model "
+          f"{base.d_model}, {base.ssm_heads} SSM heads of "
+          f"{base.ssm_head_dim}, state {base.ssm_state}, conv "
+          f"{base.ssm_conv}, vocab {base.vocab} + {base.vocab_pad}{extra}; "
+          f"{len(lens)} requests, prompts {sorted(set(lens))} "
+          f"({len(set(lens))} groups), {FAMILY_GEN} tokens each", flush=True)
+    for dtype in ("bfloat16", "float32"):
+        cfg = base.with_(dtype=dtype)
+        what = f"{tag}[{dtype}]"
+        params = make_params(what, cfg, torch, dev)
+        if dtype == "bfloat16":
+            group = lens[:lens.count(lens[0])]
+            undo = conv_state_dropped()
+            try:
+                bad, bad_stats = serve_family(cfg, params, group, torch, dev)
+            finally:
+                undo()
+            rows = family_oracle(cfg, params, group, bad,
+                                 bad_stats["first_tokens"], torch, dev)
+            drift = bf16_drift(cfg, params, group, bad,
+                               bad_stats["first_tokens"], rows, torch, dev)
+            misses, passed = family_misses(rows, bad,
+                                           bad_stats["first_tokens"], dtype,
+                                           drift)
+            caught = sum(m is not None for m in misses)
+            print(f"[{what}] planted fault (the conv state not carried): "
+                  f"the bf16 rule rejects {caught} of {len(group)} requests;"
+                  f" {passed} of {bad.size + len(group)} faulted tokens lie "
+                  f"within the rule's limit of the oracle's best",
+                  flush=True)
+            if not caught:
+                fail(f"{what}: the token rule passes a served run whose conv "
+                     "state is not carried")
+        toks, stats = serve_family(cfg, params, lens, torch, dev)
+        steps = len(set(lens)) * FAMILY_GEN
+        print(f"[{what}] prefill {stats['prefill_s']:.3f} s (token scans of "
+              f"{sorted(set(lens))}), decode {stats['decode_s']:.3f} s over "
+              f"{steps} steps: {stats['decode_s'] / steps * 1e3:.3f} ms per "
+              f"step, {stats['ms_per_token']:.3f} ms per token", flush=True)
+        if toks.shape != (len(lens), FAMILY_GEN) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab:
+            fail(f"{what}: tokens of shape {toks.shape} in "
+                 f"[{toks.min()}, {toks.max()}]")
+        t1 = time.perf_counter()
+        rows = family_oracle(cfg, params, lens, toks, stats["first_tokens"],
+                             torch, dev)
+        drift = None
+        if dtype == "bfloat16":
+            drift = bf16_drift(cfg, params, lens, toks,
+                               stats["first_tokens"], rows, torch, dev)
+        misses, passed = family_misses(rows, toks, stats["first_tokens"],
+                                       dtype, drift)
+        ext = np.concatenate([stats["first_tokens"][:, None], toks], 1)
+        same = sum(int((r.argmax(-1).cpu().numpy() == ext[i]).sum())
+                   for i, r in enumerate(rows))
+        gaps = [float((r.max(-1).values - r.gather(
+            1, torch_index(ext[i], r))[:, 0]).max()) for i, r in enumerate(rows)]
+        print(f"[{what}] teacher-forced oracle (forward, chunked SSD) in "
+              f"{time.perf_counter() - t1:.1f} s: {same} of {ext.size} tokens "
+              f"its greedy token, {passed} pass the {dtype} rule; largest "
+              f"deficit of a served token's logit {max(gaps):.4g}"
+              + ("" if drift is None else
+                 f"; the oracle's own bf16 error, largest per step "
+                 f"{min(float(d.amax(-1).min()) for d in drift):.4g}.."
+                 f"{max(float(d.amax(-1).max()) for d in drift):.4g}, "
+                 f"median {float(torch.cat([d[:, :cfg.vocab].reshape(-1) for d in drift]).median()):.4g}"),
+              flush=True)
+        bad = [text for m in misses if m for text in (m[1],)]
+        if bad:
+            fail(f"{what}: tokens differ from the oracle: " + "; ".join(bad))
+        if dtype == "bfloat16":
+            family_step(what, cfg, params, torch, dev, tier)
+        del params
+        torch.cuda.empty_cache()
+    print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 TUNING_PROGRAMS = ("outerprod", "gda", "gemm", "filter")
@@ -3109,6 +3531,9 @@ def main() -> int:
     kernels.extend(run_paged_kernels(tier, torch, dev))
     kernels.append(run_serving(tier, torch, dev))
     kernels.extend(run_moe(tier, torch, dev))
+    run_buckets(torch, dev)
+    run_family("ssm", "mamba2-370m", tier, torch, dev)
+    run_family("hybrid", "zamba2-2.7b", tier, torch, dev)
     run_tuning(tier, torch, dev, stores / "tuning")
 
     print(json.dumps({"kernels": kernels}))

@@ -2493,6 +2493,43 @@ def pd_smem_bytes(stages: int, kc: int, g: int, d: int, dtype) -> int:
     return stages * 2 * kc * d * itemsize + (g * kc + 3 * g) * 4
 
 
+# csrc/flash_attention.cuh's constants: keys of a chunk (fa::BC), packed
+# rows of an FFMA tile (fa::BR) and the largest head dim (fa::DMAX)
+FA_BC = 64
+FA_BR = 64
+FA_DMAX = 128
+
+
+def fa_tiles(which: str, rows: int) -> Tuple[int, ...]:
+    """The packed-row tiles attention's ``which`` kernel takes for
+    ``rows`` packed rows of a kv head: 64 or 128 (two warpgroups) for
+    wgmma when there are more than 64 rows, else 64."""
+    return (64, 128) if which == "wgmma" and rows > 64 else (64,)
+
+
+def fa_smem_bytes(which: str, tile_rows: int, d: int) -> int:
+    """A block's shared bytes in ``csrc/flash_attention.cuh`` at head dim
+    ``d``: for ``"wgmma"`` ``WLayout<DP, NWG>::SMEM`` (DP = 64 or 128,
+    NWG = tile_rows / 64: the Q tile, STAGES slots of K and V boxes,
+    the ring's mbarriers and 1024 bytes of alignment slack), for
+    ``"ffma"`` ``4 * smem_floats(DP)`` (DP the head dim rounded up to
+    16: Q and K transposed, V and P)."""
+    if which == "wgmma":
+        if tile_rows not in (64, 128):
+            raise ValueError(f"wgmma tiles are 64 or 128 rows, not "
+                             f"{tile_rows}")
+        dp = 64 if d <= 64 else 128
+        halves, stages = dp // 64, 4 if dp == 64 else 3
+        q_bytes = halves * (tile_rows // 64) * 64 * 128
+        stage_bytes = 2 * halves * FA_BC * 128
+        return q_bytes + stages * stage_bytes + (2 * stages + 1) * 8 + 1024
+    if tile_rows != FA_BR:
+        raise ValueError(f"ffma tiles are {FA_BR} rows, not {tile_rows}")
+    dp = -(-d // 16) * 16
+    ts = FA_BR + 4
+    return 4 * (2 * dp * ts + FA_BC * dp + FA_BC * ts)
+
+
 def _pd_refuse(b: int, group: int, dh: int, ps: int, itemsize: int) -> None:
     """Raise ``ValueError`` for a shape past the kernel's limits, which
     the library reports (``pdec::DMAX``, ``GMAX``, ``KC``, ``BMAX``), or

@@ -40,9 +40,21 @@ calibration hash), so a second exploration lowers and runs nothing.
 Deadlines, retries, quarantine and crash-safe stores come from
 ``core.resilience``; spans and counters from ``core.telemetry``.
 
-Shape-bucketed warm starts (``bucketing=True``, the reference's
-``core/buckets``) are not part of the port yet and raise
-``NotImplementedError``.
+Shape-bucketed warm starts (``bucketing=True``, ``core.buckets``): a
+cold shape whose family has a tuned bucket is served the nearest
+bucket's plan re-fitted and re-priced at once, while a background
+re-tune explores the exact shape and promotes its winner once it
+certifies.
+
+On a GPU tier the hand kernels' plans are the kernels' own
+(``KernelSpace``): ``select_attention_blocks`` and
+``select_scan_blocks`` explore the axes ``csrc/flash_attention.cuh``
+and ``csrc/ssd_scan.cuh`` take, each candidate charged the shared bytes
+the kernel allocates and the main-memory words it moves, through
+``explore`` itself (its cache and buckets apply unchanged);
+``select_paged_decode_blocks`` prices the paged kernel's axes
+(``_paged_kernel_plan``).  Under ``cost.TPU`` every selector is the
+reference's search.
 """
 from __future__ import annotations
 
@@ -52,7 +64,7 @@ import itertools
 import operator
 import os
 import time
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -64,8 +76,7 @@ from .memory import plan_memory
 # The exploration-option constants and the Options surface live in
 # core.options (a leaf module); re-exported here as the reference does.
 from .options import (DEPTHS, MAX_POINTS, MEASURE_REPEAT,  # noqa: F401
-                      MEASURE_WARMUP, MXU, SUBLANE, TOP_K, UNSET, Options,
-                      refuse_bucketing)
+                      MEASURE_WARMUP, MXU, SUBLANE, TOP_K, UNSET, Options)
 from .scheduling import build_schedule, model_speedup
 from .strip_mine import insert_tile_copies, strip_mine, tile
 
@@ -85,11 +96,6 @@ _DTYPE_SUBLANE = {
 def dtype_sublane(dtype) -> int:
     """Sublane (row) alignment for a dtype's minimum tile."""
     return _DTYPE_SUBLANE.get(str(dtype), SUBLANE)
-
-
-# the one part of the reference's tuning runtime the port refuses:
-# shape-bucketed warm starts (``Options.resolved`` calls it)
-_refuse_tuning_runtime = refuse_bucketing
 
 
 def _measure_mode(measure: Optional[str]) -> Optional[str]:
@@ -201,7 +207,9 @@ class TilePlan:
     ``depths`` maps each tiled pattern name to the metapipeline buffer
     depth the search selected (one searched depth per plan, recorded per
     pattern like ``sizes``); ``depth`` is the scalar view.  The JSON form
-    is the reference's, so a plan carries across the two packages.
+    is the reference's, so a plan carries across the two packages; a
+    warm start's flag and bucket are not part of it (a loaned plan is
+    never persisted).
     """
 
     sizes: Dict[str, Tuple[int, ...]]
@@ -216,6 +224,8 @@ class TilePlan:
     measured_seconds: float = 0.0   # winner's median wall time
     timed: int = 0           # candidates actually lowered and timed
     depths: Dict[str, int] = dataclasses.field(default_factory=dict)
+    warm_start: bool = False  # adapted from a tuned bucket (core.buckets)
+    bucket: str = ""          # donor bucket signature (warm starts only)
     key: str = ""            # tuning-cache key (dse.explain provenance)
 
     @property
@@ -267,9 +277,11 @@ def default_cache_path() -> str:
                                           "REPRO_DSE_CACHE")
 
 
-# reserved top-level key of the cache document: the candidate
-# quarantine (plan keys are 32-hex digests, so no collision is possible)
+# reserved top-level keys of the cache document: the candidate
+# quarantine and the shape-bucket donor index (core.buckets); plan keys
+# are 32-hex digests, so no collision is possible
 QUARANTINE_KEY = "__quarantine__"
+BUCKETS_KEY = "__buckets__"
 
 
 class TuningCache:
@@ -286,7 +298,9 @@ class TuningCache:
     The same document persists the **candidate quarantine**: a
     candidate whose lowering, timing or certification failed is
     recorded under ``__quarantine__`` (keyed per device kind and
-    plain/kernel mode) and is never re-attempted by later explorations.
+    plain/kernel mode) and is never re-attempted by later explorations,
+    and the **bucket index** of ``core.buckets`` (``__buckets__``:
+    family -> bucket -> donor plan).
     """
 
     def __init__(self, path: Optional[str] = None):
@@ -315,6 +329,13 @@ class TuningCache:
         merged = {**mine, **disk}
         if q:
             merged[QUARANTINE_KEY] = q
+        # bucket index: two-level nested merge (family -> bucket sig ->
+        # donor entry), disk winning per bucket like plans do
+        bk = dict(mine.get(BUCKETS_KEY, {}))
+        for fam, ent in disk.get(BUCKETS_KEY, {}).items():
+            bk[fam] = {**bk.get(fam, {}), **ent}
+        if bk:
+            merged[BUCKETS_KEY] = bk
         self._data = merged
 
     def get(self, key: str, cls=None):
@@ -347,6 +368,22 @@ class TuningCache:
         q = self._load().get(QUARANTINE_KEY)
         entry = q.get(key) if isinstance(q, dict) else None
         return entry if isinstance(entry, dict) else None
+
+    def bucket_entries(self, family: str) -> Dict[str, Dict]:
+        """The shape-bucket donor index for one pattern family:
+        {bucket signature: {"kind", "domains", "plan"}}
+        (``core.buckets`` owns the format)."""
+        bk = self._load().get(BUCKETS_KEY)
+        fam = bk.get(family) if isinstance(bk, dict) else None
+        return fam if isinstance(fam, dict) else {}
+
+    def bucket_put(self, family: str, sig: str, entry: Dict) -> None:
+        """Register a tuned plan as its bucket's warm-start donor."""
+        def mutate(data: Dict) -> None:
+            data.setdefault(BUCKETS_KEY, {}).setdefault(
+                family, {})[sig] = entry
+
+        self._update(mutate)
 
     def clear(self) -> None:
         self._data = {}
@@ -562,6 +599,64 @@ def price(p: ir.Pattern, sizes: Dict[str, Tuple[int, ...]], *, tier: Tier,
                   calibrated, steps, depth=depth)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class KernelSpace:
+    """A hand kernel's own design space on a GPU tier, explored by
+    ``explore`` in place of ``tile_space`` and ``plan_memory``: the
+    tiles the kernel takes (``space``: pattern name -> candidates), the
+    shared bytes it allocates at each (``charge``) and the main-memory
+    words it moves (``words``), at its ring's one ``depth``.  ``family``
+    names the kernel and the path it takes, free of extents (part of
+    the bucket layer's family); ``context`` the shape facts its charge
+    reads (part of the cache key).  ``certify(plan, device)`` runs the
+    kernel at a plan against its oracle: ``(ok, reason)``, the bucket
+    layer's gate before a re-tuned plan is promoted."""
+
+    family: Tuple
+    space: Tuple[Tuple[str, Tuple[Tuple[int, ...], ...]], ...]
+    depth: int
+    context: Tuple
+    charge: Callable[[Dict[str, Tuple[int, ...]]], int]
+    words: Callable[[Dict[str, Tuple[int, ...]]], int]
+    certify: Callable[..., Tuple[bool, str]]
+
+    def candidates(self) -> Dict[str, List[Tuple[int, ...]]]:
+        return {name: list(c) for name, c in self.space}
+
+    def combos(self) -> List[Dict[str, Tuple[int, ...]]]:
+        names = [name for name, _ in self.space]
+        return [dict(zip(names, combo)) for combo in
+                itertools.product(*(c for _, c in self.space))]
+
+    def sig(self) -> Tuple:
+        """The cache key's part: family, depth, context and every
+        candidate with its charge."""
+        return (("kernel",) + tuple(self.family), ("depth", self.depth),
+                tuple(self.context),
+                tuple((tuple(sorted(c.items())), self.charge(c))
+                      for c in self.combos()))
+
+
+def price_kernel(p: ir.Pattern, sizes: Dict[str, Tuple[int, ...]],
+                 kernel: KernelSpace, *, tier: Tier, vmem_budget: int,
+                 profile=None) -> Optional[Priced]:
+    """Price the hand kernel of ``kernel`` at ``sizes``: None when its
+    shared bytes pass the budget, else the words it moves over the
+    tier's bandwidth (calibrated per grid step of the proxy ``p``, as
+    ``price`` does), charged its own shared bytes."""
+    onchip = int(kernel.charge(sizes))
+    if onchip > vmem_budget:
+        return None
+    words = int(kernel.words(sizes))
+    seconds = stream_seconds(words, tier=tier)
+    steps = grid_steps(p, sizes)
+    calibrated = calibrate.predicted_seconds(
+        type(p).__name__, seconds * tier.hbm_bytes_per_s, steps,
+        profile=profile, tier=tier)
+    return Priced(dict(sizes), words, onchip, seconds, calibrated, steps,
+                  depth=kernel.depth)
+
+
 def _rank_key(a: Priced) -> Tuple:
     # depth breaks seconds ties BEFORE the -vmem reuse term: once the
     # exposed-latency term saturates, deeper variants tie on seconds
@@ -581,18 +676,32 @@ def shortlist(p: ir.Pattern, *, tier: Tier, vmem_budget: int,
               align: int = MXU,
               space: Optional[Dict[str, List[Tuple[int, ...]]]] = None,
               max_points: int = MAX_POINTS, profile=None,
-              depths: Tuple[int, ...] = DEPTHS
+              depths: Tuple[int, ...] = DEPTHS,
+              kernel: Optional[KernelSpace] = None
               ) -> Tuple[List[Priced], bool, int, int]:
     """Every feasible (tile sizes, depth) candidate, priced (``profile``:
     a calibration profile or None) and sorted best-first.  Returns
     ``(candidates, thinned, explored, pruned)``; the analytic argmin is
-    ``candidates[0]``, measured mode lowers and times the top ``k``."""
+    ``candidates[0]``, measured mode lowers and times the top ``k``.
+    With ``kernel`` the candidates are the hand kernel's
+    (``price_kernel``)."""
+    cands: List[Priced] = []
+    explored = pruned = 0
+    if kernel is not None:
+        for sizes in kernel.combos():
+            priced = price_kernel(p, sizes, kernel, tier=tier,
+                                  vmem_budget=vmem_budget, profile=profile)
+            explored += 1
+            if priced is None:
+                pruned += 1
+                continue
+            cands.append(priced)
+        cands.sort(key=_rank_key)
+        return cands, False, explored, pruned
     if space is None:
         space = tile_space(p, align=align)
     space, thinned = _thin(space, max_points)
     names = sorted(space)
-    cands: List[Priced] = []
-    explored = pruned = 0
     for combo in itertools.product(*(space[n] for n in names)):
         sizes = dict(zip(names, combo))
         for d in depths:
@@ -898,7 +1007,8 @@ def explore(p: ir.Pattern, *, tier: Optional[Tier] = None,
             depths: Optional[Tuple[int, ...]] = None,
             policy: Optional[resilience.Policy] = None,
             bucketing: Optional[bool] = None,
-            options: Optional[Options] = None) -> TilePlan:
+            options: Optional[Options] = None,
+            kernel: Optional[KernelSpace] = None) -> TilePlan:
     """Design-space exploration over tile sizes and metapipeline buffer
     depths for one *untiled* pattern program.
 
@@ -926,7 +1036,19 @@ def explore(p: ir.Pattern, *, tier: Optional[Tier] = None,
 
     Every keyword can instead arrive in ``options=Options(...)``:
     explicit kwarg > options > the ``REPRO_*`` env vars > defaults.
-    ``bucketing=True`` raises ``NotImplementedError``.
+    ``bucketing=True`` adds the shape-bucketed mode (``core.buckets``):
+    a cold shape whose pattern family has tuned buckets returns a
+    warm-start plan at once (the nearest bucket's tiles re-fitted and
+    re-priced; nothing lowered or measured) while a background re-tune
+    explores the exact shape and promotes its winner into the cache
+    once it certifies; every explored plan is recorded as its bucket's
+    donor.
+
+    ``kernel`` (a ``KernelSpace``) explores a hand kernel's own axes in
+    place of ``tile_space``, each candidate charged the kernel's shared
+    bytes and words (``price_kernel``); measured mode keeps the priced
+    plan (the proxy ``p`` is not the kernel) and records a
+    ``lower-unsupported`` fallback.
     """
     o = _resolve_options(options, vmem_budget=vmem_budget, align=align,
                          cache=cache, max_points=max_points,
@@ -939,50 +1061,117 @@ def explore(p: ir.Pattern, *, tier: Optional[Tier] = None,
         telemetry.enable()
     with telemetry.span("dse.explore", kind=type(p).__name__,
                         pattern=p.name) as sp:
-        return _explore_body(p, space, o, target, sp)
+        return _explore_body(p, space, o, target, sp, kernel, device)
 
 
 def _explore_body(p: ir.Pattern, space, o: Options, target: _Target,
-                  sp) -> TilePlan:
+                  sp, kernel: Optional[KernelSpace] = None,
+                  device=None) -> TilePlan:
     vmem_budget, align = target.vmem_budget, o.align
     max_points, measure, top_k = o.max_points, o.measure, o.top_k
     depths, policy = o.depths, o.policy
     tc = _resolve_cache(o.cache)
 
-    if space is None:
-        space = tile_space(p, align=align)
-    space, thinned = _thin(space, max_points)
+    space_was_default = space is None
+    if kernel is not None:
+        space, thinned = kernel.candidates(), False
+    else:
+        if space is None:
+            space = tile_space(p, align=align)
+        space, thinned = _thin(space, max_points)
     names = sorted(space)
 
     # the key covers the *resolved* candidate space, the depth set, the
-    # measured mode and the tier priced (the device kind and the
-    # calibration hash come from _key_context)
+    # measured mode, the tier priced and a hand kernel's charges (the
+    # device kind and the calibration hash come from _key_context)
     space_sig = tuple((n, tuple(space[n])) for n in names)
     extra = space_sig + (("depths",) + tuple(int(d) for d in depths),) \
         + ((("measure", measure, int(top_k)),) if measure else ()) \
-        + (_tier_sig(target.tier),)
+        + (_tier_sig(target.tier),) \
+        + ((kernel.sig(),) if kernel is not None else ())
 
     def key_now() -> str:
         return pattern_key(p, vmem_budget=vmem_budget, align=align,
                            extra=extra, device=target.kind)
 
+    # explicit ``space=`` pins the candidate set to the caller's shape:
+    # a donor bucket's plan would not be comparable, so bucketing only
+    # engages for the default space (a hand kernel's is its default)
+    bucketing_on = o.bucketing and tc is not None and space_was_default
+    if bucketing_on:
+        from . import buckets as buckets_mod
+        fam_kw = dict(vmem_budget=vmem_budget, align=align,
+                      tier=target.tier, device=target.kind, kernel=kernel)
+
     if tc is not None:
         hit = tc.get(key_now())
         if hit is not None:
+            if bucketing_on:
+                buckets_mod.note("exact_hits")
             telemetry.count("dse.cache_hits")
             hit = dataclasses.replace(hit, key=key_now())
             sp.set(source="cache")
             _record_plan(hit, source="cache")
             return hit
 
+    if bucketing_on:
+        warm = buckets_mod.warm_start_tile(p, tc, **fam_kw)
+        if warm is not None:
+            buckets_mod.note("warm_hits")
+            pol = resilience.resolve_policy(policy)
+            # cache=False: the re-tune must not write the cache itself
+            # -- only its *certified* winner is promoted, below
+            retune_opts = dataclasses.replace(o, bucketing=False,
+                                              cache=False)
+            tag = "tile|" + key_now()
+            # certified where the plan is for: the named device, else
+            # the card when there is one (the CPU's plain versions are
+            # their own oracle)
+            cert_dev = measure_mod._device(device)
+
+            def _retune() -> TilePlan:
+                return explore(p, tier=target.tier, device=device,
+                               kernel=kernel, options=retune_opts)
+
+            def _certify(plan: TilePlan):
+                def run():
+                    if kernel is not None:
+                        return kernel.certify(plan, cert_dev)
+                    return resilience.certify_tile_plan(
+                        p, plan.sizes, vmem_budget=vmem_budget,
+                        device=cert_dev, depth=plan.depth)
+                return resilience.certify_guarded(run, key="retune|" + tag,
+                                                  policy=pol)
+
+            def _promote(plan: TilePlan) -> None:
+                # key recomputed at promotion time: the background
+                # explore may have refreshed the calibration profile
+                tc.put(key_now(), plan)
+                buckets_mod.record_tile(p, plan, tc, **fam_kw)
+
+            buckets_mod.schedule_retune(tag, _retune, certify=_certify,
+                                        promote=_promote, policy=pol)
+            warm = dataclasses.replace(warm, key=key_now())
+            sp.set(source="warm_start", bucket=warm.bucket)
+            _record_plan(warm, source="warm_start", bucket=warm.bucket,
+                         retune_tag=tag)
+            return warm
+        buckets_mod.note("misses")
+
     prof = _resolve_profile(o.profile, target.kind)
     with telemetry.span("dse.shortlist", thinned=thinned) as ssp:
         cands, _, explored, pruned = shortlist(
             p, tier=target.tier, vmem_budget=vmem_budget, align=align,
             space=space, max_points=max_points, profile=prof,
-            depths=depths)
+            depths=depths, kernel=kernel)
         ssp.set(explored=explored, pruned=pruned, feasible=len(cands))
     if not cands:
+        if kernel is not None:
+            least = min(kernel.charge(c) for c in kernel.combos())
+            raise ValueError(
+                f"DSE: no tile candidate fits on-chip budget {vmem_budget} "
+                f"B: {kernel.family[0]} allocates {least} B at its "
+                f"smallest tile ({explored} candidates over {names})")
         raise ValueError(
             f"DSE: no tile candidate fits on-chip budget {vmem_budget} B "
             f"({explored} candidates over {names})")
@@ -993,7 +1182,12 @@ def _explore_body(p: ir.Pattern, space, o: Options, target: _Target,
     prov_measured: List[Dict] = []
     prov_cert: List[Dict] = []
     n_short = n_timed = 0
-    if measure == "top_k":
+    if measure == "top_k" and kernel is not None:
+        resilience.record(
+            "explore", "lower-unsupported", _workload_tag(p), "fallback",
+            f"{kernel.family[0]}'s plan is priced, not timed: the proxy "
+            "program is not the kernel")
+    elif measure == "top_k":
         pol = resilience.resolve_policy(policy)
         with telemetry.span("dse.measure", top_k=int(top_k)) as msp:
             top = _top_distinct_sizes(cands, max(top_k, 1))
@@ -1074,6 +1268,8 @@ def _explore_body(p: ir.Pattern, space, o: Options, target: _Target,
                     timed=timed_n, key=final_key)
     if tc is not None:
         tc.put(final_key, plan)
+        if bucketing_on:
+            buckets_mod.record_tile(p, plan, tc, **fam_kw)
     sp.set(source="explored", explored=explored, pruned=pruned,
            timed=timed_n)
     _record_plan(
@@ -1135,6 +1331,8 @@ class PipelinePlan:
     measured_seconds: float = 0.0   # winner's median wall time
     timed: int = 0                  # candidates lowered and timed
     depths: Tuple[int, ...] = ()    # per-group stage-buffer depth
+    warm_start: bool = False        # adapted from a tuned bucket
+    bucket: str = ""                # donor bucket signature
     key: str = ""                   # tuning-cache key (dse.explain)
 
     def __post_init__(self):
@@ -1495,7 +1693,11 @@ def explore_pipeline(pipe, *, tier: Optional[Tier] = None,
     oracle (``pipeline.run_unfused``) wins and the samples update the
     device's calibration profile before the plan is cached.  A split
     winner keeps the analytic choice.  Candidate-level failures never
-    raise; ``bucketing=True`` raises ``NotImplementedError``.
+    raise.  ``bucketing=True`` enables bucketed warm starts: a cold
+    ``shared_extent`` whose pipeline family has a tuned fused bucket is
+    served the donor's block re-fitted to its divisors at the donor's
+    depth, re-priced, while a background re-tune promotes the certified
+    exact-extent winner (``core.buckets``).
     """
     o = _resolve_options(options, vmem_budget=vmem_budget, align=align,
                          cache=cache, max_points=max_points,
@@ -1507,11 +1709,11 @@ def explore_pipeline(pipe, *, tier: Optional[Tier] = None,
     if o.trace:
         telemetry.enable()
     with telemetry.span("dse.explore_pipeline", pipeline=pipe.name) as sp:
-        return _explore_pipeline_body(pipe, o, target, sp)
+        return _explore_pipeline_body(pipe, o, target, sp, device)
 
 
 def _explore_pipeline_body(pipe, o: Options, target: _Target,
-                           sp) -> PipelinePlan:
+                           sp, device=None) -> PipelinePlan:
     vmem_budget, align = target.vmem_budget, o.align
     max_points, measure, top_k = o.max_points, o.measure, o.top_k
     depths, policy = o.depths, o.policy
@@ -1531,14 +1733,62 @@ def _explore_pipeline_body(pipe, o: Options, target: _Target,
         return pipeline_key(pipe, vmem_budget=vmem_budget, align=align,
                             extra=extra, device=target.kind)
 
+    bucketing_on = o.bucketing and tc is not None
+    if bucketing_on:
+        from . import buckets as buckets_mod
+        fam_kw = dict(vmem_budget=vmem_budget, align=align, tier=tier,
+                      device=target.kind)
+
     if tc is not None:
         hit = tc.get(key_now(), PipelinePlan)
         if hit is not None:
+            if bucketing_on:
+                buckets_mod.note("exact_hits")
             telemetry.count("dse.cache_hits")
             hit = dataclasses.replace(hit, key=key_now())
             sp.set(source="cache")
             _record_plan(hit, source="cache")
             return hit
+
+    if bucketing_on:
+        warm = buckets_mod.warm_start_pipeline(pipe, tc,
+                                               max_points=max_points,
+                                               **fam_kw)
+        if warm is not None:
+            buckets_mod.note("warm_hits")
+            pol = resilience.resolve_policy(policy)
+            # cache=False: the re-tune must not write the cache itself
+            # -- only its *certified* winner is promoted, below
+            retune_opts = dataclasses.replace(o, bucketing=False,
+                                              cache=False)
+            tag = "pipe|" + key_now()
+            cert_dev = measure_mod._device(device)
+
+            def _retune() -> PipelinePlan:
+                return explore_pipeline(pipe, tier=tier, device=device,
+                                        options=retune_opts)
+
+            def _certify(plan: PipelinePlan):
+                return resilience.certify_guarded(
+                    lambda: resilience.certify_pipeline_plan(
+                        pipe, plan, vmem_budget=vmem_budget,
+                        device=cert_dev),
+                    key="retune|" + tag, policy=pol)
+
+            def _promote(plan: PipelinePlan) -> None:
+                # key recomputed at promotion time: the background
+                # explore may have refreshed the calibration profile
+                tc.put(key_now(), plan)
+                buckets_mod.record_pipeline(pipe, plan, tc, **fam_kw)
+
+            buckets_mod.schedule_retune(tag, _retune, certify=_certify,
+                                        promote=_promote, policy=pol)
+            warm = dataclasses.replace(warm, key=key_now())
+            sp.set(source="warm_start", bucket=warm.bucket)
+            _record_plan(warm, source="warm_start", bucket=warm.bucket,
+                         retune_tag=tag)
+            return warm
+        buckets_mod.note("misses")
 
     prof = _resolve_profile(o.profile, target.kind)
     counters = {"explored": 0, "pruned": 0}
@@ -1692,6 +1942,8 @@ def _explore_pipeline_body(pipe, o: Options, target: _Target,
     plan = dataclasses.replace(plan, key=final_key)
     if tc is not None:
         tc.put(final_key, plan)
+        if bucketing_on:
+            buckets_mod.record_pipeline(pipe, plan, tc, **fam_kw)
     sp.set(source="explored", explored=plan.explored,
            pruned=plan.pruned, groups=len(plan.groups),
            timed=plan.timed)
@@ -1719,18 +1971,20 @@ def _explore_pipeline_body(pipe, o: Options, target: _Target,
 
 def explain_dict(plan) -> Dict:
     """Machine-readable provenance report for a ``TilePlan`` /
-    ``PipelinePlan``: where the winner came from (fresh exploration or
-    tuning-cache hit), what was enumerated and why candidates were
-    rejected, the analytic and measured rankings and the certification
-    outcomes.
+    ``PipelinePlan``: where the winner came from (fresh exploration,
+    tuning-cache hit, bucket warm start), what was enumerated and why
+    candidates were rejected, the analytic and measured rankings and
+    the certification outcomes.
 
     The deep exploration internals (rank tables, certification
     outcomes, per-reason pruning counts) are captured only while
     tracing is enabled (``REPRO_TRACE=1`` / ``Options(trace=True)``)
     and the plan was explored in this process; otherwise the report
-    falls back to the accounting every plan carries on itself.
+    falls back to the accounting every plan carries on itself
+    (explored/pruned totals, measured seconds, warm-start donor).
     """
-    source = "cache" if plan.cached else "explored"
+    source = ("warm_start" if plan.warm_start
+              else "cache" if plan.cached else "explored")
     d: Dict = {
         "kind": type(plan).__name__,
         "key": plan.key,
@@ -1743,8 +1997,8 @@ def explain_dict(plan) -> Dict:
         "measured": bool(plan.measured),
         "measured_seconds": float(plan.measured_seconds),
         "timed": int(plan.timed),
-        "warm_start": False,
-        "bucket": "",
+        "warm_start": bool(plan.warm_start),
+        "bucket": plan.bucket,
         "cached": bool(plan.cached),
     }
     if isinstance(plan, PipelinePlan):
@@ -1758,7 +2012,11 @@ def explain_dict(plan) -> Dict:
     rec = telemetry.get_record("plan", plan.key) if plan.key else None
     if rec is not None:
         d["provenance"] = rec
-        d["source"] = rec.get("source", source)
+        # the plan object's own warm_start flag is authoritative: the
+        # background re-tune records its exploration under the same
+        # key, but THIS plan is still the warm loan it was served as
+        d["source"] = ("warm_start" if plan.warm_start
+                       else rec.get("source", source))
     return d
 
 
@@ -1768,7 +2026,8 @@ def explain(plan) -> str:
     ranks, per-reason pruning counts, certification outcomes."""
     d = explain_dict(plan)
     lines = [f"{d['kind']} {d['key'] or '<no key>'}",
-             f"  source: {d['source']}"]
+             f"  source: {d['source']}"
+             + (f" (bucket {d['bucket']})" if d["bucket"] else "")]
     if "sizes" in d:
         lines.append("  sizes: " + ", ".join(
             f"{k}={tuple(v)}" for k, v in sorted(d["sizes"].items())))
@@ -1925,26 +2184,131 @@ def select_gemm_blocks(m: int, n: int, k: int, *, tier: Optional[Tier] = None,
     return (bm, bn, bk), plan
 
 
-def select_attention_blocks(sq: int, sk: int, d: int, *,
+def select_attention_blocks(sq: int, sk: int, d: int,
+                            group: Optional[int] = None,
+                            dtype: Optional[str] = None, *,
                             tier: Optional[Tier] = None,
                             vmem_budget: Optional[int] = None, device=None,
                             **tuning) -> Tuple[Tuple[int, int], TilePlan]:
-    """``(block_q, block_k)`` for ``kernels.flash_attention``."""
-    plan = explore(attention_program(sq, sk, d), tier=tier,
-                   vmem_budget=vmem_budget, device=device, **tuning)
+    """``(block_q, block_k)`` for ``kernels.flash_attention``.
+
+    Under ``cost.TPU`` the reference's search over the proxy
+    ``attention_program(sq, sk, d)``.  Under a GPU tier the kernel's own
+    axes (``_attention_kernel``): ``block_q`` is the tile of packed rows
+    (``group`` query heads of a kv head times ``sq``; 1 when not given)
+    the launch takes, ``block_k`` the 64-key chunk, each candidate
+    charged the shared bytes of the path inputs of ``dtype`` take
+    (float32 when not given)."""
+    tier = tier_of(tier, device)
+    if tier.name != TPU.name:
+        p, kernel = _attention_kernel(sq, sk, d, group, dtype)
+        plan = explore(p, tier=tier, vmem_budget=vmem_budget,
+                       device=device, kernel=kernel, **tuning)
+    else:
+        plan = explore(attention_program(sq, sk, d), tier=tier,
+                       vmem_budget=vmem_budget, device=device, **tuning)
     (bq,), (bk,) = _one(plan, "fa_q"), _one(plan, "fa_kv")
     return (bq, bk), plan
+
+
+def _attention_kernel(sq: int, sk: int, d: int, group: Optional[int],
+                      dtype: Optional[str]
+                      ) -> Tuple[ir.Pattern, KernelSpace]:
+    """The proxy and ``KernelSpace`` of ``csrc/flash_attention.cuh`` at
+    ``(sq, sk, d)``: the proxy's query map runs over the packed rows of
+    a kv head, its key fold over the keys rounded up to whole chunks;
+    the candidates are the tiles the path takes (``codegen_cuda.fa_tiles``)
+    over 64-key chunks, charged ``codegen_cuda.fa_smem_bytes``; the words
+    moved per (batch, kv head) are Q read and O written once and K and V
+    read once per tile.  Raises ``ValueError`` for a head dim the kernels
+    do not take."""
+    from .codegen_cuda import FA_BC, FA_DMAX, fa_smem_bytes, fa_tiles
+
+    group = 1 if group is None else int(group)
+    dtype = str(dtype or "float32").replace("torch.", "")
+    if not 1 <= d <= FA_DMAX:
+        raise ValueError(
+            f"DSE: no tile candidate fits: the attention kernels take head "
+            f"dims 1..{FA_DMAX}, not {d}")
+    bf16 = dtype == "bfloat16"
+    which = "wgmma" if bf16 and d % 8 == 0 else "ffma"
+    rows = group * sq
+    tiles = fa_tiles(which, rows)
+    keys = -(-sk // FA_BC) * FA_BC
+    item = 2 if bf16 else 4
+
+    def charge(sizes):
+        return fa_smem_bytes(which, sizes["fa_q"][0], d)
+
+    def words(sizes):
+        t = sizes["fa_q"][0]
+        nbytes = item * d * (2 * rows + 2 * -(-rows // t) * keys)
+        return -(-nbytes // 4)
+
+    def certify(plan, device):
+        return resilience.certify_attention_plan(
+            sq, sk, d, group, dtype, tuple(_one(plan, "fa_q")
+                                           + _one(plan, "fa_kv")),
+            device=device)
+
+    kernel = KernelSpace(
+        family=("flash_attention.cuh", which, dtype),
+        space=(("fa_kv", ((FA_BC,),)),
+               ("fa_q", tuple((t,) for t in tiles))),
+        depth=2, context=(("d", d), ("group", group)),
+        charge=charge, words=words, certify=certify)
+    return attention_program(rows, keys, d), kernel
 
 
 def select_scan_blocks(seq: int, n: int, dh: int, *,
                        tier: Optional[Tier] = None,
                        vmem_budget: Optional[int] = None, device=None,
                        **tuning) -> Tuple[int, TilePlan]:
-    """``chunk`` for ``kernels.ssd_scan``."""
-    plan = explore(scan_program(seq, n, dh), tier=tier,
-                   vmem_budget=vmem_budget, device=device, **tuning)
+    """``chunk`` for ``kernels.ssd_scan``: under ``cost.TPU`` the
+    reference's search over ``scan_program``, under a GPU tier the
+    kernel's own chunks (``_scan_kernel``)."""
+    tier = tier_of(tier, device)
+    if tier.name != TPU.name:
+        kernel = _scan_kernel(seq, n, dh)
+        plan = explore(scan_program(seq, n, dh), tier=tier,
+                       vmem_budget=vmem_budget, device=device,
+                       kernel=kernel, **tuning)
+    else:
+        plan = explore(scan_program(seq, n, dh), tier=tier,
+                       vmem_budget=vmem_budget, device=device, **tuning)
     (chunk,) = _one(plan, "ssd")
     return chunk, plan
+
+
+def _scan_kernel(seq: int, n: int, dh: int) -> KernelSpace:
+    """``csrc/ssd_scan.cuh``'s ``KernelSpace`` at ``(seq, n, dh)``: the
+    chunks it takes that divide the sequence (multiples of 4, its
+    16-byte path, or the whole sequence), each charged
+    ``ssd_scan.layout(chunk).smem_bytes``; the words moved per (batch,
+    head) are the float32 inputs read and the output written once, and
+    each workspace (``ssd_scan.workspace_bytes``: the scores grow with
+    the chunk, the chunk states shrink) written and read once."""
+    from ..kernels.ssd_scan import layout, workspace_bytes
+
+    divisors = {d for i in range(1, int(seq ** 0.5) + 1) if seq % i == 0
+                for d in (i, seq // i)}
+    chunks = tuple((c,) for c in sorted(divisors) if c % 4 == 0 or c == seq)
+
+    def charge(sizes):
+        return layout(sizes["ssd"][0]).smem_bytes
+
+    def words(sizes):
+        ws = workspace_bytes(1, seq, 1, dh, n, sizes["ssd"][0])
+        return seq * (2 * dh + 1 + 2 * n) + 2 * sum(ws.values()) // 4
+
+    def certify(plan, device):
+        return resilience.certify_scan_plan(seq, n, dh,
+                                            _one(plan, "ssd")[0],
+                                            device=device)
+
+    return KernelSpace(family=("ssd_scan.cuh",), space=(("ssd", chunks),),
+                       depth=2, context=(("n", n), ("dh", dh)),
+                       charge=charge, words=words, certify=certify)
 
 
 def select_filter_reduce_blocks(t: int, *, tier: Optional[Tier] = None,
@@ -2164,7 +2528,13 @@ def _paged_kernel_plan(max_len: int, d: int, group: Optional[int],
     kernel is priced, not timed: ``measure`` records a
     ``lower-unsupported`` fallback to this plan, as for a program no
     template takes.  Raises ``ValueError`` when the kernel cannot take
-    the shape or its bytes pass the budget."""
+    the shape or its bytes pass the budget.
+
+    With ``bucketing`` the plan rides the tuning cache: an exact hit
+    counts as the bucket layer's ``exact_hits``, anything else as a
+    miss, and the plan is recorded as its bucket's donor.  A cold
+    context is not warm-started: pricing every candidate costs what
+    re-pricing a donor would (nothing is lowered or measured here)."""
     from .codegen_cuda import (PD_DMAX, PD_GMAX, PD_KC, PD_STAGES,
                                pd_launch_group, pd_smem_bytes)
 
@@ -2189,6 +2559,22 @@ def _paged_kernel_plan(max_len: int, d: int, group: Optional[int],
     charge = {"kernel": "paged_decode.cuh", "stages": PD_STAGES,
               "kc": PD_KC, "g": g, "head_dim": d, "dtype": str(dtype),
               "smem_bytes": smem}
+    tc = _resolve_cache(o.cache) if o.bucketing else None
+    if tc is not None:
+        from . import buckets as buckets_mod
+        exact = pipeline_key(
+            paged_decode_pipeline(chunked, page_sizes[0], d),
+            vmem_budget=budget, device=target.kind,
+            extra=(("paged-kernel-exact",) + tuple(charge.items()),
+                   _tier_sig(tier)))
+        hit = tc.get(exact)
+        if hit is not None:
+            buckets_mod.note("exact_hits")
+            hit = dataclasses.replace(hit, key=exact)
+            _record_plan(hit, source="cache")
+            return (PAGED_LAYOUTS[hit.sizes["pd_layout"][0]],
+                    int(hit.sizes["pd_page"][0]), PD_KC, PD_STAGES), hit
+        buckets_mod.note("misses")
     prof = _resolve_profile(o.profile, target.kind)
     with telemetry.span("dse.paged_kernel_plan", max_len=max_len,
                         head_dim=d) as sp:
@@ -2226,6 +2612,12 @@ def _paged_kernel_plan(max_len: int, d: int, group: Optional[int],
             pruned=counters["pruned"], depths={"pd_kv": PD_STAGES}, key=key)
         sp.set(source="explored", layout=layout, page_size=ps,
                smem_bytes=smem)
+    if tc is not None:
+        tc.put(exact, plan)
+        buckets_mod.record_kernel_plan(
+            "paged_decode.cuh", {"pd_kv": (chunked,)}, plan, tc,
+            tier=tier, device=target.kind,
+            context=(("g", g), ("head_dim", d), ("dtype", str(dtype))))
     _record_plan(plan, source="explored", enumerated=plan.explored,
                  pruned={"vmem": plan.pruned}, charge=charge)
     return (layout, int(ps), PD_KC, PD_STAGES), plan

@@ -18,9 +18,8 @@ here so this module stays a leaf import; ``dse`` re-exports them.  The
 on-chip budget has no fixed default: ``vmem_budget=None`` means the
 on-chip bytes of the tier a DSE call plans for (``cost.Tier``).
 
-``bucketing`` (shape-bucketed warm starts) is a field as in the
-reference, but its layer is not part of the port yet: resolving it to
-true raises ``NotImplementedError``.
+``bucketing=True`` turns on shape-bucketed warm starts
+(``core.buckets``), as in the reference.
 """
 from __future__ import annotations
 
@@ -87,7 +86,7 @@ _DEFAULTS: dict = {
     "repeat": MEASURE_REPEAT,
     "depths": DEPTHS,
     "policy": None,         # None -> resilience.default_policy()
-    "bucketing": False,     # shape-bucketed warm starts: not ported yet
+    "bucketing": False,     # shape-bucketed warm starts (core.buckets)
     "trace": False,         # telemetry tracing spans (telemetry.py)
 }
 
@@ -95,16 +94,6 @@ _POLICY_VARS = ("REPRO_TIMEOUT_S", "REPRO_RETRIES", "REPRO_BACKOFF_S",
                 "REPRO_CERTIFY")
 
 _TRUTHY = ("1", "true", "on", "yes")
-
-
-def refuse_bucketing(bucketing) -> None:
-    """Raise for ``bucketing=True``: the shape-bucket warm-start layer
-    (the reference's ``core/buckets``) is the one part of the tuning
-    runtime the port does not run yet."""
-    if bucketing:
-        raise NotImplementedError(
-            "bucketing: shape-bucketed warm starts arrive with the next "
-            "tuning-runtime slice (ROADMAP §1 step 3)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,8 +110,8 @@ class Options:
     (None or ``"top_k"``), ``top_k``, ``timing_db`` (None / False /
     path / TimingDB), ``profile`` (None persisted / False uncalibrated
     / object), ``warmup``, ``repeat``, ``depths``, ``policy``
-    (resilience.Policy), ``bucketing`` (refused) and ``trace`` (telemetry
-    spans, ``core.telemetry``).
+    (resilience.Policy), ``bucketing`` (``core.buckets``) and ``trace``
+    (telemetry spans, ``core.telemetry``).
     """
 
     vmem_budget: Any = UNSET
@@ -152,7 +141,7 @@ class Options:
         ``REPRO_RETRIES``     } ``policy`` (built via
         ``REPRO_BACKOFF_S``   } ``resilience.default_policy`` when any
         ``REPRO_CERTIFY``    /  of the four is set)
-        ``REPRO_BUCKETING``  ``bucketing`` (1/true/on/yes; refused)
+        ``REPRO_BUCKETING``  ``bucketing`` (1/true/on/yes)
         ``REPRO_TRACE``      ``trace`` (1/true/on/yes enables spans)
         ===================  ============================================
 
@@ -200,8 +189,7 @@ class Options:
         """``UNSET`` fields replaced by the built-in defaults, with the
         value-level normalization of the keyword arguments: ``measure``
         in (None, False, "") -> None (else must be ``"top_k"``),
-        ``depths`` coerced to a tuple of ints.  ``bucketing`` true
-        raises ``NotImplementedError``."""
+        ``depths`` coerced to a tuple of ints."""
         kw = {f.name: getattr(self, f.name)
               for f in dataclasses.fields(self)}
         for k, v in kw.items():
@@ -215,5 +203,4 @@ class Options:
         kw["depths"] = tuple(int(d) for d in kw["depths"])
         kw["bucketing"] = bool(kw["bucketing"])
         kw["trace"] = bool(kw["trace"])
-        refuse_bucketing(kw["bucketing"])
         return Options(**kw)

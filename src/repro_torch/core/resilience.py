@@ -705,22 +705,23 @@ def tolerances(dtype) -> Tuple[float, float]:
     return (0.0, 0.0)
 
 
-def _outputs_match(got, want) -> Tuple[bool, str]:
+def _outputs_match(got, want, dtype=None) -> Tuple[bool, str]:
     """``got`` against ``want`` (tensors on one device, or arrays) at
-    ``tolerances`` of ``want``'s type."""
+    ``tolerances`` of ``dtype``, else of ``want``'s type."""
     import torch
 
     got = torch.as_tensor(got)
     want = torch.as_tensor(want).to(got.device)
     if tuple(got.shape) != tuple(want.shape):
         return False, f"shape {tuple(got.shape)} != {tuple(want.shape)}"
-    rtol, atol = tolerances(want.dtype)
+    rtol, atol = tolerances(want.dtype if dtype is None else dtype)
     g, w = got.double(), want.double()
     if bool(torch.allclose(g, w, rtol=rtol, atol=atol, equal_nan=True)):
         return True, "ok"
     err = float((g - w).abs().max()) if g.numel() else 0.0
     return False, (f"max_abs_err={err:.3e} beyond rtol={rtol} "
-                   f"atol={atol} for dtype {_dtype_name(want.dtype)}")
+                   f"atol={atol} for dtype "
+                   f"{_dtype_name(want.dtype if dtype is None else dtype)}")
 
 
 def _first(v):
@@ -802,6 +803,97 @@ def certify_pipeline_plan(pipe, plan, *,
                 return False, f"output {name!r}: {why}"
         sp.set(ok=True)
         return True, "fused-vs-unfused: ok"
+
+
+def _on_own_stream(dev, fn):
+    """``fn()`` on a stream of its own on a CUDA ``dev``, synchronized
+    before it returns (a background re-tune leaves no work in flight
+    behind its certificate); on the CPU as it is."""
+    import torch
+
+    if dev.type != "cuda":
+        return fn()
+    stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        out = fn()
+    stream.synchronize()
+    return out
+
+
+def certify_attention_plan(sq: int, sk: int, d: int, group: int,
+                           dtype: str, blocks: Tuple[int, int], *,
+                           device=None, seed: int = 0) -> Tuple[bool, str]:
+    """Validate a plan of the hand kernel ``flash_attention``: the
+    kernel at the plan's packed-row tile (``blocks[0]``; ``blocks[1]``
+    is the kernel's fixed 64-key chunk) on
+    seeded causal inputs of one kv head of ``group`` query heads, ``sq``
+    queries over ``sk`` keys of head dim ``d`` in ``dtype``, against
+    the ``ref.attention`` oracle in float32 at ``dtype``'s tolerances,
+    on ``device`` (the card unless the caller names another; its own
+    stream, synchronized)."""
+    import torch
+
+    from ..kernels import flash_attention as fa
+    from ..kernels import ref
+    from ..device import resolve
+
+    dev = resolve(device)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen).to(dev, dt)
+               for shape in ((1, group, sq, d), (1, 1, sk, d),
+                             (1, 1, sk, d)))
+    tile_q = blocks[0]
+    with telemetry.span("resilience.certify", kind="attention",
+                        key=f"{sq}x{sk}x{d}") as sp:
+        inject("certify", "attention")
+
+        def run():
+            # the kernel takes the plan's tile; its keys come in chunks
+            # of block_k whatever the blocks, which only the plain
+            # version reads (one block of all keys here)
+            got = fa.flash_attention(q, k, v, causal=True, block_q=sq,
+                                     block_k=sk, tile_q=tile_q)
+            return got, ref.attention(q.float(), k.float(), v.float(),
+                                      causal=True)
+        got, want = _on_own_stream(dev, run)
+        ok, why = _outputs_match(got.float(), want, dtype=dtype)
+        sp.set(ok=ok)
+        return ok, f"flash_attention-vs-oracle: {why}"
+
+
+def certify_scan_plan(seq: int, n: int, dh: int, chunk: int, *,
+                      device=None, seed: int = 0) -> Tuple[bool, str]:
+    """Validate a plan of the hand kernel ``ssd_scan``: the kernel at
+    ``chunk`` on seeded float32 inputs (one batch row, two heads of
+    ``dh``, state ``n``, ``seq`` steps) against the sequential
+    ``ref.ssd_scan`` recurrence at float32's tolerances, on ``device``
+    (the card unless the caller names another; its own stream,
+    synchronized)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ..kernels import ref
+    from ..kernels import ssd_scan as ssd
+    from ..device import resolve
+
+    dev = resolve(device)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((1, seq, 2, dh), generator=gen)
+    dt = F.softplus(torch.randn((1, seq, 2), generator=gen)) * 0.1
+    A = -F.softplus(torch.randn((2,), generator=gen)) - 0.1
+    B, C = (torch.randn((1, seq, n), generator=gen) for _ in range(2))
+    x, dt, A, B, C = (t.to(dev) for t in (x, dt, A, B, C))
+    with telemetry.span("resilience.certify", kind="scan",
+                        key=f"{seq}x{n}x{dh}") as sp:
+        inject("certify", "scan")
+        got, want = _on_own_stream(dev, lambda: (
+            ssd.ssd_scan(x, dt, A, B, C, chunk=chunk),
+            ref.ssd_scan(x, dt, A, B, C)))
+        ok, why = _outputs_match(got, want, dtype="float32")
+        sp.set(ok=ok)
+        return ok, f"ssd_scan-vs-oracle: {why}"
 
 
 def certify_guarded(certify_fn: Callable[[], Tuple[bool, str]], *,

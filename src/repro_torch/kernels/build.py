@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
@@ -38,6 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one build or load at a time: a background re-tune (core.buckets) may
+# build the library the foreground is about to load
+_LOCK = threading.RLock()
 
 
 def build_dir() -> Path:
@@ -76,6 +80,11 @@ def compile_all(items: Sequence[Tuple[str, str]]) -> List[Path]:
     """Build every ``(name, source)`` not yet built, one nvcc per source,
     all started together.  Returns the library paths in order; raises
     with nvcc's output if any build fails."""
+    with _LOCK:
+        return _compile_all(items)
+
+
+def _compile_all(items: Sequence[Tuple[str, str]]) -> List[Path]:
     out = [library_path(name, src) for name, src in items]
     todo = []
     for (name, src), so in zip(items, out):
@@ -114,11 +123,12 @@ compile_all.builds = 0   # nvcc processes started
 
 def load(name: str, source: str) -> ctypes.CDLL:
     """The loaded library for ``source``, building it first if needed."""
-    (so,) = compile_all([(name, source)])
-    key = str(so)
-    if key not in _LIBS:
-        _LIBS[key] = ctypes.CDLL(key)
-    return _LIBS[key]
+    with _LOCK:
+        (so,) = compile_all([(name, source)])
+        key = str(so)
+        if key not in _LIBS:
+            _LIBS[key] = ctypes.CDLL(key)
+        return _LIBS[key]
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
@@ -195,7 +205,10 @@ class Library:
     def __call__(self, fn: str, *args) -> None:
         """Call the entry point ``fn``; raise on a CUDA error."""
         if self._lib is None:
-            self._lib = bind(load(self.name, self.source), self.argtypes)
+            with _LOCK:
+                if self._lib is None:
+                    self._lib = bind(load(self.name, self.source),
+                                     self.argtypes)
         check(self._lib, getattr(self._lib, fn)(*args), f"{self.name} {fn}")
 
     def persistent_ctas(self, dev: torch.device, variant: int, smem: int,

@@ -58,6 +58,18 @@ extern "C" int flash_attention_launch(
                                        use_window, window, splits, s);
 }
 
+extern "C" int flash_attention_smem(int wgmma, int tile_rows, int d,
+                                    int* bytes) {
+  if (wgmma)
+    *bytes = d <= 64 ? (tile_rows == 128 ? fa::WLayout<64, 2>::SMEM
+                                         : fa::WLayout<64, 1>::SMEM)
+                     : (tile_rows == 128 ? fa::WLayout<128, 2>::SMEM
+                                         : fa::WLayout<128, 1>::SMEM);
+  else
+    *bytes = fa::smem_floats((d + 15) / 16 * 16) * (int)sizeof(float);
+  return 0;
+}
+
 extern "C" int flash_attention_combine(const float* pm, const float* pl,
                                        const float* pacc, void* out,
                                        long long rows, int d, int splits,
@@ -75,14 +87,28 @@ LIB = build.Library("flash_attention", SOURCE, {
     "flash_attention_launch": [_VP] * 7 + [_INT] * 7 + [ctypes.c_float]
     + [_INT] * 6 + [_VP],
     "flash_attention_combine": [_VP] * 4 + [ctypes.c_longlong] + [_INT] * 3
-    + [_VP]})
+    + [_VP],
+    "flash_attention_smem": [_INT] * 3 + [_VP]})
 
 
-def _auto_blocks(sq: int, sk: int, d: int, device,
-                 **tuning) -> Tuple[int, int]:
+def kernel_smem_bytes(which: str, tile_rows: int, d: int) -> int:
+    """The shared bytes a block of the ``which`` kernel allocates at
+    ``tile_rows`` packed rows and head dim ``d``, as the library reports
+    them (``WLayout<DP, NWG>::SMEM``, ``smem_floats``); builds the
+    library.  ``codegen_cuda.fa_smem_bytes`` is its Python twin, which
+    the DSE charges."""
+    n = ctypes.c_int(0)
+    LIB("flash_attention_smem", int(which == "wgmma"), int(tile_rows),
+        int(d), ctypes.byref(n))
+    return n.value
+
+
+def _auto_blocks(sq: int, sk: int, d: int, group: int, dtype: torch.dtype,
+                 device, **tuning) -> Tuple[int, int]:
     from .ops import resolve_plan
-    blocks, _ = resolve_plan("attention", sq, sk, d, device=device,
-                             **tuning)
+    blocks, _ = resolve_plan("attention", sq, sk, d, group,
+                             str(dtype).replace("torch.", ""),
+                             device=device, **tuning)
     return blocks
 
 
@@ -242,15 +268,23 @@ def variant(q_dtype: torch.dtype, k_dtype: torch.dtype,
 
 
 def launch_plan(b: int, hkv: int, group: int, sq: int, sk: int,
-                which: str, sms: int) -> Tuple[int, int, int]:
+                which: str, sms: int,
+                tile_q: Optional[int] = None) -> Tuple[int, int, int]:
     """``(tile_q, tiles, splits)`` of a launch on a card of ``sms`` SMs:
-    the packed rows per block (128 for wgmma when there are more than
-    64, else 64), the tiles per kv head, and how many parts each tile's
-    keys are split into.  When ``b * hkv * tiles`` blocks are under two
-    per SM, the keys split into enough parts for four blocks per SM (at
-    most one part per chunk)."""
+    the packed rows per block (``tile_q`` when given, which must be one
+    the kernel takes, ``codegen_cuda.fa_tiles``; else 128 for wgmma
+    when there are more than 64, else 64), the tiles per kv head, and
+    how many parts each tile's keys are split into.  When ``b * hkv *
+    tiles`` blocks are under two per SM, the keys split into enough
+    parts for four blocks per SM (at most one part per chunk)."""
+    from ..core.codegen_cuda import fa_tiles
+
     rows = group * sq
-    tile_q = 128 if which == "wgmma" and rows > 64 else 64
+    if tile_q is None:
+        tile_q = max(fa_tiles(which, rows))
+    elif tile_q not in fa_tiles(which, rows):
+        raise ValueError(f"tile_q {tile_q}: the {which} kernel takes "
+                         f"{fa_tiles(which, rows)} packed rows at {rows}")
     tiles = -(-rows // tile_q)
     ctas = b * hkv * tiles
     splits = 1
@@ -263,6 +297,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     scale: Optional[float] = None, block_q: int = 128,
                     block_k: int = 128, auto_tile: bool = False,
+                    tile_q: Optional[int] = None,
                     device=None, measure: Optional[str] = None,
                     policy=None, options=None,
                     cache=None) -> torch.Tensor:
@@ -275,10 +310,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     has q's type.  The blocks must divide Sq and Sk, as the TPU kernel
     requires; ``block_k`` sets the plain version's kv block.  The CUDA
     kernels tile the packed rows and stage keys 64 at a time whatever
-    the blocks (``launch_plan``; the same result up to rounding).  Runs
-    on ``device`` (default: where the tensors are, CUDA for arrays).
-    ``auto_tile=True`` replaces the blocks with the DSE plan.  Replaces
-    the TPU kernel ``flash_attention`` (reference
+    the blocks (``launch_plan``; the same result up to rounding), in
+    tiles of ``tile_q`` packed rows when given.  Runs on ``device``
+    (default: where the tensors are, CUDA for arrays).
+    ``auto_tile=True`` replaces the blocks with the DSE plan for the
+    tier of the inputs' device: on a GPU tier the kernel's own (the
+    tile it launches and its 64-key chunk, which need not divide Sq and
+    Sk).  Replaces the TPU kernel ``flash_attention`` (reference
     kernels/flash_attention.py)."""
     out_dtype = torch.as_tensor(q).dtype
     q, k, v = _inputs(q, k, v, device)
@@ -287,11 +325,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     group = hq // hkv
     scale = scale if scale is not None else d ** -0.5
     if auto_tile:
-        block_q, block_k = _auto_blocks(sq, sk, d, q.device,
+        block_q, block_k = _auto_blocks(sq, sk, d, group, q.dtype, q.device,
                                         measure=measure, policy=policy,
                                         options=options, cache=cache)
+        if q.device.type == "cuda":
+            tile_q = block_q      # the card's plan is the kernel's tile
     block_q, block_k = min(block_q, sq), min(block_k, sk)
-    if sq % block_q or sk % block_k:
+    if not auto_tile and (sq % block_q or sk % block_k):
         raise ValueError(f"blocks ({block_q}, {block_k}) must divide "
                          f"(sq, sk) = ({sq}, {sk})")
     if q.device.type == "cpu":
@@ -306,7 +346,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"{b * hkv} (batch, kv head) pairs: at most 65535")
     which = variant(q.dtype, k.dtype, v.dtype, d)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    tile_q, _, splits = launch_plan(b, hkv, group, sq, sk, which, sms)
+    tile_q, _, splits = launch_plan(b, hkv, group, sq, sk, which, sms,
+                                    tile_q)
     if which == "wgmma":
         q, k, v = (build.aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)

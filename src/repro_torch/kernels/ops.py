@@ -52,7 +52,10 @@ def resolve_plan(kind: str, *shape: int, tier=None, device=None,
     ``policy``, ``options`` and ``cache`` pass through to the DSE.
     Results are memoised in-process per (kind, shape, tier or device,
     tuning arguments) -- counted as ``ops.memo_hits`` -- so a kernel's
-    ``auto_tile=True`` call does no planning after its first.
+    ``auto_tile=True`` call does no planning after its first.  Plans
+    adapted from a shape bucket (``plan.warm_start``) are *not*
+    memoised: once the background re-tune promotes the exact-shape
+    winner, the next resolve picks it up from the cache.
     """
     from ..core import dse, telemetry
 
@@ -68,11 +71,13 @@ def resolve_plan(kind: str, *shape: int, tier=None, device=None,
     if hit is not None:
         telemetry.count("ops.memo_hits")
         return hit
-    with telemetry.span("ops.resolve_plan", kind=kind, shape=list(shape)):
+    with telemetry.span("ops.resolve_plan", kind=kind,
+                        shape=list(shape)) as sp:
         result = getattr(dse, _SELECTORS[kind])(
             *shape, tier=dse.tier_of(tier, device), device=device,
             measure=measure, policy=policy, options=options, cache=cache)
-    if key is not None:
+        sp.set(warm_start=bool(getattr(result[1], "warm_start", False)))
+    if key is not None and not getattr(result[1], "warm_start", False):
         _PLAN_MEMO[key] = result
     return result
 

@@ -26,8 +26,20 @@ as the reference's spans (``serve.prefill``, ``serve.decode_step``,
 spans time the host and add no synchronization.  Runs on the card
 unless ``device="cpu"``.
 
-Not yet ported: the shape-bucket tuning layer (``bucketing=True`` raises,
-ROADMAP §1 step 3) and the recurrent, audio and VLM families (step 4).
+``--prompt-lens 24,100,100,360`` serves a mixed batch: requests are
+grouped by prompt length and each group prefills in one call.  With
+``bucketing=True`` (``--bucketing``) the tuning plans backing each
+group's attention shape resolve through the shape-bucket layer
+(``core.buckets``): a cold prompt length whose bucket is already tuned
+is served a warm-start plan immediately (zero foreground lowering)
+while a bounded background re-tune promotes the certified exact-shape
+winner into the cache; ``serve_continuous`` resolves its paged plan
+through the same layer, on the padded maximum length.
+
+``serve`` runs the dense, MoE, SSM and hybrid families (the recurrent
+ones prefill token by token, ``steps.make_cache_prefill_step``);
+``serve_continuous`` the dense and MoE families.  The audio and VLM
+families wait for their slice.
 """
 from __future__ import annotations
 
@@ -41,7 +53,6 @@ import torch
 
 from ..configs import ARCHS, get_config
 from ..core import resilience, telemetry
-from ..core.options import refuse_bucketing
 from ..device import resolve
 from ..models import model
 from ..models.transformer import check_family
@@ -70,9 +81,53 @@ def _prefill(prefill_fn, params, cache, prompt, ring: int,
 
 
 def _ring_len(cfg, max_len: int) -> int:
-    """Slot count of the KV ring buffer (= the prompt-chunk bound)."""
+    """Slot count of the KV ring buffer (= prompt-chunk bound); the
+    recurrent scan path has no ring, so any chunk length works."""
     check_family(cfg)
-    return model.cache_specs(cfg, 1, max_len)["k"].shape[3]
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
+        return model.cache_specs(cfg, 1, max_len)["k"].shape[3]
+    return max_len
+
+
+def _resolve_group_plans(cfg, lengths: Sequence[int], gen: int,
+                         device=None) -> List[Dict]:
+    """Resolve the DSE attention plan for each prompt-length group
+    through the shape-bucket layer, for the tier of ``device`` (the
+    kernel's own plan on a GPU tier: packed rows of the config's group,
+    its type).  Returns per-group provenance: did the plan come from the
+    exact tuning cache, a bucket warm start, or a fresh exploration?
+    Each group runs with its own ``ln + gen`` cache, so the KV extent is
+    per group -- not the global ``max(lens) + gen``.  The last row holds
+    this call's bucket counters (``buckets.delta``) and hit rate."""
+    from ..core import buckets
+    from ..core.options import Options
+    from ..kernels import ops
+
+    opts = Options(bucketing=True)
+    head_dim = cfg.head_dim or (cfg.d_model // max(cfg.n_heads, 1))
+    group = cfg.n_heads // max(cfg.n_kv_heads, 1)
+    # snapshot at entry: the process-wide bucket counters accumulate
+    # across serve invocations, so per-call hit rates come from the
+    # delta, not the raw totals
+    before = buckets.snapshot()
+    rows = []
+    for plen in lengths:
+        t0 = time.time()
+        _, plan = ops.resolve_plan("attention", int(plen), int(plen + gen),
+                                   int(head_dim), group, cfg.dtype,
+                                   device=device, options=opts)
+        rows.append({
+            "prompt_len": int(plen),
+            "resolve_s": time.time() - t0,
+            "warm_start": bool(plan.warm_start),
+            "bucket": plan.bucket,
+            "cached": bool(plan.cached),
+            "sizes": {k: tuple(v) for k, v in plan.sizes.items()},
+        })
+    d = buckets.delta(before)
+    rows.append({"bucket_stats": d,
+                 "bucket_hit_rate": buckets.delta_hit_rate(d)})
+    return rows
 
 
 def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
@@ -83,10 +138,22 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
     tokens (requests keep their input order even when mixed prompt
     lengths are re-grouped internally).  ``params`` defaults to
     ``model.init_params(cfg, seed)``; ``stats_out``, when given, is
-    filled with prefill/decode wall times."""
-    refuse_bucketing(bucketing)
+    filled with prefill/decode wall times, each request's prefill
+    greedy token (``"first_tokens"``: the token its first decode step
+    takes) and, with ``bucketing``, the groups' plan provenance
+    (``_resolve_group_plans``) under ``"plans"``."""
+    return _serve(get_config(arch, smoke=smoke), batch, prompt_len, gen,
+                  seed=seed, prompt_lens=prompt_lens, bucketing=bucketing,
+                  stats_out=stats_out, params=params, device=device)
+
+
+def _serve(cfg, batch: int, prompt_len: int, gen: int, *, seed: int = 0,
+           prompt_lens: Optional[Sequence[int]] = None,
+           bucketing: bool = False, stats_out: Optional[Dict] = None,
+           params=None, device=None) -> np.ndarray:
+    """``serve`` of the model ``cfg`` (a config the caller may have cut,
+    as chip_smoke.py cuts one's depth); the arguments are ``serve``'s."""
     dev = resolve(device)
-    cfg = get_config(arch, smoke=smoke)
     check_family(cfg)
     if params is None:
         params = model.init_params(cfg, seed, dev)
@@ -108,7 +175,14 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
     for r, ln in enumerate(lens):
         groups.setdefault(ln, []).append(r)
 
+    plans = None
+    if bucketing:
+        plans = _resolve_group_plans(cfg, sorted(groups), gen, device=dev)
+        for row in plans:
+            print("plan:", row)
+
     out = np.zeros((batch, gen), np.int64)
+    first = np.zeros(batch, np.int64)     # each prefill's greedy token
     prefill_s = decode_s = 0.0
     for ln, rows in sorted(groups.items()):
         gb = len(rows)
@@ -124,6 +198,7 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
         dt = time.perf_counter() - t0
         prefill_s += dt
         telemetry.observe("serve.prefill_s", dt)
+        first[rows] = nxt.cpu().numpy()
 
         group_out = []
         t0 = time.perf_counter()
@@ -145,6 +220,9 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
     if stats_out is not None:
         stats_out.update(prefill_s=prefill_s, decode_s=decode_s,
                          ms_per_token=decode_s / max(batch * gen, 1) * 1e3)
+        stats_out["first_tokens"] = first
+        if plans is not None:
+            stats_out["plans"] = plans
     return out
 
 
@@ -244,7 +322,8 @@ def serve_continuous(arch: str, smoke: bool, slots: int, gen: int,
     ``use_kernel`` and ``certify`` the fused kernel is certified against
     the ``decode_step`` oracle first, under ``policy`` (a
     ``resilience.Policy``; its deadline and retry), and a mismatch
-    raises.  ``params``
+    raises.  ``bucketing`` resolves the plan through the shape-bucket
+    layer on the padded maximum length.  ``params``
     defaults to ``model.init_params(cfg, seed)``; ``dtype`` (say
     "float32") replaces the config's type.
 
@@ -275,12 +354,16 @@ def _serve_continuous(cfg, slots: int, gen: int, *, seed: int = 0,
     ``serve_continuous``'s.  The paged plan is sized for ``cfg``'s
     group (query heads per kv head) and type."""
     from ..core import cost as cost_mod
+    from ..core.options import Options
     from ..kernels import ops
     from ..models import paged
 
-    refuse_bucketing(bucketing)
     dev = resolve(device)
     check_family(cfg)
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"continuous paged serving supports dense/moe attention "
+            f"families, not {cfg.family}")
     if params is None:
         params = model.init_params(cfg, seed, dev)
     lens = list(prompt_lens) if prompt_lens else [prompt_len] * slots
@@ -290,9 +373,13 @@ def _serve_continuous(cfg, slots: int, gen: int, *, seed: int = 0,
     head_dim = cfg.head_dim or (cfg.d_model // max(cfg.n_heads, 1))
     max_ctx = max(lens) + gen
 
+    # layout x page_size x block resolved jointly by the DSE (bucketed
+    # on the padded max length when bucketing is on)
+    opts = Options(bucketing=True) if bucketing else None
     (sel_layout, sel_ps, blk, depth), plan = ops.resolve_plan(
         "paged_decode", int(max_ctx), int(head_dim),
-        cfg.n_heads // max(cfg.n_kv_heads, 1), cfg.dtype, device=dev)
+        cfg.n_heads // max(cfg.n_kv_heads, 1), cfg.dtype, device=dev,
+        options=opts)
     layout = layout or sel_layout
     page_size = int(page_size or sel_ps)
 
@@ -439,8 +526,8 @@ def main(argv: Optional[Sequence[str]] = None):
                          "(mixed batch; overrides --prompt-len)")
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--bucketing", action="store_true",
-                    help="shape-bucket warm starts (not yet ported: "
-                         "raises)")
+                    help="resolve each group's attention plan through "
+                         "the shape-bucket warm-start layer")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over a paged KV pool: "
                          "--batch is the slot count, --prompt-lens the "

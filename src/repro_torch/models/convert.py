@@ -14,8 +14,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .model import param_shapes
-from .transformer import dtype_of
+from .model import param_dtype, param_shapes
 
 
 def tensor_from_numpy(a: np.ndarray, dtype: torch.dtype,
@@ -34,9 +33,10 @@ def tensor_from_numpy(a: np.ndarray, dtype: torch.dtype,
 def params_from_numpy(params: Dict[str, np.ndarray], cfg: ModelConfig,
                       device=None) -> Dict[str, torch.Tensor]:
     """The reference's parameters as the port's: every name of
-    ``param_shapes(cfg)`` with its shape, in the config's type, on
-    ``device`` (CUDA unless said otherwise).  Raises on a missing,
-    extra or misshapen parameter."""
+    ``param_shapes(cfg)`` with its shape and type (``model.param_dtype``:
+    the config's, but the Mamba blocks' float32 ``A_log``, ``D`` and
+    ``dt_bias``), on ``device`` (CUDA unless said otherwise).  Raises
+    on a missing, extra or misshapen parameter."""
     from ..device import resolve
 
     dev = resolve(device)
@@ -49,5 +49,5 @@ def params_from_numpy(params: Dict[str, np.ndarray], cfg: ModelConfig,
         a = np.asarray(params[name])
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {a.shape} != {shape}")
-        out[name] = tensor_from_numpy(a, dtype_of(cfg), dev)
+        out[name] = tensor_from_numpy(a, param_dtype(cfg, name), dev)
     return out

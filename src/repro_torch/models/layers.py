@@ -2,12 +2,12 @@
 reference's ``models/layers.py`` in PyTorch; its ``scan_layers`` is
 ``transformer.super_blocks``' loop).
 
-``causal_conv1d`` (Mamba) and ``softmax_xent`` (training) arrive with
-the slices that use them.
+``causal_conv1d`` is Mamba's depthwise causal conv; ``softmax_xent``
+(training) arrives with the training slice.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +19,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
     return (x * (1.0 + w.float())).to(dt)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the Mamba blocks run it: x times the logistic
+    ``1 / (1 + exp(-x))``, each operation in x's type (in bfloat16 each
+    rounds, as the reference's block does; ``F.silu`` rounds once and
+    differs from it by an ulp in a third of the elements).  The dense
+    FFN keeps ``F.silu``, which is what the reference's fused serving
+    step computes there."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 def _squared_relu(x: torch.Tensor) -> torch.Tensor:
@@ -71,3 +81,23 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.bfloat16,
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=device)
     return (w * 0.02).to(dtype)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv (Mamba).  x: (B, S, C); w: (K, C).
+
+    Returns (y, new_state) where state is the last K-1 inputs (zeros
+    before the first); y has x's type, each tap's product and sum in
+    it, as the reference's."""
+    k = w.shape[0]
+    if state is None:
+        pad = torch.zeros(x.shape[:-2] + (k - 1, x.shape[-1]),
+                          dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=-2)                 # (B, S+K-1, C)
+    s = x.shape[-2]
+    ys = sum(xp[..., i:i + s, :] * w[i] for i in range(k))
+    new_state = xp[..., xp.shape[-2] - (k - 1):, :]
+    return ys.to(x.dtype), new_state

@@ -1,13 +1,13 @@
-"""Unified model API (the reference's ``models/model.py``), dense and
-MoE families:
+"""Unified model API (the reference's ``models/model.py``): the dense,
+MoE, SSM (Mamba-2) and hybrid (Zamba-2) families behind one interface.
 
     shapes  = model.param_shapes(cfg)
     params  = model.init_params(cfg, seed, device)
     logits  = model.forward(params, cfg, batch)
     logits, cache = model.decode_step(params, cfg, cache, tokens, idx)
 
-The SSM, hybrid, audio and VLM families raise ``NotImplementedError``
-until ROADMAP §1 step 4.
+The audio and VLM families (multi-codebook heads, prefix embeddings)
+raise ``NotImplementedError`` until their slice (ROADMAP §1 item 3).
 """
 from __future__ import annotations
 
@@ -15,23 +15,85 @@ from typing import Dict
 
 import torch
 
+from . import hybrid as hy
+from . import layers as L
+from . import ssm as ssm_mod
 from . import transformer as tr
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
 Batch = Dict[str, torch.Tensor]
 
+_RECURRENT = ("ssm", "hybrid")
+
 
 def param_shapes(cfg: ModelConfig):
+    tr.check_family(cfg)
+    if cfg.family == "ssm":
+        d, v = cfg.d_model, cfg.padded_vocab
+        shapes = {
+            "embed": ((v, d), "embed"),
+            "lm_head": ((d, v), "dense"),
+            "final_norm": ((d,), "zeros"),
+        }
+        shapes.update(ssm_mod.block_param_shapes(cfg, cfg.n_layers, "m_"))
+        return shapes
+    if cfg.family == "hybrid":
+        return hy.param_shapes(cfg)
     return tr.param_shapes(cfg)
 
 
+def param_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """A parameter's type: the Mamba blocks' ``A_log``, ``D`` and
+    ``dt_bias`` are float32, everything else the config's type."""
+    if name.startswith("m_") and name[2:] in ssm_mod.FLOAT32_PARAMS:
+        return torch.float32
+    return tr.dtype_of(cfg)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
-    return tr.init_params(cfg, seed, device)
+    """Random weights from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``, drawn in sorted parameter order (other numbers than the
+    reference's ``jax.random`` gives); the Mamba decays start stable as
+    the reference's (``A_log`` = -0.5: A in [-e, -1/e])."""
+    if cfg.family not in _RECURRENT:
+        return tr.init_params(cfg, seed, device)
+    from ..device import resolve
+
+    dev = resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, (shape, kind) in sorted(param_shapes(cfg).items()):
+        dt = param_dtype(cfg, name)
+        if kind == "zeros":
+            out[name] = torch.zeros(shape, dtype=dt, device=dev)
+        elif kind == "embed":
+            out[name] = L.embed_init(gen, shape, dt, dev)
+        else:
+            in_axis = -2 if len(shape) >= 2 else 0
+            out[name] = L.dense_init(gen, shape, in_axis, dt, dev)
+    out["m_A_log"].fill_(-0.5)
+    return out
+
+
+def _ssm_forward(params: Params, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens.long()]
+    for layer in range(cfg.n_layers):
+        slc = {k: v[layer] for k, v in params.items() if k.startswith("m_")}
+        x, _ = ssm_mod.block_forward(slc, x, cfg, prefix="m_")
+    x = L.rms_norm(x, params["final_norm"])
+    return x @ params["lm_head"]
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Batch) -> torch.Tensor:
-    return tr.forward(params, cfg, batch["tokens"])
+    tokens = batch["tokens"]
+    tr.check_family(cfg)
+    if cfg.family == "ssm":
+        return _ssm_forward(params, cfg, tokens)
+    if cfg.family == "hybrid":
+        return hy.forward(params, cfg, tokens)
+    return tr.forward(params, cfg, tokens)
 
 
 def mask_vocab_pad(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -46,14 +108,53 @@ def mask_vocab_pad(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> Dict[str, torch.Tensor]:
-    return tr.init_cache(cfg, batch, max_len, device=device)
+               device=None) -> Dict:
+    """The decode cache: ``{"k", "v"}`` for the attention families,
+    ``{"ssm": {"conv", "ssm"}}`` for the SSM family, both for the
+    hybrid.  Made on ``device`` (CUDA unless said otherwise)."""
+    tr.check_family(cfg)
+    if cfg.family not in _RECURRENT:
+        return tr.init_cache(cfg, batch, max_len, device=device)
+    from ..device import resolve
+
+    dev = resolve(device)
+    if cfg.family == "ssm":
+        return {"ssm": ssm_mod.init_state(cfg, batch, device=dev)}
+    return hy.init_cache(cfg, batch, max_len, device=dev)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
+    tr.check_family(cfg)
+    if cfg.family == "ssm":
+        return {"ssm": ssm_mod.state_specs(cfg, batch)}
+    if cfg.family == "hybrid":
+        return hy.cache_specs(cfg, batch, max_len)
     return tr.cache_specs(cfg, batch, max_len)
+
+
+def _ssm_decode(params: Params, cfg: ModelConfig, cache: Dict,
+                tokens: torch.Tensor, index: int):
+    x = params["embed"][tokens.long()]
+    conv, state = cache["ssm"]["conv"], cache["ssm"]["ssm"]
+    for layer in range(cfg.n_layers):
+        slc = {k: v[layer] for k, v in params.items() if k.startswith("m_")}
+        x, st = ssm_mod.block_forward(
+            slc, x, cfg, state={"conv": conv[layer], "ssm": state[layer]},
+            prefix="m_")
+        conv[layer] = st["conv"]
+        state[layer] = st["ssm"]
+    x = L.rms_norm(x, params["final_norm"])
+    return x @ params["lm_head"], cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
                 tokens: torch.Tensor, index: int):
+    """One decode step (the attention families also take a block of
+    tokens; the recurrent ones one token, (B, 1)).  The cache is
+    updated in place; returns ``(logits, cache)``."""
+    tr.check_family(cfg)
+    if cfg.family == "ssm":
+        return _ssm_decode(params, cfg, cache, tokens, index)
+    if cfg.family == "hybrid":
+        return hy.decode_step(params, cfg, cache, tokens, index)
     return tr.decode_step(params, cfg, cache, tokens, index)

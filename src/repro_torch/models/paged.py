@@ -252,6 +252,9 @@ def paged_decode_step(params: Params, cfg: ModelConfig,
     run in the reference's super-block order (``transformer.
     super_blocks``)."""
     check_family(cfg)
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"paged decode supports dense/moe, not {cfg.family}")
     x = _embed_tokens(params, cfg, tokens)
     table, lens = cache.page_table, cache.seq_lens
     layout, ps = cache.layout, cache.page_size

@@ -2,7 +2,7 @@
 
 Models call ``hint(x, "data", None, "model", None)`` as the reference's
 do.  The port runs on one card, so both hints are the identity until the
-distribution slice (ROADMAP §1 step 8) gives them a device mesh.
+distribution slice (ROADMAP §1) gives them a device mesh.
 """
 from __future__ import annotations
 

@@ -12,9 +12,11 @@ with a preallocated KV cache (sliding-window configs keep a ring buffer
 of ``min(window, max_len)``).
 
 The decode cache is written in place and returned (the reference's
-serving steps donate it).  Multi-codebook heads (audio), the VLM prefix
-and the recurrent families wait for ROADMAP §1 step 4; their configs
-raise ``NotImplementedError``.
+serving steps donate it).  The recurrent families live in ``models.ssm``
+and ``models.hybrid`` (whose shared block reuses ``_attn`` and
+``_dense_ffn``); multi-codebook heads (audio) and the VLM prefix wait
+for their slice (ROADMAP §1 item 3), and their configs raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,18 +38,18 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-FAMILIES = ("dense", "moe")   # the attention families the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid")   # the families the port runs
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for the families the port does not run yet (SSM, hybrid,
-    audio, VLM: multi-codebook heads and prefix embeddings)."""
+    """Raise for the families the port does not run yet (audio and VLM:
+    multi-codebook heads and prefix embeddings)."""
     if cfg.family not in FAMILIES or cfg.n_codebooks \
             or cfg.frontend_tokens or (cfg.family == "moe") \
             != bool(cfg.n_experts):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family arrives with the "
-            "LM-model slice (ROADMAP §1 step 4)")
+            "audio/VLM slice (ROADMAP §1 item 3)")
 
 
 # ----------------------------------------------------------------- shapes

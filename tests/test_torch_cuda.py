@@ -1197,14 +1197,98 @@ def test_flash_attention_auto_tile_and_ops_on_the_card():
     q, k, v = _randn(0, 1, 4, 256, 64), _randn(1, 1, 2, 256, 64), \
         _randn(2, 1, 2, 256, 64)
     ops.clear_plan_memo()
-    blocks, _ = ops.resolve_plan("attention", 256, 256, 64, device=q.device)
-    assert blocks == (128, 128)
+    # the card's plan is the kernel's own: float32 runs the FFMA kernel,
+    # whose tile is 64 packed rows, over 64-key chunks
+    blocks, _ = ops.resolve_plan("attention", 256, 256, 64, 2, "float32",
+                                 device=q.device)
+    assert blocks == (64, 64)
     before = fa.flash_attention.launches
     out = fa.flash_attention(q, k, v, auto_tile=True)
     assert ops.attention(q, k, v).is_cuda
     assert fa.flash_attention.launches == before + 2
     torch.testing.assert_close(out, ops.attention(q, k, v, use_kernel=False),
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 64, 8, 1024, 1024),
+                                   (4, 64, 8, 1, 4096),
+                                   (1, 32, 32, 300, 300)], ids=str)
+def test_flash_attention_auto_tile_at_head_dim_128(shape, dtype):
+    """At head dim 128 (qwen2-72b's 64 query / 8 kv heads, a decode step,
+    a ragged length) the card's plan is the kernel's own and launches:
+    the tile it plans is the one launched, against the plain version."""
+    _card()
+    from repro_torch.core import codegen_cuda as cc
+    b, hq, hkv, sq, sk = shape
+    q = _randn(0, b, hq, sq, 128, dtype=dtype)
+    k = _randn(1, b, hkv, sk, 128, dtype=dtype)
+    v = _randn(2, b, hkv, sk, 128, dtype=dtype)
+    ops.clear_plan_memo()
+    blocks, plan = ops.resolve_plan("attention", sq, sk, 128, hq // hkv,
+                                    str(dtype)[6:], device=q.device)
+    which = fa.variant(dtype, dtype, dtype, 128)
+    assert blocks[0] in cc.fa_tiles(which, hq // hkv * sq)
+    assert plan.vmem_bytes == cc.fa_smem_bytes(which, blocks[0], 128)
+    before = getattr(fa.flash_attention, f"{which}_launches")
+    out = fa.flash_attention(q, k, v, auto_tile=True)
+    torch.cuda.synchronize()
+    assert getattr(fa.flash_attention, f"{which}_launches") == before + 1
+    want = fa.flash_attention_plain(q, k, v, block_k=64).float()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [256, 4096])
+def test_ssd_auto_tile_at_state_128(seq):
+    """mamba2-370m's state (128) and head dim (64): the card's chunk,
+    charged its shared bytes, launches all four passes."""
+    _card()
+    x, dt, A, B, C = _ssd_inputs(2, seq, 4, 64, 128)
+    ops.clear_plan_memo()
+    chunk, plan = ops.resolve_plan("scan", seq, 128, 64, device=x.device)
+    assert seq % chunk == 0
+    assert plan.vmem_bytes == ssd.layout(chunk).smem_bytes
+    before = ssd.ssd_scan.launches
+    y = ssd.ssd_scan(x, dt, A, B, C, auto_tile=True)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 1
+    want = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    torch.testing.assert_close(y, want, rtol=2e-4,
+                               atol=2e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_warm_started_attention_plan_launches_and_certifies(tmp_path):
+    """A cold length in a tuned bucket is warm-started on the card onto a
+    tile the kernel launches; the background re-tune certifies it by
+    running the kernel, synchronized, and promotes the exact plan."""
+    _card()
+    from repro_torch.core import buckets, resilience
+    from repro_torch.core.options import Options
+    opts = Options(cache=str(tmp_path / "c.json"), bucketing=True)
+    dev = torch.device("cuda")
+    ops.clear_plan_memo()
+    ops.resolve_plan("attention", 100, 132, 128, 8, "bfloat16", device=dev,
+                     options=opts)
+    buckets.drain()
+    buckets.reset_stats()
+    resilience.LOG.reset()
+    blocks, warm = ops.resolve_plan("attention", 110, 142, 128, 8,
+                                    "bfloat16", device=dev, options=opts)
+    assert warm.warm_start
+    q = _randn(3, 1, 64, 110, 128, dtype=torch.bfloat16)
+    k = _randn(4, 1, 8, 142, 128, dtype=torch.bfloat16)
+    out = fa.flash_attention(q, k, k, auto_tile=True, options=opts)
+    want = fa.flash_attention_plain(q, k, k, block_k=64).float()
+    torch.testing.assert_close(out.float(), want, rtol=2e-2, atol=2e-2)
+    buckets.drain()
+    assert buckets.stats()["promotions"] >= 1, resilience.LOG.events()
+    _, exact = ops.resolve_plan("attention", 110, 142, 128, 8, "bfloat16",
+                                device=dev, options=opts)
+    assert exact.cached and not exact.warm_start
 
 
 def _ssd_inputs(b, s, h, dh, n, dtype=torch.float32):

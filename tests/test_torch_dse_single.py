@@ -113,11 +113,14 @@ def test_plan_json_crosses_packages(name, jbuild, tbuild):
 
 
 def test_tuning_runtime_arguments_raise(tmp_path):
-    """Only bucketing is refused; ``align`` and a cache path are taken
-    as the reference takes them."""
+    """Bucketing, ``align`` and a cache path are taken as the reference
+    takes them (a first bucketed call explores the shape)."""
     p = an.outerprod()[0]
-    with pytest.raises(NotImplementedError, match="tuning-runtime"):
-        dse.explore(p, tier=cost.TPU, bucketing=True)
+    got = dse.explore(p, tier=cost.TPU, bucketing=True,
+                      cache=str(tmp_path / "b.json"))
+    want = jdse.explore(jan.outerprod()[0], bucketing=True,
+                        cache=str(tmp_path / "jb.json"))
+    assert _fields(got) == _fields(want) and not got.warm_start
     with pytest.raises(ValueError, match="measure"):
         dse.explore(p, tier=cost.TPU, measure="all")
     got = dse.explore(p, tier=cost.TPU, align=8, cache=False)

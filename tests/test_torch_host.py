@@ -131,11 +131,14 @@ def test_h100_plans_fit_the_card(name):
 
 
 def test_tuning_runtime_arguments_raise(tmp_path, monkeypatch):
-    """Only bucketing is refused; measured mode runs on the card unless
-    the caller names the CPU; a cache path is a tuning cache."""
+    """Bucketing is taken as the reference takes it (a first call
+    explores); measured mode runs on the card unless the caller names
+    the CPU; a cache path is a tuning cache."""
     pipe = _pipes("tpchq6")[1]
-    with pytest.raises(NotImplementedError, match="tuning-runtime"):
-        dse.explore_pipeline(pipe, tier=TPU, bucketing=True)
+    bucketed = dse.explore_pipeline(pipe, tier=TPU, bucketing=True,
+                                    cache=str(tmp_path / "b.json"))
+    assert not bucketed.warm_start and bucketed.block == \
+        dse.explore_pipeline(pipe, tier=TPU, cache=False).block
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         dse.explore_pipeline(pipe, tier=TPU, measure="top_k")

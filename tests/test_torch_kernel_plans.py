@@ -6,9 +6,19 @@ modeled seconds bitwise -- at the reference's budget (16 MiB) and at
 the H100's (232,448 B).  The fixed point is the table below, which the
 reference gives at those shapes.  Also: the proxy programs' torch bodies
 evaluate as the reference's JAX bodies do, and the tuning-runtime
-arguments are refused.
+arguments (shape-bucketed warm starts among them) are taken.
+
+Under the H100's tier the attention and SSD selectors plan the hand
+kernels' own axes (``dse.KernelSpace``): a plan at every head dim (64,
+80, 128), prefill length (128..8192) and decode context (256..32,768),
+and at every SSD state (128, 64) and length (256..8192), each one the
+kernel launches and charged the shared bytes it allocates
+(``codegen_cuda.fa_smem_bytes``, ``ssd_scan.layout``), which equal the
+byte counts evaluated from ``flash_attention.cuh`` and ``ssd_scan.cuh``.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -91,15 +101,15 @@ def test_selectors_plan_for_the_card_off_the_card():
 @pytest.mark.parametrize("arg", ["cache", "measure", "policy", "options"])
 def test_selectors_refuse_the_tuning_runtime(name, shape, arg):
     """Every selector takes the tuning runtime's arguments (an analytic
-    plan is the same with or without a cache or a policy) and refuses
-    only shape-bucketed warm starts."""
+    plan is the same with or without a cache, a policy or shape-bucketed
+    warm starts, whose first call for a shape explores it)."""
     import functools
     call = functools.partial(getattr(dse, name), *shape, tier=cost.TPU)
     from repro_torch.core import resilience
     from repro_torch.core.options import Options
-    if arg == "options":      # bucketing: the one part still refused
-        with pytest.raises(NotImplementedError, match="tuning-runtime"):
-            call(options=Options(bucketing=True))
+    if arg == "options":      # bucketing: a miss explores, as without
+        blocks, plan = call(options=Options(bucketing=True))
+        assert blocks == call(cache=False)[0] and not plan.warm_start
         return
     if arg == "measure":      # validated as the reference validates it
         with pytest.raises(ValueError, match="measure"):
@@ -151,3 +161,159 @@ def test_proxy_programs_evaluate_as_the_reference():
         np.testing.assert_allclose(got, np.asarray(jex.execute(js, env)),
                                    rtol=2e-3, atol=2e-3)
         env[ts.name] = got
+
+
+# ------------------------------------- the hand kernels' own plans (H100)
+CSRC = Path(dse.__file__).resolve().parent.parent / "kernels" / "csrc"
+PREFILL = (128, 256, 512, 1024, 2048, 4096, 8192)
+DECODE = (256, 1024, 4096, 8192, 16384, 32768)
+
+
+def _c_to_py(expr: str) -> str:
+    expr = re.sub(r"(\w+) == (\d+) \? (\d+) : (\d+)",
+                  r"(\3 if \1 == \2 else \4)", expr)
+    return expr.replace("/", "//")
+
+
+def _fa_cuh_bytes(which: str, tile_rows: int, d: int) -> int:
+    """A block's shared bytes of ``flash_attention.cuh`` at head dim
+    ``d``, evaluated from its text: ``WLayout<DP, NWG>::SMEM`` for
+    wgmma (DP and NWG as ``launch_wgmma`` picks them), ``smem_floats``
+    x 4 for FFMA (DP as ``launch_ffma``'s table picks it)."""
+    text = (CSRC / "flash_attention.cuh").read_text()
+    env = {n: int(v) for n, v in
+           re.findall(r"^constexpr int (\w+) = (\d+);", text, re.M)}
+    env["TS"] = env["BR"] + 4
+    if which == "wgmma":
+        assert re.search(r"if \(d <= 64\)\s*return \(wide \? "
+                         r"&launch_wgmma_dp<64, 2> : &launch_wgmma_dp<64, 1>",
+                         text)
+        env.update(DP=64 if d <= 64 else 128, NWG=tile_rows // 64)
+        body = re.search(r"struct WLayout \{(.*?)\};", text, re.S).group(1)
+        for name, expr in re.findall(
+                r"static constexpr int (\w+) =\s*([^;]+);", body):
+            env[name] = eval(_c_to_py(" ".join(expr.split())), {}, env)
+        return env["SMEM"]
+    expr = re.search(r"constexpr int smem_floats\(int dp\) \{\s*"
+                     r"return ([^;]+);", text).group(1)
+    assert "by_dp[(d + 15) / 16 - 1]" in text
+    env["dp"] = -(-d // 16) * 16
+    return 4 * eval(_c_to_py(expr), {}, env)
+
+
+def _ssd_cuh_bytes(chunk: int) -> int:
+    text = (CSRC / "ssd_scan.cuh").read_text()
+    env = {}
+    for decl in re.findall(r"^constexpr int ([^;]+);", text, re.M):
+        if "sizeof" in decl:          # per-type strides: not in the sum
+            continue
+        for part in decl.split(","):
+            name, expr = part.split("=")
+            env[name.strip()] = eval(_c_to_py(expr), {}, env)
+    body = re.search(r"inline int smem_bytes\(int L\) \{\s*return "
+                     r"([^;]+);", text).group(1)
+    return eval(_c_to_py(body), {}, dict(env, L=chunk))
+
+
+def test_attention_charge_twin_is_the_kernels():
+    from repro_torch.core import codegen_cuda as cc
+    for d in range(8, 129, 8):
+        for tile in (64, 128):
+            assert cc.fa_smem_bytes("wgmma", tile, d) \
+                == _fa_cuh_bytes("wgmma", tile, d)
+    for d in range(1, 129):
+        assert cc.fa_smem_bytes("ffma", 64, d) == _fa_cuh_bytes("ffma", 64, d)
+    assert cc.fa_smem_bytes("wgmma", 128, 128) == 132_152
+    assert cc.fa_smem_bytes("ffma", 64, 128) == 119_808
+    with pytest.raises(ValueError):
+        cc.fa_smem_bytes("ffma", 128, 64)
+
+
+def test_scan_charge_twin_is_the_kernels():
+    from repro_torch.kernels.ssd_scan import layout
+    for chunk in (1, 4, 16, 64, 128, 256, 1000, 4096, 14000):
+        assert layout(chunk).smem_bytes == _ssd_cuh_bytes(chunk)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_plans_on_the_card_at_every_length(d, dtype):
+    """Prefill (group 8: qwen2-72b's 64 query / 8 kv heads; and group 1)
+    and decode (one query of each of a kv head's group) plan at every
+    length, on a tile the kernel takes, charged its bytes."""
+    from repro_torch.core import codegen_cuda as cc
+    which = "wgmma" if dtype == "bfloat16" else "ffma"
+    shapes = [(sq, sq, g) for sq in PREFILL for g in (1, 8)] \
+        + [(1, sk, g) for sk in DECODE for g in (1, 8)]
+    for sq, sk, group in shapes:
+        blocks, plan = dse.select_attention_blocks(
+            sq, sk, d, group, dtype, tier=cost.H100_SXM, cache=False)
+        assert blocks[0] in cc.fa_tiles(which, group * sq)
+        assert blocks[1] == cc.FA_BC
+        assert plan.vmem_bytes == _fa_cuh_bytes(which, blocks[0], d) \
+            <= H100_BUDGET
+        if which == "wgmma" and group * sq > 64:
+            assert blocks[0] == 128       # K and V read once per 128 rows
+
+
+def test_attention_plan_defaults_and_raises():
+    """Without a group or type the plan is float32's (the FFMA path) for
+    one query head; a head dim past the kernels' raises as the reference
+    raises where no candidate fits."""
+    from repro_torch.core import codegen_cuda as cc
+    blocks, plan = dse.select_attention_blocks(256, 256, 64,
+                                               tier=cost.H100_SXM,
+                                               cache=False)
+    assert blocks == (64, 64)
+    assert plan.vmem_bytes == cc.fa_smem_bytes("ffma", 64, 64)
+    with pytest.raises(ValueError, match="no tile candidate fits"):
+        dse.select_attention_blocks(64, 64, 144, tier=cost.H100_SXM,
+                                    cache=False)
+    with pytest.raises(ValueError, match="no tile candidate fits"):
+        dse.select_attention_blocks(4096, 4096, 128, 8, "bfloat16",
+                                    tier=cost.H100_SXM, cache=False,
+                                    vmem_budget=100_000)
+
+
+@pytest.mark.parametrize("n", [128, 64])
+@pytest.mark.parametrize("seq", [256, 512, 1024, 2048, 4096, 8192])
+def test_scan_plans_on_the_card_at_every_length(n, seq):
+    from repro_torch.kernels.ssd_scan import layout
+    chunk, plan = dse.select_scan_blocks(seq, n, 64, tier=cost.H100_SXM,
+                                         cache=False)
+    assert seq % chunk == 0 and chunk % 4 == 0
+    assert plan.vmem_bytes == layout(chunk).smem_bytes \
+        == _ssd_cuh_bytes(chunk) <= H100_BUDGET
+
+
+def test_scan_plan_raises_past_the_cards_chunk():
+    """A prime sequence past ~14,000 steps has only itself as a chunk,
+    whose cum, dt and w pass the card's shared memory: no plan."""
+    with pytest.raises(ValueError, match="no tile candidate fits"):
+        dse.select_scan_blocks(16411, 64, 64, tier=cost.H100_SXM,
+                               cache=False)
+    chunk, _ = dse.select_scan_blocks(13999, 64, 64, tier=cost.H100_SXM,
+                                      cache=False)
+    assert chunk == 13999
+
+
+def test_kernel_plans_are_priced_not_timed(monkeypatch):
+    """``measure="top_k"`` on the card's tier keeps the kernel's priced
+    plan and records a ``lower-unsupported`` fallback (the proxy is not
+    the kernel), lowering nothing."""
+    from repro_torch.core import codegen_cuda, resilience
+
+    def _boom(*a, **k):
+        raise AssertionError("lowered a proxy of a hand kernel")
+
+    monkeypatch.setattr(codegen_cuda, "lower_for_timing", _boom)
+    resilience.LOG.reset()
+    got = dse.select_attention_blocks(1024, 1024, 128, 8, "bfloat16",
+                                      tier=cost.H100_SXM, cache=False,
+                                      measure="top_k", device="cpu")
+    assert got[0] == dse.select_attention_blocks(
+        1024, 1024, 128, 8, "bfloat16", tier=cost.H100_SXM,
+        cache=False)[0]
+    assert not got[1].measured
+    assert any(e.kind == "lower-unsupported" and e.action == "fallback"
+               for e in resilience.LOG.events())

@@ -533,9 +533,11 @@ def test_resolve_plan_refuses_unknown_later_and_tuning_kinds():
     assert ops.resolve_plan("paged_decode", 128, 64, tier=cost.TPU)[0] \
         == jdse.select_paged_decode_blocks(128, 64, cache=False)[0]
     from repro_torch.core.options import Options
-    with pytest.raises(NotImplementedError, match="tuning-runtime"):
-        ops.resolve_plan("gemm", 512, 512, 512, device="cpu",
-                         options=Options(bucketing=True))
+    blocks, plan = ops.resolve_plan("gemm", 512, 512, 512, device="cpu",
+                                    options=Options(bucketing=True))
+    assert blocks == ops.resolve_plan("gemm", 512, 512, 512,
+                                      device="cpu", cache=False)[0]
+    assert not plan.warm_start
 
 
 @pytest.mark.parametrize("budget", [None, cost.H100_SXM.onchip_bytes])

@@ -361,3 +361,63 @@ def test_serve_and_private_serve_continuous_agree():
                                     device="cpu")
     np.testing.assert_array_equal(a, b)
     assert sa["page_size"] == sb["page_size"] and sa["steps"] == sb["steps"]
+
+
+def _reference_serve_row(jp, jcfg, prompt, served, gen):
+    """The reference's greedy logits (pad vocab masked, float32) for the
+    served token after ``served`` on ``serve``'s own path: the prompt
+    prefilled through ``_prefill`` (chunked at the KV ring, so a sliding
+    window's prompt longer than its ring prefills as the server
+    prefills it), then one decode step per token fed: the prompt's
+    greedy token, then ``served``."""
+    from repro.launch import steps as jsteps
+
+    ln = len(prompt)
+    cache = jmodel.init_cache(jcfg, 1, ln + gen)
+    nxt, cache = jserve._prefill(
+        jax.jit(jsteps.make_cache_prefill_step(jcfg)), jp, cache,
+        jnp.asarray(prompt[None], jnp.int32), jserve._ring_len(jcfg, ln + gen))
+    step = jax.jit(lambda p, c, t, i: jmodel.decode_step(p, jcfg, c, t, i))
+    logits = None
+    for i, tok in enumerate([int(nxt[0])] + [int(x) for x in served]):
+        logits, cache = step(jp, cache, jnp.asarray([[tok]], jnp.int32),
+                             jnp.int32(ln + i))
+    return torch.as_tensor(np.array(jmodel.mask_vocab_pad(
+        logits, jcfg)[0, -1].astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("lens", [(6, 4, 6), (40, 20, 40)], ids=str)
+def test_dense_cache_serve_matches_jax(arch, dtype, lens, monkeypatch):
+    """``serve`` (the dense cache, block prefill chunked at the ring:
+    40-token prompts pass Mixtral's 32-token window) returns the
+    reference's tokens on the same weights, in input order: float32
+    identical; bfloat16 identical up to a request's first step where the
+    reference's own logits tie at the top within the bfloat16 tolerance
+    (past it the request's context differs)."""
+    gen = 4
+    jcfg = jget_config(arch, smoke=True).with_(dtype=dtype)
+    monkeypatch.setattr(jserve, "get_config", lambda *a, **k: jcfg)
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = get_config(arch, smoke=True).with_(dtype=dtype)
+    tp = convert.params_from_numpy({k: np.asarray(v) for k, v in jp.items()},
+                                   cfg, "cpu")
+    want = jserve.serve(arch, True, 3, 6, gen, prompt_lens=lens)
+    got = serve.serve(arch, True, 3, 6, gen, prompt_lens=lens, params=tp,
+                      device="cpu")
+    assert got.shape == want.shape == (3, gen)
+    if dtype == "float32":
+        np.testing.assert_array_equal(got, want)
+        return
+    pool = np.random.RandomState(0).randint(0, cfg.vocab, (3, max(lens)))
+    ties = 0
+    for r, ln in enumerate(lens):
+        diff = np.flatnonzero(got[r] != want[r])
+        if not diff.size:
+            continue
+        t = int(diff[0])
+        row = _reference_serve_row(jp, jcfg, pool[r, :ln], want[r, :t], gen)
+        assert serve.near_best(row, int(got[r, t]), dtype), (r, t)
+        ties += 1
+    assert ties <= 1, ties

@@ -299,7 +299,7 @@ def test_paged_rejects_sliding_window_and_other_families():
         paged.PagedKVCache.init(dataclasses.replace(cfg, sliding_window=4),
                                 1, 8, page_size=4, device="cpu")
     ssm = get_config("mamba2-370m", smoke=True)
-    with pytest.raises(NotImplementedError, match="step 4"):
+    with pytest.raises(NotImplementedError, match="dense/moe"):
         paged.paged_decode_step({}, ssm, None,
                                 torch.zeros((1, 1), dtype=torch.int32))
 

@@ -232,12 +232,21 @@ def test_serving_raises_where_the_dse_has_no_plan():
 
 
 def test_serving_refuses_what_this_slice_does_not_run(monkeypatch):
-    with pytest.raises(NotImplementedError, match="step 3"):
-        serve.serve(ARCH, True, 2, 4, 2, bucketing=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 3"):
-        serve.serve_continuous(ARCH, True, 2, 2, bucketing=True,
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="step 4"):
+    """Bucketed serving runs and serves the same tokens (the plans are
+    provenance); continuous paged serving refuses the recurrent families
+    as the reference does; without a card and without ``device="cpu"``
+    serving raises."""
+    stats = {}
+    np.testing.assert_array_equal(
+        serve.serve(ARCH, True, 2, 4, 2, bucketing=True, device="cpu",
+                    stats_out=stats),
+        serve.serve(ARCH, True, 2, 4, 2, device="cpu"))
+    assert stats["plans"][-1]["bucket_stats"]["misses"] == 1
+    toks, _ = serve.serve_continuous(ARCH, True, 2, 2, bucketing=True,
+                                     device="cpu")
+    np.testing.assert_array_equal(
+        toks, serve.serve_continuous(ARCH, True, 2, 2, device="cpu")[0])
+    with pytest.raises(NotImplementedError, match="dense/moe"):
         serve.serve_continuous("mamba2-370m", True, 2, 2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for fn in (lambda: serve.serve(ARCH, True, 2, 4, 2),

@@ -309,16 +309,16 @@ def test_select_scan_blocks_matches_the_reference_exactly(case):
 @pytest.mark.parametrize("arg", ["cache", "measure", "policy", "options"])
 def test_select_scan_blocks_refuses_the_tuning_runtime(arg):
     """The selector takes the tuning runtime's arguments (an analytic
-    plan is the same with or without a cache or a policy) and refuses
-    only shape-bucketed warm starts."""
+    plan is the same with or without a cache, a policy or shape-bucketed
+    warm starts, whose first call for a shape explores it)."""
     import functools
     call = functools.partial(dse.select_scan_blocks, 128, 8, 16,
                              tier=cost.TPU)
     from repro_torch.core import resilience
     from repro_torch.core.options import Options
-    if arg == "options":      # bucketing: the one part still refused
-        with pytest.raises(NotImplementedError, match="tuning-runtime"):
-            call(options=Options(bucketing=True))
+    if arg == "options":      # bucketing: a miss explores, as without
+        chunk, plan = call(options=Options(bucketing=True))
+        assert chunk == call(cache=False)[0] and not plan.warm_start
         return
     if arg == "measure":      # validated as the reference validates it
         with pytest.raises(ValueError, match="measure"):

@@ -176,15 +176,21 @@ def test_options_resolve_as_the_reference(env, monkeypatch):
     assert want.vmem_budget == jdse.VMEM_BYTES
 
 
-def test_bucketing_alone_is_refused(monkeypatch):
-    with pytest.raises(NotImplementedError, match="tuning-runtime"):
-        options.Options(bucketing=True).resolved()
+def test_bucketing_alone_is_refused(monkeypatch, tmp_path):
+    """Nothing is refused any more: ``bucketing=True`` resolves, and a
+    bucketed exploration (by keyword or ``REPRO_BUCKETING=1``) of a cold
+    family explores the shape and records it as its bucket's donor."""
+    from repro_torch.core import buckets
+    assert options.Options(bucketing=True).resolved().bucketing is True
     p = an.outerprod()[0]
-    with pytest.raises(NotImplementedError, match="bucketing"):
-        dse.explore(p, tier=TPU, bucketing=True)
+    cache = str(tmp_path / "c.json")
+    got = dse.explore(p, tier=TPU, bucketing=True, cache=cache)
+    assert not got.warm_start
+    assert dse.TuningCache(cache).bucket_entries(buckets.tile_family(
+        p, vmem_budget=TPU.onchip_bytes, align=dse.MXU, tier=TPU,
+        device=measure.device_kind()))
     monkeypatch.setenv("REPRO_BUCKETING", "1")
-    with pytest.raises(NotImplementedError, match="bucketing"):
-        dse.explore(p, tier=TPU)
+    assert dse.explore(p, tier=TPU, cache=cache).cached
     monkeypatch.delenv("REPRO_BUCKETING")
     assert dse.MXU == options.MXU == jdse.MXU
     assert (dse.DEPTHS, dse.TOP_K, dse.MAX_POINTS, dse.MEASURE_WARMUP,
