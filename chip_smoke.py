@@ -33,7 +33,11 @@ ptxas must report no stack frame for any of those), then:
     at the analytics tile 64x64x64, depth 2, and at 128x128x32, depth 3
     (the template at the plan's tile, a ``d``-slot ``cp.async`` ring),
     held at RTOL/ATOL after proving that limit catches a dropped K slab
-    and a stale ring slot;
+    and a stale ring slot; then ``lower_auto`` of SUITE's GEMM at 4096^3
+    (``lower_auto[gemm]``): the DSE explores the template's own space
+    (``dse.template_kernel``), the plan's charge must equal the bytes the
+    template allocates at that tile, one launch a call, held and timed
+    as the fixed tiles are;
   * runs ``lower_auto(p)`` -- the port's single-pattern DSE on the
     card's budget, then the template it picks -- for three programs:
     the outer product at m = n = 16,384 (the tiled-Map kernel, a 1 GiB
@@ -144,7 +148,30 @@ ptxas must report no stack frame for any of those), then:
     tolerance and the oracle's own bf16 error, a rule first shown to
     reject a run whose conv state is not carried; one decode step
     profiled (host ms, device busy, idle share, launches) beside its
-    byte floor.
+    byte floor;
+  * ``[audio]`` and ``[vlm]``: musicgen-medium (4 codebooks: embeddings
+    summed, one head each) and internvl2-1b at their published widths
+    and depths, bf16 and f32, served on the dense cache (``serve``) for
+    the same 16 requests: tokens on every codebook held to a
+    teacher-forced ``model.forward`` oracle by the rule above, a rule
+    first shown in float32 to reject every request of a run with a
+    planted fault (MusicGen's last codebook left out of the embedding
+    sum; InternVL's last layer writing its K/V into a copy, not the
+    cache); one decode step profiled;
+  * ``[train]``: granite-3-2b at its published widths and 40 layers,
+    bf16, remat on, through ``launch.train.train`` for TRAIN_STEPS steps
+    of TRAIN_BATCH x TRAIN_SEQ tokens (losses finite, the first within
+    2e-2 of a float32 forward of the same weights; ms a step, tokens a
+    second, peak memory, one step profiled); one float32 train step of
+    granite-3-2b, musicgen-medium and internvl2-1b (256 zero prefix rows)
+    cut to 2 layers held to the same step in float64 run by the port's
+    code (loss 2e-3 relative, every gradient rtol 2e-3 / atol 2e-3 x its
+    RMS, the AdamW update 1e-5 relative), after proving those limits
+    catch unshifted labels, the VLM prefix left in the loss, a block's
+    output detached and the bias correction dropped; and a restart at
+    the 2-layer cut: 4 steps uninterrupted against 2 steps, a checkpoint
+    restored into fresh tensors (bitwise what was saved) and 2 more
+    (batches bitwise, losses within 1e-5).
 
 Each run resets the kernel's launch count just before, reads it just
 after, and fails if the kernel did not run.  Each result is held
@@ -166,6 +193,7 @@ repository.
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -744,6 +772,35 @@ def run_tiled_gemm(label: str, call, x, y, host, gtile, depth: int, cc,
             "replaces": GEMM_TPU, "launches": launches,
             "max_abs_err": e_plain, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
+
+
+def run_auto_gemm(call, x, y, host, cc, tier, torch) -> dict:
+    """``lower_auto(gemm)`` of SUITE at 4096^3 float32 (TF32 off): the
+    DSE's plan in the template's own space (``dse.template_kernel``), its
+    charge beside the bytes the template allocates at that tile
+    (``gemm_layout``, which the library checks), one launch a call, then
+    ``run_tiled_gemm``'s checks: the plain version, the planted faults,
+    torch.matmul and the bound."""
+    plan = call.tile_plan
+    (bm, bn), (bk,) = plan.sizes["gemm"], plan.sizes["gemm_k"]
+    lay = cc.gemm_layout(bm, bn, bk, plan.depth)
+    print(f"[lower_auto[gemm]] plan: sizes={plan.sizes} depth={plan.depth} "
+          f"explored={plan.explored} pruned={plan.pruned}; charged "
+          f"{plan.vmem_bytes} B, the template allocates {lay.smem_bytes} B",
+          flush=True)
+    if plan.vmem_bytes != lay.smem_bytes:
+        fail(f"lower_auto[gemm]: the plan charges {plan.vmem_bytes} B, the "
+             f"template allocates {lay.smem_bytes} B")
+    torch.cuda.synchronize()
+    cc.tiled_gemm.launches = 0
+    call(x=x, y=y)
+    torch.cuda.synchronize()
+    if cc.tiled_gemm.launches != 1:
+        fail(f"lower_auto[gemm]: {cc.tiled_gemm.launches} tiled_gemm "
+             "launches in one call")
+    print("[lower_auto[gemm]] tiled_gemm launches in one call: 1")
+    return run_tiled_gemm("lower_auto[gemm]", call, x, y, host, (bm, bn, bk),
+                          plan.depth, cc, tier, torch)
 
 
 # ------------------------------------------------ what the kernels compiled to
@@ -2871,12 +2928,14 @@ def family_oracle(cfg, params, lens, toks, first, torch, dev) -> list:
     ``model.forward`` over the prompt, the prefill token and the served
     tokens but the last, in the served type, its SSD in the chunked
     parallel form (``plain_ssd_chunked``) -- independent of the served
-    step, which carries the recurrence token by token.  Row t scores
-    token t of ``[first] + toks``."""
+    step, which carries the recurrence token by token (and, for the
+    attention families, of the served step's KV cache).  Row t scores
+    token t of ``[first] + toks`` (codebook frames: row t is (n_cb, V))."""
     from repro_torch.models import model, ssm
 
+    ncb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     pool = np.random.RandomState(0).randint(0, cfg.vocab,
-                                            (len(lens), max(lens)))
+                                            (len(lens), max(lens)) + ncb)
     real = ssm.ssd_chunked
     ssm.ssd_chunked = plain_ssd_chunked
     rows = [None] * len(lens)
@@ -2911,7 +2970,7 @@ def bf16_drift(cfg, params, lens, toks, first, rows, torch, dev) -> list:
     out = []
     for r, r32 in zip(rows, rows32):
         d = (r - r32).abs()
-        d[:, cfg.vocab:] = 0.0               # the pad columns are -1e30
+        d[..., cfg.vocab:] = 0.0             # the pad columns are -1e30
         out.append(d)
     return out
 
@@ -2991,7 +3050,8 @@ def family_step(label: str, cfg, params, torch, dev, tier) -> None:
     b, ctx = FAMILY_LENS.count(FAMILY_LENS[0]), FAMILY_LENS[0] + FAMILY_GEN
     index = FAMILY_LENS[0] + FAMILY_GEN // 2
     cache = model.init_cache(cfg, b, ctx, device=dev)
-    tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    ncb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    tok = torch.zeros((b, 1) + ncb, dtype=torch.int32, device=dev)
 
     def step():
         with torch.no_grad():
@@ -3113,6 +3173,478 @@ def run_family(tag: str, arch: str, tier, torch, dev) -> None:
     print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------- the audio and VLM families
+def codebook_dropped():
+    """A planted fault of the audio path: the last codebook's embedding
+    left out of the sum.  Returns a function that undoes it."""
+    from repro_torch.models import transformer as tr
+
+    real = tr._embed_tokens
+
+    def faulty(params, cfg, tokens):
+        t = tokens.long()
+        return sum(params["embed"][i][t[..., i]]
+                   for i in range(cfg.n_codebooks - 1))
+    tr._embed_tokens = faulty
+    return lambda: setattr(tr, "_embed_tokens", real)
+
+
+def last_cache_write_skipped():
+    """A planted fault of the dense-cache path: the last layer writes its
+    K/V into a copy of its cache slices, not the cache (its attention
+    still sees the step's own keys).  Returns a function that undoes
+    it."""
+    from repro_torch.models import transformer as tr
+
+    real = tr.super_blocks
+
+    def faulty(params, cfg, *stacks):
+        layers = list(real(params, cfg, *stacks))
+        if stacks:
+            layers[-1][0]["extra"] = tuple(t.clone()
+                                           for t in layers[-1][0]["extra"])
+        return iter(layers)
+    tr.super_blocks = faulty
+    return lambda: setattr(tr, "super_blocks", real)
+
+
+def flat_rows(rows, toks, first, drift=None) -> tuple:
+    """Codebook rows (steps, n_cb, V) and tokens (steps, n_cb) as one row
+    and token per (step, codebook), so that ``family_misses`` holds every
+    codebook; other rows as they are."""
+    ext = np.concatenate([first[:, None], toks], 1)
+    rows = [r.reshape(-1, r.shape[-1]) for r in rows]
+    drift = None if drift is None else \
+        [d.reshape(-1, d.shape[-1]) for d in drift]
+    flat = ext.reshape(len(ext), -1)
+    return rows, flat[:, 1:], flat[:, 0], drift
+
+
+def media_check(cfg, params, lens, toks, stats, dtype: str, torch,
+                dev) -> tuple:
+    """Hold a served run's tokens, every codebook, to the teacher-forced
+    oracle by the family rule; returns ``(misses, passed, scored)``."""
+    first = stats["first_tokens"]
+    rows = family_oracle(cfg, params, lens, toks, first, torch, dev)
+    drift = bf16_drift(cfg, params, lens, toks, first, rows, torch, dev) \
+        if dtype == "bfloat16" else None
+    # family_misses puts the first token back ahead of the others
+    rows, ftoks, ffirst, drift = flat_rows(rows, toks, first, drift)
+    misses, passed = family_misses(rows, ftoks, ffirst, dtype, drift)
+    return misses, passed, sum(r.shape[0] for r in rows)
+
+
+def run_media(tag: str, arch: str, tier, torch, dev) -> None:
+    """``[audio]`` / ``[vlm]``: ``arch`` at its published widths and
+    depth, random weights made on the card, served on the dense cache
+    through ``serve`` (a block prefill of each prompt group, then
+    FAMILY_GEN greedy steps) on FAMILY_LENS, in bfloat16 and float32.
+    In float32 the token rule is first shown to reject every request of
+    the first group served with a planted fault (MusicGen: the last
+    codebook's embedding dropped from the sum; InternVL: the last
+    layer's cache write skipped); then each run's tokens on every
+    codebook are held to the teacher-forced oracle: float32 identical,
+    bfloat16 within the bf16 tolerance of the oracle's best or its own
+    bf16 error.  Prints ms per token and per step, prefill seconds and
+    one profiled decode step (``family_step``)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    base = get_config(arch)
+    lens = list(FAMILY_LENS)
+    ncb = (base.n_codebooks,) if base.n_codebooks else ()
+    print(f"[{tag}] {base.name}: {base.n_layers} layers, d_model "
+          f"{base.d_model}, {base.n_heads}/{base.n_kv_heads} heads of "
+          f"{base.head_dim}, d_ff {base.d_ff} {base.activation}, vocab "
+          f"{base.vocab} + {base.vocab_pad}"
+          + (f", {base.n_codebooks} codebooks" if ncb else "")
+          + (f", {base.frontend_tokens} frontend tokens (not served)"
+             if base.frontend_tokens else "")
+          + f"; {len(lens)} requests, prompts {sorted(set(lens))}, "
+          f"{FAMILY_GEN} tokens each on the dense cache", flush=True)
+    plant = codebook_dropped if ncb else last_cache_write_skipped
+    for dtype in ("bfloat16", "float32"):
+        cfg = base.with_(dtype=dtype)
+        what = f"{tag}[{dtype}]"
+        params = make_params(what, cfg, torch, dev)
+        if dtype == "float32":
+            group = lens[:lens.count(lens[0])]
+            undo = plant()
+            try:
+                bad, bad_stats = serve_family(cfg, params, group, torch, dev)
+            finally:
+                undo()
+            bad = bad_stats.get("codebook_tokens", bad)
+            misses, passed, scored = media_check(
+                cfg, params, group, bad, bad_stats, dtype, torch, dev)
+            caught = sum(m is not None for m in misses)
+            print(f"[{what}] planted fault ({plant.__name__.replace('_', ' ')}"
+                  f"): the f32 rule rejects {caught} of {len(group)} "
+                  f"requests; {passed} of {scored} faulted tokens are the "
+                  "oracle's", flush=True)
+            if caught != len(group):
+                fail(f"{what}: the token rule passes {len(group) - caught} "
+                     f"requests served with the planted fault")
+        toks, stats = serve_family(cfg, params, lens, torch, dev)
+        full = stats.get("codebook_tokens", toks)
+        steps = len(set(lens)) * FAMILY_GEN
+        print(f"[{what}] prefill {stats['prefill_s']:.3f} s (blocks of "
+              f"{sorted(set(lens))}), decode {stats['decode_s']:.3f} s over "
+              f"{steps} steps: {stats['decode_s'] / steps * 1e3:.3f} ms per "
+              f"step, {stats['ms_per_token']:.3f} ms per token", flush=True)
+        if full.shape != (len(lens), FAMILY_GEN) + ncb or full.min() < 0 \
+                or full.max() >= cfg.vocab:
+            fail(f"{what}: tokens of shape {full.shape} in "
+                 f"[{full.min()}, {full.max()}]")
+        if ncb and not (toks == full[..., 0]).all():
+            fail(f"{what}: serve reports other tokens than codebook 0")
+        t1 = time.perf_counter()
+        misses, passed, scored = media_check(cfg, params, lens, full, stats,
+                                             dtype, torch, dev)
+        print(f"[{what}] teacher-forced oracle (forward) in "
+              f"{time.perf_counter() - t1:.1f} s: {passed} of {scored} "
+              f"tokens{' (every codebook)' if ncb else ''} pass the "
+              f"{dtype} rule", flush=True)
+        bad = [m[1] for m in misses if m]
+        if bad:
+            fail(f"{what}: tokens differ from the oracle: " + "; ".join(bad))
+        if dtype == "bfloat16":
+            family_step(what, cfg, params, torch, dev, tier)
+        del params
+        torch.cuda.empty_cache()
+    print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ------------------------------------------------------------ training
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_STEPS = 6
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_FIRST_TOL = 2e-2       # the first bf16 loss against a float32 forward
+GRAD_ARCHS = ("granite-3-2b", "musicgen-medium", "internvl2-1b")
+GRAD_LAYERS = 2
+GRAD_BATCH, GRAD_SEQ = 2, 256
+GRAD_TOL = 2e-3              # loss relative; gradients rtol, atol x RMS
+UPDATE_TOL = 1e-5            # the AdamW update, relative in norm
+RESTART_TOL = 1e-5           # the losses after a restore, relative
+
+
+def train_batch(cfg, rows: int, seq: int, seed: int, dev) -> dict:
+    """The token pipeline's first batch on the card, as
+    ``launch.train`` feeds it (the VLM with zero prefix rows)."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import _batch
+
+    return _batch(TokenPipeline(vocab=cfg.vocab, global_batch=rows,
+                                seq_len=seq, seed=seed,
+                                n_codebooks=cfg.n_codebooks), cfg, dev)
+
+
+def train_full(torch, dev) -> None:
+    """granite-3-2b at full width and depth, bf16, remat on, through
+    ``launch.train.train``: TRAIN_STEPS finite losses, the first within
+    TRAIN_FIRST_TOL of a float32 forward of the same weights (seed 0,
+    made again on the card) on the same batch; ms a step, tokens a
+    second, peak memory; one more step profiled for its idle share."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+
+    cfg = get_config(TRAIN_ARCH)
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        fail(f"train: {TRAIN_ARCH}'s config is not bf16 with remat")
+    params = make_params("train", cfg, torch, dev)
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        p32 = {k: v.float() for k, v in params.items()}
+        ref = float(model.loss(p32, cfg.with_(dtype="float32"), batch))
+    del p32, params
+    torch.cuda.empty_cache()
+    print(f"[train] float32 forward of the same weights: loss {ref:.6f} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = {}
+    losses, params = train_mod.train(
+        TRAIN_ARCH, False, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, None,
+        log_every=1, seed=0, device=dev, stats_out=stats)
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = sorted(t * 1e3 for t in stats["step_s"][1:])
+    med = step_ms[len(step_ms) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] {TRAIN_ARCH}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, bf16, remat on; {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses "
+          f"{[round(x, 6) for x in losses]}; step ms "
+          f"{[round(t * 1e3, 1) for t in stats['step_s']]} (median of "
+          f"steps 2..{TRAIN_STEPS} {med:.1f} ms, {tokens / med * 1e3:.0f} "
+          f"tokens/s); peak device memory {peak / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
+        fail(f"train: losses {losses}")
+    rel = abs(losses[0] - ref) / abs(ref)
+    print(f"[train] first loss {losses[0]:.6f} vs float32 forward "
+          f"{ref:.6f}: relative {rel:.3g} (limit {TRAIN_FIRST_TOL})")
+    if rel > TRAIN_FIRST_TOL:
+        fail(f"train: first loss {losses[0]} is {rel:.3g} from the float32 "
+             f"forward's {ref}")
+    opt = adamw.AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    state = adamw.init(params, opt)
+    step = steps.make_train_step(cfg, opt)
+    wall, busy, names, _ = device_busy(lambda: step(params, state, batch),
+                                       torch, calls=1)
+    print(f"[train] one profiled step: {wall:.1f} ms on the host clock, "
+          f"device busy {busy:.1f} ms (idle share "
+          f"{1 - busy / wall:.4f}); costliest kernels: {names}", flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def grad_error(loss, grads, loss64, grads64) -> tuple:
+    """(loss relative error, worst gradient leaf by |g - g64| over rtol
+    x |g64| + atol x RMS(g64), its name): the step passes when the
+    first is at most GRAD_TOL and the second at most 1."""
+    rel = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    worst, name = 0.0, ""
+    for k, w in grads64.items():
+        rms = float(w.square().mean().sqrt())
+        lim = GRAD_TOL * w.abs() + GRAD_TOL * rms
+        err = (grads[k].double() - w).abs()
+        r = float((err / lim).max()) if rms else float(err.max()) * 1e30
+        if r > worst:
+            worst, name = r, k
+    return rel, worst, name
+
+
+def update_error(params, grads, cfg_opt, p64_before, plant=None) -> float:
+    """The AdamW update of the float32 run (under the fault ``plant``,
+    when given) against the same update in float64 on the same
+    gradients, ``||d32 - d64|| / ||d64||`` over all leaves (``params`` is
+    updated in place)."""
+    from repro_torch.optim import adamw
+
+    before = {k: v.double() for k, v in params.items()}
+    undo = plant() if plant else None
+    try:
+        adamw.update(grads, adamw.init(params, cfg_opt), params, cfg_opt)
+    finally:
+        if undo:
+            undo()
+    p64 = {k: v.clone() for k, v in p64_before.items()}
+    s64 = adamw.tree_map(lambda t: t.double() if t.is_floating_point()
+                         else t, adamw.init(p64, cfg_opt))
+    adamw.update({k: g.double() for k, g in grads.items()}, s64, p64,
+                 cfg_opt)
+    num = den = 0.0
+    for k in params:
+        d32 = params[k].double() - before[k]
+        d64 = p64[k] - p64_before[k]
+        num += float((d32 - d64).square().sum())
+        den += float(d64.square().sum())
+    return (num / den) ** 0.5
+
+
+def prefix_left_in():
+    """A planted fault of the VLM loss: the prefix rows stay in the loss
+    (the last positions dropped instead).  Returns a function that
+    undoes it."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model
+
+    real = model.loss
+
+    def faulty(params, cfg, batch):
+        logits = model.mask_vocab_pad(model.forward(params, cfg, batch), cfg)
+        p = batch["prefix_embeds"].shape[1]
+        return L.softmax_xent(logits[:, :logits.shape[1] - p],
+                              batch["labels"])
+    model.loss = faulty
+    return lambda: setattr(model, "loss", real)
+
+
+def block_detached():
+    """A planted fault of the forward: the first super-block's output is
+    detached (nothing below it gets a gradient).  Returns a function
+    that undoes it."""
+    from repro_torch.models import transformer as tr
+
+    real, calls = tr._super_block, [0]
+
+    def faulty(x, layers, cfg, positions):
+        calls[0] += 1
+        out = real(x, layers, cfg, positions)
+        return out.detach() if calls[0] == 1 else out
+    tr._super_block = faulty
+    return lambda: setattr(tr, "_super_block", real)
+
+
+def bias_correction_dropped():
+    """A planted fault of AdamW: no bias correction of the moments.
+    Returns a function that undoes it."""
+    from repro_torch.optim import adamw
+
+    real = adamw.bias_corrections
+    adamw.bias_corrections = lambda step, cfg: (1.0, 1.0)
+    return lambda: setattr(adamw, "bias_corrections", real)
+
+
+def train_grads(torch, dev) -> None:
+    """One float32 train step of each of GRAD_ARCHS at published widths
+    cut to GRAD_LAYERS layers, held to the same step in float64 run by
+    the port's own code on the card: the loss within GRAD_TOL, every
+    gradient within rtol GRAD_TOL and atol GRAD_TOL x its RMS, the AdamW
+    update within UPDATE_TOL (on the same gradients).  Each limit is
+    first shown to catch planted faults: labels left unshifted, one
+    block's output detached, the VLM's prefix left in the loss, the bias
+    correction dropped."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+
+    for arch in GRAD_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).with_(n_layers=GRAD_LAYERS, dtype="float32")
+        cfg64 = cfg.with_(dtype="float64")
+        params = model.init_params(cfg, 0, dev)
+        p64 = {k: v.double() for k, v in params.items()}
+        batch = train_batch(cfg, GRAD_BATCH, GRAD_SEQ, 1, dev)
+        loss64, g64 = steps.value_and_grad(p64, cfg64, batch)
+        loss, grads = steps.value_and_grad(params, cfg, batch)
+        rel, worst, name = grad_error(loss, grads, loss64, g64)
+        faults = {"labels unshifted": lambda: steps.value_and_grad(
+            params, cfg, dict(batch, labels=batch["tokens"]))}
+        plants = [("a block's output detached", block_detached)]
+        if cfg.family == "vlm":
+            plants.append(("the prefix left in the loss", prefix_left_in))
+        for label, plant in plants:
+            def run(plant=plant):
+                undo = plant()
+                try:
+                    return steps.value_and_grad(params, cfg, batch)
+                finally:
+                    undo()
+            faults[label] = run
+        caught = []
+        for label, run in faults.items():
+            fl, fg = run()
+            frel, fworst, _ = grad_error(fl, fg, loss64, g64)
+            if frel <= GRAD_TOL and fworst <= 1:
+                fail(f"train[{arch}]: the limits pass {label}")
+            caught.append(f"{label}: loss {frel:.3g}, gradient "
+                          f"{fworst:.3g}x its limit")
+        opt = adamw.AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+        bad = update_error({k: v.clone() for k, v in params.items()},
+                           grads, opt, p64, bias_correction_dropped)
+        if bad <= UPDATE_TOL:
+            fail(f"train[{arch}]: the update limit passes a dropped bias "
+                 "correction")
+        caught.append(f"bias correction dropped: update {bad:.3g}")
+        upd = update_error(params, grads, opt, p64)
+        print(f"[train] {arch} at {GRAD_LAYERS} of "
+              f"{get_config(arch).n_layers} layers, {GRAD_BATCH} x "
+              f"{GRAD_SEQ} tokens"
+              + (f" + {cfg.frontend_tokens} zero prefix rows"
+                 if cfg.family == "vlm" else "")
+              + f": f32 step vs float64: loss {float(loss):.6f} vs "
+              f"{float(loss64):.6f} (relative {rel:.3g}, limit {GRAD_TOL}); "
+              f"worst gradient {name} at {worst:.3g} of its limit; AdamW "
+              f"update {upd:.3g} relative (limit {UPDATE_TOL}); planted "
+              f"faults caught: " + "; ".join(caught)
+              + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if rel > GRAD_TOL or worst > 1 or upd > UPDATE_TOL:
+            fail(f"train[{arch}]: the f32 step is not the float64 one")
+        del params, p64, grads, g64
+        torch.cuda.empty_cache()
+
+
+def train_restart(torch, dev, where: Path) -> None:
+    """At granite-3-2b cut to GRAD_LAYERS layers (bf16): 4 steps
+    uninterrupted, against 2 steps, a checkpoint, a restore into fresh
+    tensors and 2 more.  The batches bitwise, the restored state bitwise
+    what was saved, the losses of steps 3-4 within RESTART_TOL (the
+    embedding's backward adds with atomics on the card)."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH).with_(n_layers=GRAD_LAYERS)
+    opt = adamw.AdamWConfig(total_steps=4, warmup_steps=1)
+    step = steps.make_train_step(cfg, opt)
+
+    def fresh(seed):
+        p = model.init_params(cfg, seed, dev)
+        return p, adamw.init(p, opt)
+
+    def pipe(seed=2):
+        return TokenPipeline(vocab=cfg.vocab, global_batch=GRAD_BATCH,
+                             seq_len=GRAD_SEQ, seed=seed)
+
+    def run(params, state, source, n, batches, losses):
+        for _ in range(n):
+            b = source.next_batch()
+            batches.append(b)
+            loss, params, state = step(params, state, b)
+            losses.append(float(loss))
+        return params, state
+
+    whole_b, whole_l = [], []
+    params, state = fresh(0)
+    run(params, state, pipe(), 4, whole_b, whole_l)
+    del params, state
+    part_b, part_l = [], []
+    params, state = fresh(0)
+    source = pipe()
+    params, state = run(params, state, source, 2, part_b, part_l)
+    saved = (params, state, source.state_dict())
+    ckpt.save(str(where), 2, saved)
+    like = fresh(1) + ({"step": 0, "seed": 0},)
+    restored = ckpt.restore(str(where), 2, like)
+    same = all(type(a) is type(b) and (torch.equal(a, b)
+                                       if isinstance(a, torch.Tensor)
+                                       else a == b)
+               for (_, a), (_, b) in zip(ckpt._leaves(saved),
+                                         ckpt._leaves(restored)))
+    fresh_tensors = all(a.data_ptr() != b.data_ptr()
+                        for (_, a), (_, b) in zip(ckpt._leaves(saved[:2]),
+                                                  ckpt._leaves(restored[:2])))
+    if not same or not fresh_tensors:
+        fail("train restart: the restored state is not what was saved "
+             "(or not in fresh tensors)")
+    source2 = pipe(99)
+    source2.load_state_dict(restored[2])
+    run(restored[0], restored[1], source2, 2, part_b, part_l)
+    batches_same = all(np.array_equal(a[k], b[k]) for a, b in
+                       zip(whole_b, part_b) for k in a)
+    rel = max(abs(a - b) / abs(a) for a, b in zip(whole_l[2:], part_l[2:]))
+    print(f"[train] restart at {GRAD_LAYERS} layers, {GRAD_BATCH} x "
+          f"{GRAD_SEQ}: losses uninterrupted {whole_l}, restored "
+          f"{part_l}; batches bitwise equal: {batches_same}; restored "
+          f"state bitwise what was saved, in fresh tensors: True; steps "
+          f"3-4 relative {rel:.3g} (limit {RESTART_TOL}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not batches_same or rel > RESTART_TOL:
+        fail("train restart: the resumed run is not the uninterrupted one")
+
+
+def run_train(torch, dev, where: Path) -> None:
+    """``[train]``: ``train_full``, ``train_grads``, ``train_restart``."""
+    t0 = time.perf_counter()
+    train_full(torch, dev)
+    t1 = time.perf_counter()
+    train_grads(torch, dev)
+    t2 = time.perf_counter()
+    train_restart(torch, dev, where)
+    print(f"[train] phase {time.perf_counter() - t0:.1f} s (full run "
+          f"{t1 - t0:.1f} s, float64 checks {t2 - t1:.1f} s, restart "
+          f"{time.perf_counter() - t2:.1f} s)", flush=True)
+
+
 TUNING_PROGRAMS = ("outerprod", "gda", "gemm", "filter")
 
 
@@ -3128,7 +3660,8 @@ def _modeled(kind_of: str, program, tier, dse, calibrate, kind: str) -> dict:
         return {(b, d): res[3] for (b, d), res in priced[:dse.TOP_K]}
     cands, _, _, _ = dse.shortlist(program, tier=tier,
                                    vmem_budget=tier.onchip_bytes,
-                                   profile=prof)
+                                   profile=prof,
+                                   kernel=dse.template_kernel(program, tier))
     return {tuple(sorted((k, tuple(v)) for k, v in c.sizes.items())):
             c.calibrated_seconds
             for c in dse._top_distinct_sizes(cands, dse.TOP_K)}
@@ -3181,7 +3714,9 @@ def run_tuning(tier, torch, dev, stores: Path) -> None:
     """The measured DSE on the card, tracing on, its stores in a fresh
     ``stores``: ``explore_pipeline(pipe, measure="top_k")`` for the five
     pipelines and ``explore(p, measure="top_k")`` for outerprod, gda and
-    gemm of SUITE and the Table 2 filter, at the main path's sizes.
+    gemm of SUITE and the Table 2 filter, at the main path's sizes (the
+    GEMM in the tiled-GEMM template's own space, ``dse.template_kernel``,
+    as ``lower_auto`` explores it).
     Prints each program's analytic and measured winners, every
     candidate's modeled and measured ms, Spearman's rho and the build
     seconds; checks every measured winner certified, a second call a
@@ -3225,8 +3760,11 @@ def run_tuning(tier, torch, dev, stores: Path) -> None:
             fn.launches = 0
         for label, kind_of, p in programs:
             modeled = _modeled(kind_of, p, tier, dse, calibrate, kind)
+            # a program whose template has its own space (the GEMM's) is
+            # explored in it, as lower_auto explores it
             explore = dse.explore_pipeline if kind_of == "pipeline" \
-                else dse.explore
+                else functools.partial(dse.explore,
+                                       kernel=dse.template_kernel(p, tier))
             b0 = build.compile_all.builds
             s0 = telemetry.metrics_snapshot()["counters"].get(
                 "dse.build_s", 0.0)
@@ -3258,20 +3796,14 @@ def run_tuning(tier, torch, dev, stores: Path) -> None:
                                        [b for _, b in pairs])
                 print(f"[tuning]   spearman rho (modeled vs measured, "
                       f"{len(pairs)} candidates) = {rho:.3f}")
-            if plan.measured:
-                win = [c for c in rec["certification"] if c["ok"]]
-                if not win:
-                    fail(f"tuning: {label}'s measured winner has no "
-                         "certificate")
-                print(f"[tuning]   winner certified on the card: "
-                      f"{win[-1]['reason']}")
-            elif label != "gemm":
+            if not plan.measured:
                 fail(f"tuning: {label} shipped no measured winner")
-            else:
-                print("[tuning]   gemm: no shortlisted candidate has a CUDA "
-                      "template at this budget; the analytic plan ships "
-                      f"({plan.sizes}), recorded as a lower-unsupported "
-                      "fallback")
+            win = [c for c in rec["certification"] if c["ok"]]
+            if not win:
+                fail(f"tuning: {label}'s measured winner has no "
+                     "certificate")
+            print(f"[tuning]   winner certified on the card: "
+                  f"{win[-1]['reason']}")
             b1, n_spans = build.compile_all.builds, len(telemetry.span_log())
             again = explore(p, measure="top_k", device=dev)
             lowered = [s["name"] for s in telemetry.span_log()[n_spans:]
@@ -3371,6 +3903,11 @@ def main() -> int:
     if sys.argv[1:] == ["--tuning"]:    # the measured-DSE phase alone
         run_tuning(tier, torch, dev, stores / "tuning")
         return 0
+    if sys.argv[1:] == ["--models"]:    # the audio, VLM and train phases
+        run_media("audio", "musicgen-medium", tier, torch, dev)
+        run_media("vlm", "internvl2-1b", tier, torch, dev)
+        run_train(torch, dev, stores / "train")
+        return 0
 
     # ---- lower every pipeline (kernels build lazily), then build all
     t0 = time.perf_counter()
@@ -3395,6 +3932,10 @@ def main() -> int:
                              depth)
         sources.append(("tiled_gemm", gemm_calls[label][0].source))
         labels.append(label)
+    # the compiler's own GEMM: lower_auto plans it in the template's space
+    gemm_auto = cc.lower_auto(gemm(GEMM_N, GEMM_N, GEMM_N)[0])
+    sources.append(("tiled_gemm", gemm_auto.source))
+    labels.append("lower_auto[gemm]")
     # single patterns: the DSE on the card's budget picks each plan
     singles = {"outerprod": outerprod(OUTER_N, OUTER_N),
                "gda": gda(n=ROWS), "filter": filter_program(TPCH_ROWS)}
@@ -3429,7 +3970,7 @@ def main() -> int:
             fail(f"ptxas: {label} has a stack frame ({max(stacks)} bytes)")
     sass_check({lib: p for lib, p in zip(labels, paths)
                 if lib in SASS_VARIANTS or lib.startswith("tiled_gemm")
-                or is_dag(lib) or is_keyed(lib)})
+                or lib == "lower_auto[gemm]" or is_dag(lib) or is_keyed(lib)})
 
     kernels = []
 
@@ -3519,6 +4060,7 @@ def main() -> int:
     for label, (call, gtile, depth) in gemm_calls.items():
         kernels.append(run_tiled_gemm(label, call, x, y, host, gtile, depth,
                                       cc, tier, torch))
+    kernels.append(run_auto_gemm(gemm_auto, x, y, host, cc, tier, torch))
     del x, y, host
 
     kernels.append(run_outerprod(*autos["outerprod"], cc, tier, torch))
@@ -3534,6 +4076,9 @@ def main() -> int:
     run_buckets(torch, dev)
     run_family("ssm", "mamba2-370m", tier, torch, dev)
     run_family("hybrid", "zamba2-2.7b", tier, torch, dev)
+    run_media("audio", "musicgen-medium", tier, torch, dev)
+    run_media("vlm", "internvl2-1b", tier, torch, dev)
+    run_train(torch, dev, stores / "train")
     run_tuning(tier, torch, dev, stores / "tuning")
 
     print(json.dumps({"kernels": kernels}))

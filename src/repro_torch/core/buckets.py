@@ -292,8 +292,11 @@ def warm_start_tile(p: ir.Pattern, tc, *, vmem_budget: int, align: int,
     if grid is not None:
         if any(sizes[n] not in grid[n] for n in grid):
             return None
+        if donor.depth not in kernel.depths:
+            return None
         priced = dse.price_kernel(p, sizes, kernel, tier=tier,
-                                  vmem_budget=vmem_budget)
+                                  vmem_budget=vmem_budget,
+                                  depth=donor.depth)
     else:
         priced = dse.price(p, sizes, tier=tier, vmem_budget=vmem_budget,
                            profile=None, depth=donor.depth)

@@ -2256,10 +2256,13 @@ def lower_auto(p: ir.Pattern, *, plan=None,
     card), ``policy`` (deadlines, quarantine, certification) and
     ``options`` passed through; the tiled IR is lowered at the plan's
     depth, and the plan is exposed on the returned callable as
-    ``.tile_plan``.
+    ``.tile_plan``.  Where the template has a design space of its own on
+    the tier (``dse.template_kernel``: the tiled GEMM on a GPU tier) the
+    DSE explores that space, so the plan is one the template takes,
+    charged the shared bytes its launch allocates.
     """
     from .cost import device_tier
-    from .dse import explore
+    from .dse import explore, template_kernel
     from .strip_mine import tile
 
     dev = resolve(device)
@@ -2270,7 +2273,8 @@ def lower_auto(p: ir.Pattern, *, plan=None,
         if plan is None:
             plan = explore(p, tier=tier, vmem_budget=budget, device=dev,
                            cache=cache, measure=measure, policy=policy,
-                           options=options)
+                           options=options,
+                           kernel=template_kernel(p, tier))
         call = lower(tile(p, plan.sizes, vmem_budget_words=budget // 4),
                      device=dev, depth=plan.depth)
     call.tile_plan = plan

@@ -53,8 +53,14 @@ and ``csrc/ssd_scan.cuh`` take, each candidate charged the shared bytes
 the kernel allocates and the main-memory words it moves, through
 ``explore`` itself (its cache and buckets apply unchanged);
 ``select_paged_decode_blocks`` prices the paged kernel's axes
-(``_paged_kernel_plan``).  Under ``cost.TPU`` every selector is the
-reference's search.
+(``_paged_kernel_plan``).  The tiled-GEMM template's space
+(``template_kernel``: tiles and ring depths it takes, charged
+``codegen_cuda.gemm_layout``) is what ``codegen_cuda.lower_auto``
+explores for a GEMM program on a GPU tier; its candidates are the
+program's own tiles, so measured mode times and certifies them.
+``select_gemm_blocks`` keeps the generic search: it feeds the hand
+``matmul``, whose kernels keep their own tiles.  Under ``cost.TPU``
+every selector is the reference's search.
 """
 from __future__ import annotations
 
@@ -604,21 +610,25 @@ class KernelSpace:
     """A hand kernel's own design space on a GPU tier, explored by
     ``explore`` in place of ``tile_space`` and ``plan_memory``: the
     tiles the kernel takes (``space``: pattern name -> candidates), the
-    shared bytes it allocates at each (``charge``) and the main-memory
-    words it moves (``words``), at its ring's one ``depth``.  ``family``
-    names the kernel and the path it takes, free of extents (part of
-    the bucket layer's family); ``context`` the shape facts its charge
-    reads (part of the cache key).  ``certify(plan, device)`` runs the
-    kernel at a plan against its oracle: ``(ok, reason)``, the bucket
-    layer's gate before a re-tuned plan is promoted."""
+    ring depths it is built at (``depths``, an axis of the space), the
+    shared bytes it allocates at each tile and depth (``charge(sizes,
+    depth)``) and the main-memory words it moves (``words``).
+    ``family`` names the kernel and the path it takes, free of extents
+    (part of the bucket layer's family); ``context`` the shape facts its
+    charge reads (part of the cache key).  ``certify(plan, device)``
+    runs the kernel at a plan against its oracle: ``(ok, reason)``, the
+    bucket layer's gate before a re-tuned plan is promoted and, when
+    ``lowers`` (the explored pattern is the program the kernel runs, not
+    a proxy of it), measured mode's gate before a timed winner ships."""
 
     family: Tuple
     space: Tuple[Tuple[str, Tuple[Tuple[int, ...], ...]], ...]
-    depth: int
+    depths: Tuple[int, ...]
     context: Tuple
-    charge: Callable[[Dict[str, Tuple[int, ...]]], int]
+    charge: Callable[[Dict[str, Tuple[int, ...]], int], int]
     words: Callable[[Dict[str, Tuple[int, ...]]], int]
     certify: Callable[..., Tuple[bool, str]]
+    lowers: bool = False
 
     def candidates(self) -> Dict[str, List[Tuple[int, ...]]]:
         return {name: list(c) for name, c in self.space}
@@ -629,22 +639,26 @@ class KernelSpace:
                 itertools.product(*(c for _, c in self.space))]
 
     def sig(self) -> Tuple:
-        """The cache key's part: family, depth, context and every
-        candidate with its charge."""
-        return (("kernel",) + tuple(self.family), ("depth", self.depth),
-                tuple(self.context),
-                tuple((tuple(sorted(c.items())), self.charge(c))
+        """The cache key's part: family, depths, context and every
+        candidate with its charge at each depth."""
+        return (("kernel",) + tuple(self.family),
+                ("depths",) + tuple(self.depths), tuple(self.context),
+                tuple((tuple(sorted(c.items())),
+                       tuple(self.charge(c, d) for d in self.depths))
                       for c in self.combos()))
 
 
 def price_kernel(p: ir.Pattern, sizes: Dict[str, Tuple[int, ...]],
                  kernel: KernelSpace, *, tier: Tier, vmem_budget: int,
-                 profile=None) -> Optional[Priced]:
-    """Price the hand kernel of ``kernel`` at ``sizes``: None when its
-    shared bytes pass the budget, else the words it moves over the
-    tier's bandwidth (calibrated per grid step of the proxy ``p``, as
-    ``price`` does), charged its own shared bytes."""
-    onchip = int(kernel.charge(sizes))
+                 profile=None, depth: Optional[int] = None
+                 ) -> Optional[Priced]:
+    """Price the hand kernel of ``kernel`` at ``sizes`` and ring
+    ``depth`` (its first when not given): None when its shared bytes
+    pass the budget, else the words it moves over the tier's bandwidth
+    (calibrated per grid step of ``p``, as ``price`` does), charged its
+    own shared bytes."""
+    depth = kernel.depths[0] if depth is None else int(depth)
+    onchip = int(kernel.charge(sizes, depth))
     if onchip > vmem_budget:
         return None
     words = int(kernel.words(sizes))
@@ -654,7 +668,7 @@ def price_kernel(p: ir.Pattern, sizes: Dict[str, Tuple[int, ...]],
         type(p).__name__, seconds * tier.hbm_bytes_per_s, steps,
         profile=profile, tier=tier)
     return Priced(dict(sizes), words, onchip, seconds, calibrated, steps,
-                  depth=kernel.depth)
+                  depth=depth)
 
 
 def _rank_key(a: Priced) -> Tuple:
@@ -689,13 +703,15 @@ def shortlist(p: ir.Pattern, *, tier: Tier, vmem_budget: int,
     explored = pruned = 0
     if kernel is not None:
         for sizes in kernel.combos():
-            priced = price_kernel(p, sizes, kernel, tier=tier,
-                                  vmem_budget=vmem_budget, profile=profile)
-            explored += 1
-            if priced is None:
-                pruned += 1
-                continue
-            cands.append(priced)
+            for d in kernel.depths:
+                priced = price_kernel(p, sizes, kernel, tier=tier,
+                                      vmem_budget=vmem_budget,
+                                      profile=profile, depth=d)
+                explored += 1
+                if priced is None:
+                    pruned += 1
+                    continue
+                cands.append(priced)
         cands.sort(key=_rank_key)
         return cands, False, explored, pruned
     if space is None:
@@ -1045,10 +1061,13 @@ def explore(p: ir.Pattern, *, tier: Optional[Tier] = None,
     donor.
 
     ``kernel`` (a ``KernelSpace``) explores a hand kernel's own axes in
-    place of ``tile_space``, each candidate charged the kernel's shared
-    bytes and words (``price_kernel``); measured mode keeps the priced
-    plan (the proxy ``p`` is not the kernel) and records a
-    ``lower-unsupported`` fallback.
+    place of ``tile_space`` and ``depths``, each candidate charged the
+    kernel's shared bytes and words (``price_kernel``).  Where ``p`` is
+    a proxy of the kernel, measured mode keeps the priced plan and
+    records a ``lower-unsupported`` fallback; where the kernel lowers
+    ``p`` itself (``kernel.lowers``: the tiled GEMM's space,
+    ``template_kernel``) its candidates are timed as any others and the
+    winner certified by ``kernel.certify``.
     """
     o = _resolve_options(options, vmem_budget=vmem_budget, align=align,
                          cache=cache, max_points=max_points,
@@ -1166,8 +1185,13 @@ def _explore_body(p: ir.Pattern, space, o: Options, target: _Target,
             depths=depths, kernel=kernel)
         ssp.set(explored=explored, pruned=pruned, feasible=len(cands))
     if not cands:
+        if kernel is not None and not explored:
+            raise ValueError(
+                f"DSE: no tile candidate fits: {kernel.family[0]} takes no "
+                f"tile at these extents (candidates over {names})")
         if kernel is not None:
-            least = min(kernel.charge(c) for c in kernel.combos())
+            least = min(kernel.charge(c, d) for c in kernel.combos()
+                        for d in kernel.depths)
             raise ValueError(
                 f"DSE: no tile candidate fits on-chip budget {vmem_budget} "
                 f"B: {kernel.family[0]} allocates {least} B at its "
@@ -1182,7 +1206,7 @@ def _explore_body(p: ir.Pattern, space, o: Options, target: _Target,
     prov_measured: List[Dict] = []
     prov_cert: List[Dict] = []
     n_short = n_timed = 0
-    if measure == "top_k" and kernel is not None:
+    if measure == "top_k" and kernel is not None and not kernel.lowers:
         resilience.record(
             "explore", "lower-unsupported", _workload_tag(p), "fallback",
             f"{kernel.family[0]}'s plan is priced, not timed: the proxy "
@@ -1228,9 +1252,9 @@ def _explore_body(p: ir.Pattern, space, o: Options, target: _Target,
                              "ok": False, "reason": "quarantined"})
                         continue
                     ok, reason = resilience.certify_guarded(
-                        lambda w=win: resilience.certify_tile_plan(
-                            p, w.sizes, vmem_budget=vmem_budget,
-                            device=target.device, depth=w.depth),
+                        lambda w=win: _certify_timed(
+                            p, w, kernel, vmem_budget=vmem_budget,
+                            device=target.device),
                         key=ckey, policy=pol)
                     prov_cert.append(
                         {"sizes": {k: list(v)
@@ -1288,6 +1312,24 @@ def _explore_body(p: ir.Pattern, space, o: Options, target: _Target,
         measured_ranks=prov_measured,
         certification=prov_cert)
     return plan
+
+
+def _certify_timed(p: ir.Pattern, win: CandidateTiming,
+                   kernel: Optional[KernelSpace], *, vmem_budget: int,
+                   device) -> Tuple[bool, str]:
+    """Certify a timed candidate: through its hand kernel's own
+    certifier (``kernel.certify``) when the space is a kernel's, else the
+    lowered tiled program against the eager oracle."""
+    if kernel is None:
+        return resilience.certify_tile_plan(
+            p, win.sizes, vmem_budget=vmem_budget, device=device,
+            depth=win.depth)
+    plan = TilePlan(sizes={k: tuple(v) for k, v in win.sizes.items()},
+                    traffic_words=win.traffic_words,
+                    vmem_bytes=win.vmem_bytes,
+                    modeled_seconds=win.calibrated_seconds,
+                    depths={k: int(win.depth) for k in win.sizes})
+    return kernel.certify(plan, device)
 
 
 def gemm_program(m: int, n: int, k: int) -> ir.Pattern:
@@ -2237,7 +2279,7 @@ def _attention_kernel(sq: int, sk: int, d: int, group: Optional[int],
     keys = -(-sk // FA_BC) * FA_BC
     item = 2 if bf16 else 4
 
-    def charge(sizes):
+    def charge(sizes, depth):
         return fa_smem_bytes(which, sizes["fa_q"][0], d)
 
     def words(sizes):
@@ -2255,7 +2297,7 @@ def _attention_kernel(sq: int, sk: int, d: int, group: Optional[int],
         family=("flash_attention.cuh", which, dtype),
         space=(("fa_kv", ((FA_BC,),)),
                ("fa_q", tuple((t,) for t in tiles))),
-        depth=2, context=(("d", d), ("group", group)),
+        depths=(2,), context=(("d", d), ("group", group)),
         charge=charge, words=words, certify=certify)
     return attention_program(rows, keys, d), kernel
 
@@ -2294,7 +2336,7 @@ def _scan_kernel(seq: int, n: int, dh: int) -> KernelSpace:
                 for d in (i, seq // i)}
     chunks = tuple((c,) for c in sorted(divisors) if c % 4 == 0 or c == seq)
 
-    def charge(sizes):
+    def charge(sizes, depth):
         return layout(sizes["ssd"][0]).smem_bytes
 
     def words(sizes):
@@ -2307,8 +2349,88 @@ def _scan_kernel(seq: int, n: int, dh: int) -> KernelSpace:
                                             device=device)
 
     return KernelSpace(family=("ssd_scan.cuh",), space=(("ssd", chunks),),
-                       depth=2, context=(("n", n), ("dh", dh)),
+                       depths=(2,), context=(("n", n), ("dh", dh)),
                        charge=charge, words=words, certify=certify)
+
+
+GEMM_TILES = (32, 64, 128, 256)   # the tiled GEMM's block rows / columns
+GEMM_BKS = (8, 16, 32, 64)         # ... and K slabs
+GEMM_MAX_THREADS = 256             # ~170 registers a thread: 256 fit an SM
+
+
+def gemm_shape(p: ir.Pattern) -> Optional[Tuple[int, int, int]]:
+    """``(m, n, k)`` of an untiled Table 3 GEMM -- a Map over (m, n) of a
+    K fold reading x (m, k) and y (k, n) -- else None."""
+    if not (isinstance(p, ir.Map) and not p.strided and len(p.domain) == 2
+            and isinstance(p.inner, ir.MultiFold) and not p.inner.strided
+            and len(p.inner.domain) == 1 and len(p.inner.reads) == 2):
+        return None
+    x, y = (a.src for a in p.inner.reads)
+    (m, n), (k,) = p.domain, p.inner.domain
+    if not (isinstance(x, ir.Tensor) and isinstance(y, ir.Tensor)
+            and tuple(x.shape) == (m, k) and tuple(y.shape) == (k, n)):
+        return None
+    return m, n, k
+
+
+def _gemm_kernel(p: ir.Pattern, m: int, n: int, k: int) -> KernelSpace:
+    """``csrc/tiled_gemm.cuh``'s ``KernelSpace`` at ``(m, n, k)``: the
+    ``(bm, bn)`` blocks of ``GEMM_TILES`` that divide the output and
+    whose micro-tile (``codegen_cuda.gemm_layout``) divides them at no
+    more than ``GEMM_MAX_THREADS`` threads, the K slabs of ``GEMM_BKS``
+    that divide K and leave a strided fold (``bk < k``; the template's
+    16-byte copies need n and k multiples of 4), at every depth of
+    ``DEPTHS``.  Each candidate is charged ``gemm_layout(bm, bn, bk,
+    depth).smem_bytes`` (the padding of the x rows included) and moves
+    x once per column of blocks, y once per row of blocks and the output
+    once.  The pattern is the program the template lowers, so measured
+    mode times the candidates and ``resilience.certify_gemm_plan`` runs
+    ``tiled_gemm`` against ``tiled_gemm_plain`` at the plan."""
+    from .codegen_cuda import gemm_layout
+
+    blocks, slabs = [], []
+    if n % 4 == 0 and k % 4 == 0:
+        for bm in GEMM_TILES:
+            for bn in GEMM_TILES:
+                lay = gemm_layout(bm, bn, 4, 2)
+                if m % bm == 0 and n % bn == 0 and bm % lay.tm == 0 \
+                        and bn % lay.tn == 0 \
+                        and lay.threads <= GEMM_MAX_THREADS:
+                    blocks.append((bm, bn))
+        slabs = [(bk,) for bk in GEMM_BKS if k % bk == 0 and bk < k]
+
+    def charge(sizes, depth):
+        (bm, bn), (bk,) = sizes[p.name], sizes[p.inner.name]
+        return gemm_layout(bm, bn, bk, depth).smem_bytes
+
+    def words(sizes):
+        bm, bn = sizes[p.name]
+        return m * k * (n // bn) + k * n * (m // bm) + m * n
+
+    def certify(plan, device):
+        tile_ = _one(plan, p.name) + _one(plan, p.inner.name)
+        return resilience.certify_gemm_plan(m, n, k, tile_,
+                                            depth=plan.depth, device=device)
+
+    return KernelSpace(family=("tiled_gemm.cuh",),
+                       space=((p.name, tuple(blocks)),
+                              (p.inner.name, tuple(slabs))),
+                       depths=tuple(DEPTHS), context=(), charge=charge,
+                       words=words, certify=certify, lowers=True)
+
+
+def template_kernel(p: ir.Pattern, tier: Tier) -> Optional[KernelSpace]:
+    """The template's own design space for the untiled ``p`` on
+    ``tier``, where it has one: on a GPU tier the tiled GEMM's
+    (``_gemm_kernel``) for a GEMM program; None otherwise, and under
+    ``cost.TPU`` always (the reference's search).  ``lower_auto`` hands
+    it to ``explore``; a caller exploring such a program in measured
+    mode or through the bucket layer passes it as ``kernel=`` to see
+    the same space."""
+    shape = gemm_shape(p)
+    if tier.name == TPU.name or shape is None:
+        return None
+    return _gemm_kernel(p, *shape)
 
 
 def select_filter_reduce_blocks(t: int, *, tier: Optional[Tier] = None,

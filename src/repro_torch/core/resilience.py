@@ -863,6 +863,37 @@ def certify_attention_plan(sq: int, sk: int, d: int, group: int,
         return ok, f"flash_attention-vs-oracle: {why}"
 
 
+def certify_gemm_plan(m: int, n: int, k: int,
+                      tile_: Tuple[int, int, int], *, depth: int = 2,
+                      device=None, seed: int = 0) -> Tuple[bool, str]:
+    """Validate a plan of the tiled-GEMM template: ``tiled_gemm`` at the
+    plan's ``(bm, bn, bk)`` and ``depth`` on seeded float32 inputs of
+    ``(m, k)`` and ``(k, n)`` against ``tiled_gemm_plain`` at float32's
+    tolerances, on ``device`` (the card unless the caller names another;
+    its own stream, synchronized)."""
+    import torch
+
+    from ..device import resolve
+    from .codegen_cuda import tiled_gemm, tiled_gemm_plain
+
+    dev = resolve(device)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=gen).to(dev)
+    y = torch.randn((k, n), generator=gen).to(dev)
+    bm, bn, bk = (int(t) for t in tile_)
+    with telemetry.span("resilience.certify", kind="gemm",
+                        key=f"{m}x{n}x{k}") as sp:
+        inject("certify", "gemm")
+
+        def run():
+            return (tiled_gemm(x, y, bm=bm, bn=bn, bk=bk, depth=depth),
+                    tiled_gemm_plain(x, y, bm=bm, bn=bn, bk=bk))
+        got, want = _on_own_stream(dev, run)
+        ok, why = _outputs_match(got, want, dtype="float32")
+        sp.set(ok=ok)
+        return ok, f"tiled_gemm-vs-plain: {why}"
+
+
 def certify_scan_plan(seq: int, n: int, dh: int, chunk: int, *,
                       device=None, seed: int = 0) -> Tuple[bool, str]:
     """Validate a plan of the hand kernel ``ssd_scan``: the kernel at

@@ -1,2 +1,2 @@
-"""Entry points of the port: serving (``serve``) and the step functions
-it runs (``steps``)."""
+"""Entry points of the port: serving (``serve``), training (``train``)
+and the step functions they run (``steps``)."""

@@ -36,10 +36,11 @@ while a bounded background re-tune promotes the certified exact-shape
 winner into the cache; ``serve_continuous`` resolves its paged plan
 through the same layer, on the padded maximum length.
 
-``serve`` runs the dense, MoE, SSM and hybrid families (the recurrent
-ones prefill token by token, ``steps.make_cache_prefill_step``);
-``serve_continuous`` the dense and MoE families.  The audio and VLM
-families wait for their slice.
+``serve`` runs every family: dense, MoE, audio and VLM on the dense
+cache, SSM and hybrid token by token (``steps.make_cache_prefill_step``);
+multi-codebook prompts are ``(batch, len, n_cb)`` and codebook 0 is
+reported.  ``serve_continuous`` runs the dense and MoE families and
+raises for the others, as the reference's does.
 """
 from __future__ import annotations
 
@@ -136,11 +137,14 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
           params=None, device=None) -> np.ndarray:
     """Serve ``batch`` requests; returns the (batch, gen) generated
     tokens (requests keep their input order even when mixed prompt
-    lengths are re-grouped internally).  ``params`` defaults to
+    lengths are re-grouped internally; multi-codebook models report
+    codebook 0, as the reference does).  ``params`` defaults to
     ``model.init_params(cfg, seed)``; ``stats_out``, when given, is
     filled with prefill/decode wall times, each request's prefill
     greedy token (``"first_tokens"``: the token its first decode step
-    takes) and, with ``bucketing``, the groups' plan provenance
+    takes, ``(batch, n_cb)`` with codebooks), every codebook's
+    generated tokens (``"codebook_tokens"``, ``(batch, gen, n_cb)``)
+    and, with ``bucketing``, the groups' plan provenance
     (``_resolve_group_plans``) under ``"plans"``."""
     return _serve(get_config(arch, smoke=smoke), batch, prompt_len, gen,
                   seed=seed, prompt_lens=prompt_lens, bucketing=bucketing,
@@ -167,7 +171,8 @@ def _serve(cfg, batch: int, prompt_len: int, gen: int, *, seed: int = 0,
     step_fn = steps_mod.make_serve_step(cfg)
 
     rng = np.random.RandomState(seed)
-    prompt_pool = rng.randint(0, cfg.vocab, (batch, max(lens)))
+    ncb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    prompt_pool = rng.randint(0, cfg.vocab, (batch, max(lens)) + ncb)
 
     # group requests by prompt length: each group prefills its whole
     # prompt in one call
@@ -181,8 +186,8 @@ def _serve(cfg, batch: int, prompt_len: int, gen: int, *, seed: int = 0,
         for row in plans:
             print("plan:", row)
 
-    out = np.zeros((batch, gen), np.int64)
-    first = np.zeros(batch, np.int64)     # each prefill's greedy token
+    out = np.zeros((batch, gen) + ncb, np.int64)
+    first = np.zeros((batch,) + ncb, np.int64)  # each prefill's greedy token
     prefill_s = decode_s = 0.0
     for ln, rows in sorted(groups.items()):
         gb = len(rows)
@@ -205,7 +210,8 @@ def _serve(cfg, batch: int, prompt_len: int, gen: int, *, seed: int = 0,
         for i in range(ln, ln + gen):
             ts = time.perf_counter()
             with telemetry.span("serve.decode_step", index=i, batch=gb):
-                nxt, cache = step_fn(params, cache, nxt.reshape(gb, 1), i)
+                nxt, cache = step_fn(params, cache,
+                                     nxt.reshape((gb, 1) + ncb), i)
                 group_out.append(nxt.cpu().numpy())
             telemetry.observe("serve.decode_token_s",
                               time.perf_counter() - ts)
@@ -221,9 +227,11 @@ def _serve(cfg, batch: int, prompt_len: int, gen: int, *, seed: int = 0,
         stats_out.update(prefill_s=prefill_s, decode_s=decode_s,
                          ms_per_token=decode_s / max(batch * gen, 1) * 1e3)
         stats_out["first_tokens"] = first
+        if ncb:
+            stats_out["codebook_tokens"] = out.copy()
         if plans is not None:
             stats_out["plans"] = plans
-    return out
+    return out[..., 0] if ncb else out      # codebook 0, as the reference
 
 
 # the reference's certification tolerances (resilience.tolerances)

@@ -1,33 +1,168 @@
-"""Serve steps (the reference's ``launch/steps.py``): one decode step,
-and the cache prefill of a whole prompt (a block for the attention
-families, a token scan for the recurrent ones).
+"""Train, prefill and serve steps and the input specs of every
+(architecture x shape) cell (the reference's ``launch/steps.py``).
 
 PyTorch runs eagerly, so each ``make_*`` returns a plain function where
-the reference returns one to ``jax.jit``; the cache it is handed is
-updated in place and returned (the reference's steps donate it).  The
-train and dry-run steps wait for the training and distribution slices
-(ROADMAP §1 items 4 and 5).
+the reference returns one to ``jax.jit``.  The serve steps update the
+cache they are handed in place and return it, and the train step its
+parameters and optimizer state (the reference's steps donate them).
+Gradients come from ``torch.autograd``: the reference's forward has no
+custom derivative, and neither has the port's (attention in plain
+PyTorch, ``transformer._sdpa_chunked``).  The dry-run steps wait for the
+distribution slice (ROADMAP §1).
 """
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
 
+from ..configs.shapes import ShapeConfig
 from ..core import telemetry
 from ..models import model
 from ..models.config import ModelConfig
 from ..models.transformer import check_family
+from ..optim import adamw
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    """A shape and type record: a tensor on the ``meta`` device."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Stand-ins (``meta`` tensors, no memory) for every model input.
+
+    train/prefill: the token batch (codebook frames for audio; the VLM's
+    text after its ``frontend_tokens`` prefix rows, which come as
+    bfloat16 ``prefix_embeds``), and the labels for train.  decode: one
+    new token a row; the cache and the position are
+    ``decode_extras``."""
+    gb, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        if cfg.n_codebooks:
+            toks = _spec((gb, s, cfg.n_codebooks), i32)
+        elif cfg.family == "vlm":
+            toks = _spec((gb, s - cfg.frontend_tokens), i32)
+        else:
+            toks = _spec((gb, s), i32)
+        out = {"tokens": toks}
+        if cfg.family == "vlm":
+            out["prefix_embeds"] = _spec(
+                (gb, cfg.frontend_tokens, cfg.d_model), torch.bfloat16)
+        if shape.kind == "train":
+            out["labels"] = _spec(toks.shape, i32)
+        return out
+    if cfg.n_codebooks:
+        return {"tokens": _spec((gb, 1, cfg.n_codebooks), i32)}
+    return {"tokens": _spec((gb, 1), i32)}
+
+
+def decode_extras(cfg: ModelConfig, shape: ShapeConfig):
+    """The decode step's other inputs: the cache's specs and the scalar
+    int32 position."""
+    cache = model.cache_specs(cfg, shape.global_batch, shape.seq_len)
+    return cache, _spec((), torch.int32)
+
+
+def _on(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def value_and_grad(params, cfg: ModelConfig, batch: Dict):
+    """``(loss, grads)`` of ``model.loss`` by ``torch.autograd``: grads
+    a dict like ``params``, in their types.  A parameter the loss does
+    not read (Zamba-2's shared ``w3`` under gelu) gets zeros, as
+    ``jax.grad`` gives it."""
+    names = sorted(params)
+    leaves = [params[n] for n in names]
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss = model.loss(params, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return loss.detach(), dict(zip(names, grads))
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                    microbatches: int = 1, grad_shardings=None):
+    """``(params, opt_state, batch) -> (loss, params, opt_state)``: the
+    loss's gradients by ``torch.autograd`` and one ``adamw.update``, in
+    place.  With ``microbatches`` the batch's rows split into that many
+    slices, run one after the other; their gradients are summed in
+    float32 accumulators and their losses in float32, both divided by
+    ``microbatches``, as the reference's.  ``cfg.remat`` recomputes
+    each super-block in the backward (``layers.remat``).
+    ``grad_shardings`` is accepted and ignored, as the sharding hints
+    are on one card."""
+    with telemetry.span("steps.build.train", family=cfg.family,
+                        microbatches=microbatches):
+        check_family(cfg)
+        del grad_shardings
+
+        def train_step(params, opt_state, batch):
+            names = sorted(params)
+            dev = params[names[0]].device
+            batch = _on(batch, dev)
+            if microbatches == 1:
+                loss, grads = value_and_grad(params, cfg, batch)
+            else:
+                rows = next(iter(batch.values())).shape[0]
+                if rows % microbatches:
+                    raise ValueError(f"batch of {rows} rows does not split "
+                                     f"into {microbatches} microbatches")
+                per = rows // microbatches
+                grads = {n: torch.zeros(params[n].shape, dtype=torch.float32,
+                                        device=dev) for n in names}
+                loss = torch.zeros((), dtype=torch.float32, device=dev)
+                for i in range(microbatches):
+                    mslice = {k: v[i * per:(i + 1) * per]
+                              for k, v in batch.items()}
+                    l, g = value_and_grad(params, cfg, mslice)
+                    loss = loss + l
+                    for n in names:
+                        grads[n] += g[n].float()
+                    del g
+                loss = loss / microbatches
+                for n in names:
+                    grads[n] /= microbatches
+            params, opt_state = adamw.update(grads, opt_state, params,
+                                             opt_cfg)
+            return loss, params, opt_state
+
+        return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``(params, batch) -> logits of the last position`` (the serving
+    prefill hands only those to decode)."""
+    with telemetry.span("steps.build.prefill", family=cfg.family):
+        check_family(cfg)
+
+        @torch.no_grad()
+        def prefill_step(params, batch):
+            return model.forward(params, cfg, batch)[:, -1]
+
+        return prefill_step
 
 
 def greedy(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The greedy next token of the last position, int32 (the first of
-    tied maxima, as ``jnp.argmax`` picks it); pad vocab never wins."""
+    tied maxima, as ``jnp.argmax`` picks it); pad vocab never wins.
+    ``(B,)``, or ``(B, n_cb)`` for codebook logits (one token a
+    codebook)."""
     logits = model.mask_vocab_pad(logits, cfg)
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
 
 def make_serve_step(cfg: ModelConfig):
-    """``(params, cache, tokens (B, S), index) -> (next, cache)``: one
-    decode step (or block) and the greedy token after it."""
+    """``(params, cache, tokens (B, S[, n_cb]), index) -> (next,
+    cache)``: one decode step (or block) and the greedy token after
+    it."""
     with telemetry.span("steps.build.serve", family=cfg.family):
         check_family(cfg)
 

@@ -1,8 +1,7 @@
 """Model definitions of the port: ``config`` (``ModelConfig``, with its
-analytic parameter and FLOP counts), the dense and MoE decoder
-families (``layers``, ``moe``, ``transformer``), the SSM (Mamba-2,
-``ssm``) and hybrid (Zamba-2, ``hybrid``) families, the unified API
-(``model``), the paged KV cache and its decode step (``paged``), the
-no-op sharding hints (``sharding``) and the carrying of the reference's
-weights (``convert``).  The audio and VLM families arrive with their
-slice (ROADMAP §1)."""
+analytic parameter and FLOP counts), the dense, MoE, audio and VLM
+decoder families (``layers``, ``moe``, ``transformer``), the SSM
+(Mamba-2, ``ssm``) and hybrid (Zamba-2, ``hybrid``) families, the
+unified API with the training loss (``model``), the paged KV cache and
+its decode step (``paged``), the no-op sharding hints (``sharding``) and
+the carrying of the reference's weights (``convert``)."""

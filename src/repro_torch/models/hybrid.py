@@ -60,6 +60,18 @@ def _shared_block(shared: Dict, x: torch.Tensor, cfg: ModelConfig,
     return x + tr._dense_ffn(shared, L.rms_norm(x, shared["ln2"]), cfg)
 
 
+def _group(x, params: Params, shared: Dict, g: int, cfg: ModelConfig,
+           positions: torch.Tensor) -> torch.Tensor:
+    """Group ``g``: ``shared_attn_every`` Mamba blocks, then the shared
+    attention block (recomputed as one in the backward with
+    ``cfg.remat``, as the reference's)."""
+    every = cfg.shared_attn_every
+    for i in range(every):
+        x, _ = ssm_mod.block_forward(_m_slices(params, g * every + i), x,
+                                     cfg, prefix="m_")
+    return _shared_block(shared, x, cfg, positions)
+
+
 def forward(params: Params, cfg: ModelConfig,
             tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward: tokens (B, S) -> logits (B, S, padded
@@ -67,12 +79,8 @@ def forward(params: Params, cfg: ModelConfig,
     x = params["embed"][tokens.long()]
     positions = torch.arange(x.shape[1], device=x.device)
     shared = _shared_slice(params)
-    every = cfg.shared_attn_every
     for g in range(n_attn_apps(cfg)):
-        for i in range(every):
-            x, _ = ssm_mod.block_forward(_m_slices(params, g * every + i),
-                                         x, cfg, prefix="m_")
-        x = _shared_block(shared, x, cfg, positions)
+        x = L.remat(cfg, _group, x, params, shared, g, cfg, positions)
     x = L.rms_norm(x, params["final_norm"])
     return x @ params["lm_head"]
 

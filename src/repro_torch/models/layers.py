@@ -1,9 +1,8 @@
-"""Shared building blocks: norms, RoPE, activations and inits (the
-reference's ``models/layers.py`` in PyTorch; its ``scan_layers`` is
-``transformer.super_blocks``' loop).
-
-``causal_conv1d`` is Mamba's depthwise causal conv; ``softmax_xent``
-(training) arrives with the training slice.
+"""Shared building blocks: norms, RoPE, activations, inits, Mamba's
+depthwise causal conv and the training loss (the reference's
+``models/layers.py`` in PyTorch; its ``scan_layers`` is
+``transformer.super_blocks``' loop, and ``remat`` stands where the
+reference wraps a layer body in ``jax.checkpoint``).
 """
 from __future__ import annotations
 
@@ -11,14 +10,26 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The type a statistic of ``x`` accumulates in: float32, or float64
+    for a float64 ``x`` (the float64 runs that hold a float32 step)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def up(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in its accumulation type (``acc_dtype``)."""
+    return x.to(acc_dtype(x))
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = up(x)
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
-    return (x * (1.0 + w.float())).to(dt)
+    return (x * (1.0 + w.to(x.dtype))).to(dt)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -55,9 +66,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (..., S, H, D) rotary over D; positions: (..., S)."""
     d = x.shape[-1]
     half = d // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+    acc = acc_dtype(x)
+    freqs = theta ** (-torch.arange(0, half, dtype=acc,
                                     device=x.device) / half)
-    ang = positions[..., None].float() * freqs               # (..,S,half)
+    ang = positions[..., None].to(acc) * freqs               # (..,S,half)
     cos = torch.cos(ang)[..., None, :]                       # (..,S,1,half)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -101,3 +113,27 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     ys = sum(xp[..., i:i + s, :] * w[i] for i in range(k))
     new_state = xp[..., xp.shape[-2] - (k - 1):, :]
     return ys.to(x.dtype), new_state
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy with a z-loss on lse², accumulated in
+    float32 (float64 logits in float64): logits (..., V), integer labels
+    (...)."""
+    logits = up(logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss.mean()
+
+
+def remat(cfg, fn: Callable, x: torch.Tensor, *args) -> torch.Tensor:
+    """``fn(x, *args)``, recomputed in the backward when ``cfg.remat``
+    and autograd is recording (``torch.utils.checkpoint``, non-reentrant:
+    only ``x`` is saved, as the reference's ``jax.checkpoint`` with
+    ``nothing_saveable`` saves nothing inside the body)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, x, *args, use_reentrant=False)
+    return fn(x, *args)

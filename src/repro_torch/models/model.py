@@ -1,13 +1,13 @@
 """Unified model API (the reference's ``models/model.py``): the dense,
-MoE, SSM (Mamba-2) and hybrid (Zamba-2) families behind one interface.
+MoE, SSM (Mamba-2), hybrid (Zamba-2), audio (MusicGen: multi-codebook
+embeddings and heads) and VLM (InternVL: prefix embeddings) families
+behind one interface.
 
     shapes  = model.param_shapes(cfg)
     params  = model.init_params(cfg, seed, device)
     logits  = model.forward(params, cfg, batch)
+    loss    = model.loss(params, cfg, batch)
     logits, cache = model.decode_step(params, cfg, cache, tokens, idx)
-
-The audio and VLM families (multi-codebook heads, prefix embeddings)
-raise ``NotImplementedError`` until their slice (ROADMAP §1 item 3).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from . import layers as L
 from . import ssm as ssm_mod
 from . import transformer as tr
 from .config import ModelConfig
+from .sharding import hint_first
 
 Params = Dict[str, torch.Tensor]
 Batch = Dict[str, torch.Tensor]
@@ -76,23 +77,32 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     return out
 
 
+def _ssm_body(x, slc, cfg: ModelConfig):
+    return ssm_mod.block_forward(slc, x, cfg, prefix="m_")[0]
+
+
 def _ssm_forward(params: Params, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"][tokens.long()]
     for layer in range(cfg.n_layers):
         slc = {k: v[layer] for k, v in params.items() if k.startswith("m_")}
-        x, _ = ssm_mod.block_forward(slc, x, cfg, prefix="m_")
+        x = L.remat(cfg, _ssm_body, x, slc, cfg)
     x = L.rms_norm(x, params["final_norm"])
     return x @ params["lm_head"]
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Batch) -> torch.Tensor:
+    """Logits of ``batch["tokens"]``; the VLM puts the batch's
+    ``prefix_embeds`` (B, P, d), when it has them, ahead of its tokens."""
     tokens = batch["tokens"]
     tr.check_family(cfg)
     if cfg.family == "ssm":
         return _ssm_forward(params, cfg, tokens)
     if cfg.family == "hybrid":
         return hy.forward(params, cfg, tokens)
+    if cfg.family == "vlm":
+        return tr.forward(params, cfg, tokens,
+                          prefix_embeds=batch.get("prefix_embeds"))
     return tr.forward(params, cfg, tokens)
 
 
@@ -105,6 +115,23 @@ def mask_vocab_pad(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.where(col >= cfg.vocab,
                        torch.tensor(-1e30, dtype=logits.dtype,
                                     device=logits.device), logits)
+
+
+def loss(params: Params, cfg: ModelConfig, batch: Batch) -> torch.Tensor:
+    """Mean token cross-entropy (with the z-loss, ``layers.softmax_xent``)
+    of ``batch["labels"]``: the padded vocab is masked first; the VLM's
+    prefix positions carry no label and are dropped; codebook logits
+    (B, S, n_cb, V) take labels (B, S, n_cb)."""
+    logits = mask_vocab_pad(forward(params, cfg, batch), cfg)
+    if cfg.n_codebooks:
+        logits = hint_first(logits, [("data", None, None, "model"),
+                                     ("data", "model", None, None)])
+    else:
+        logits = hint_first(logits, [("data", None, "model"),
+                                     ("data", "model", None)])
+    if cfg.family == "vlm" and "prefix_embeds" in batch:
+        logits = logits[:, batch["prefix_embeds"].shape[1]:]
+    return L.softmax_xent(logits, batch["labels"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

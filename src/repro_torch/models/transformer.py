@@ -1,5 +1,5 @@
-"""Decoder-only transformer, dense GQA and MoE families (the reference's
-``models/transformer.py`` in PyTorch).
+"""Decoder-only transformer: the dense GQA, MoE and multimodal
+backbones (the reference's ``models/transformer.py`` in PyTorch).
 
 Params are a dict of tensors with a stacked leading layer axis, as in
 the reference, and the layer loop walks that axis in the reference's
@@ -7,16 +7,19 @@ super-block order (``super_blocks``).  Supports GQA / MQA attention with RoPE, o
 bias (Qwen-2), optional sliding window, and the swiglu, squared-ReLU
 and gelu FFNs, MoE FFN layers (every ``moe_layer_period``-th layer,
 ``models.moe``; Mixtral every layer, Llama-4 every other one with a
-shared expert); full-sequence forward and single-token (or block) decode
-with a preallocated KV cache (sliding-window configs keep a ring buffer
-of ``min(window, max_len)``).
+shared expert); multi-codebook token embeddings and heads (MusicGen:
+embeddings ``(n_cb, V, d)`` summed over the codebooks, heads
+``(n_cb, d, V)``, logits ``(B, S, n_cb, V)``) and prefix embeddings from
+a stubbed modality frontend (InternVL); full-sequence forward (training
+and prefill; ``cfg.remat`` recomputes each super-block in the backward,
+``torch.utils.checkpoint``) and single-token (or block) decode with a
+preallocated KV cache (sliding-window configs keep a ring buffer of
+``min(window, max_len)``).
 
 The decode cache is written in place and returned (the reference's
 serving steps donate it).  The recurrent families live in ``models.ssm``
 and ``models.hybrid`` (whose shared block reuses ``_attn`` and
-``_dense_ffn``); multi-codebook heads (audio) and the VLM prefix wait
-for their slice (ROADMAP §1 item 3), and their configs raise
-``NotImplementedError``.
+``_dense_ffn``).
 """
 from __future__ import annotations
 
@@ -31,25 +34,27 @@ from .sharding import hint, hint_first
 
 Params = Dict[str, Any]
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# float64 is the port's own oracle type (a float32 train step is held
+# against the same step in float64); the reference defines the others
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float64": torch.float64}
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")   # the families the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for the families the port does not run yet (audio and VLM:
-    multi-codebook heads and prefix embeddings)."""
-    if cfg.family not in FAMILIES or cfg.n_codebooks \
-            or cfg.frontend_tokens or (cfg.family == "moe") \
-            != bool(cfg.n_experts):
+    """Raise for a family the reference does not define, or an MoE
+    family without experts (and experts outside it)."""
+    if cfg.family not in FAMILIES \
+            or (cfg.family == "moe") != bool(cfg.n_experts):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family arrives with the "
-            "audio/VLM slice (ROADMAP §1 item 3)")
+            f"{cfg.name}: no {cfg.family} family with "
+            f"{cfg.n_experts} experts (families: {', '.join(FAMILIES)})")
 
 
 # ----------------------------------------------------------------- shapes
@@ -59,9 +64,10 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     nl = cfg.n_layers
     qk, kv = cfg.qk_dim, cfg.kv_dim
+    ncb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     shapes: Dict[str, Tuple[Tuple[int, ...], str]] = {
-        "embed": ((v, d), "embed"),
-        "lm_head": ((d, v), "dense"),
+        "embed": (ncb + (v, d), "embed"),
+        "lm_head": (ncb + (d, v), "dense"),
         "final_norm": ((d,), "zeros"),
         "ln1": ((nl, d), "zeros"),
         "ln2": ((nl, d), "zeros"),
@@ -184,7 +190,8 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Tiled softmax attention over query blocks of ``ATTN_CHUNK`` with
     an online softmax over key blocks of the same size: the reference's
     XLA-level flash attention, eagerly.  Masked scores are -1e30; p is
-    rounded to V's type before the PV product; float32 statistics.
+    rounded to V's type before the PV product; float32 statistics
+    (float64 for float64 inputs).
 
     q: (B, S, Hq, dh); k, v: (B, S, Hkv, dh) -> (B, S, Hq, dh)
     """
@@ -200,17 +207,18 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if s % bq != 0:
         bq = s
     scale = dh ** -0.5
+    st = dict(dtype=L.acc_dtype(q), device=q.device)
     outs = []
     for q0 in range(0, s, bq):
-        qb = q[:, q0:q0 + bq].float()
+        qb = L.up(q[:, q0:q0 + bq])
         pb = positions[q0:q0 + bq]
-        m_run = torch.full((b, hq, bq), -1e30, device=q.device)
-        l_run = torch.zeros((b, hq, bq), device=q.device)
-        acc = torch.zeros((b, hq, bq, dh), device=q.device)
+        m_run = torch.full((b, hq, bq), -1e30, **st)
+        l_run = torch.zeros((b, hq, bq), **st)
+        acc = torch.zeros((b, hq, bq, dh), **st)
         for k0 in range(0, s, bq):
             kb, vb = kq[:, k0:k0 + bq], vq[:, k0:k0 + bq]
             kp = positions[k0:k0 + bq]
-            s_ = torch.einsum("bshd,bthd->bhst", qb, kb.float()) * scale
+            s_ = torch.einsum("bshd,bthd->bhst", qb, L.up(kb)) * scale
             mask = kp[None, :] <= pb[:, None]
             if cfg.sliding_window is not None:
                 mask &= kp[None, :] > pb[:, None] - cfg.sliding_window
@@ -220,7 +228,7 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             alpha = torch.exp(m_run - m_new)
             l_run = l_run * alpha + p.sum(-1)
             acc = acc * alpha[..., None] + torch.einsum(
-                "bhst,bthd->bhsd", p.to(vb.dtype).float(), vb.float())
+                "bhst,bthd->bhsd", L.up(p.to(vb.dtype)), L.up(vb))
             m_run = m_new
         denom = torch.where(l_run == 0.0, 1.0, l_run)
         out = (acc / denom[..., None]).to(vq.dtype)
@@ -301,22 +309,51 @@ def super_blocks(params: Params, cfg: ModelConfig, *stacks):
 
 def _embed_tokens(params: Params, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    """Token embeddings (B, S, d); multi-codebook tokens (B, S, n_cb)
+    sum their codebooks' embeddings in codebook order (the EnCodec
+    frame stack), each add in the model's type, as the reference's."""
+    tokens = tokens.long()
+    if cfg.n_codebooks:
+        return sum(params["embed"][i][tokens[..., i]]
+                   for i in range(cfg.n_codebooks))
+    return params["embed"][tokens]
 
 
 def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return _proj(L.rms_norm(x, params["final_norm"]), params["lm_head"])
+    """Logits of the normed residual: (B, S, V), or (B, S, n_cb, V)
+    for codebook heads (n_cb, d, V)."""
+    x = L.rms_norm(x, params["final_norm"])
+    if params["lm_head"].dim() == 3:
+        return torch.einsum("bsd,ndv->bsnv", x, params["lm_head"])
+    return _proj(x, params["lm_head"])
 
 
-def forward(params: Params, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward.  tokens: (B, S) integers -> logits (B, S,
-    padded vocab) in the model's type."""
-    check_family(cfg)
-    x = hint(_embed_tokens(params, cfg, tokens), "data", None, None)
-    positions = torch.arange(x.shape[1], device=x.device)
-    for sl, is_moe in super_blocks(params, cfg):
+def _super_block(x, layers, cfg: ModelConfig, positions):
+    for sl, is_moe in layers:
         x, _ = _block(sl, x, cfg, positions, is_moe)
+    return x
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward.  tokens: (B, S[, n_codebooks]) integers;
+    prefix_embeds: (B, P, d) from the stubbed modality frontend, put
+    ahead of the tokens in the model's type -> logits (B, P + S[, n_cb],
+    padded vocab) in the model's type.  With ``cfg.remat`` and autograd
+    recording, each super-block (``period`` layers) is recomputed in the
+    backward (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint`` saves nothing inside one)."""
+    check_family(cfg)
+    x = _embed_tokens(params, cfg, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x = hint(x, "data", None, None)
+    positions = torch.arange(x.shape[1], device=x.device)
+    period = cfg.moe_layer_period if cfg.n_experts else 1
+    layers = list(super_blocks(params, cfg))
+    for i in range(0, len(layers), period):
+        x = L.remat(cfg, _super_block, x, layers[i:i + period], cfg,
+                    positions)
     return _head(params, x)
 
 
@@ -355,7 +392,7 @@ def cache_specs(cfg: ModelConfig, batch: int,
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
                 tokens: torch.Tensor, index: int):
-    """One decode step.  tokens: (B, S); index: the current position
+    """One decode step.  tokens: (B, S[, n_codebooks]); index: the current position
     (number of tokens already in the cache).  ``S > 1`` is block decode
     (the whole-prompt prefill): the S tokens are written to the cache
     contiguously at ``index`` and attend causally among themselves and

@@ -1752,3 +1752,111 @@ def test_groupby_fold_as_llama4s_router():
     assert gbf.groupby_fold.shared_launches == before + 1
     assert torch.equal(out, torch.bincount(keys, minlength=128).float())
     assert torch.equal(out, ops.groupby(keys, ones, 128))
+
+
+# ------------------------------------------ the compiler's GEMM, training
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 512, 512), (1024, 512, 768)])
+def test_lower_auto_gemm_launches_the_template(shape):
+    """``lower_auto(gemm)`` on the card plans in the template's space and
+    launches ``tiled_gemm`` once, as its plain version computes."""
+    _card()
+    p, _, make_inputs, reference = an.gemm(*shape)
+    host = make_inputs()
+    kern = cc.lower_auto(p, cache=False)
+    plan = kern.tile_plan
+    (bm, bn), (bk,) = plan.sizes["gemm"], plan.sizes["gemm_k"]
+    assert plan.vmem_bytes == cc.gemm_layout(bm, bn, bk,
+                                             plan.depth).smem_bytes
+    inp = {k: torch.as_tensor(v).cuda() for k, v in host.items()}
+    before = cc.tiled_gemm.launches
+    out = kern(**inp)
+    torch.cuda.synchronize()
+    assert cc.tiled_gemm.launches == before + 1
+    plain = cc.tiled_gemm_plain(inp["x"], inp["y"], bm=bm, bn=bn, bk=bk)
+    np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(out.cpu().numpy(), reference(host), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["musicgen-medium", "internvl2-1b"])
+def test_audio_vlm_serve_on_the_card_matches_the_cpu(arch):
+    """SMOKE in float32: the card's dense-cache tokens, every codebook,
+    are the CPU's."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    cfg = get_config(arch, smoke=True).with_(dtype="float32")
+    params = model.init_params(cfg, 0, "cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        stats = {}
+        toks = serve._serve(cfg, 3, 0, 4, prompt_lens=[6, 4, 6],
+                            params={k: v.to(dev) for k, v in params.items()},
+                            device=dev, stats_out=stats)
+        out[dev] = stats.get("codebook_tokens", toks)
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "musicgen-medium",
+                                  "internvl2-1b"])
+def test_train_step_on_the_card_matches_the_cpu(arch):
+    """One float32 train step (remat on) on the card against the CPU's:
+    the loss at 2e-3, both moments at 2e-3 x their largest values (the
+    first moment is the clipped gradient, scaled); the parameters
+    updated and finite.  The parameters are not compared elementwise: Adam's
+    first step maps a gradient element g to g / (|g| + eps), which for
+    elements near eps turns float32 rounding into percent changes."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+
+    cfg = get_config(arch, smoke=True).with_(dtype="float32", remat=True)
+    opt = adamw.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    batch = TokenPipeline(vocab=cfg.vocab, global_batch=2, seq_len=16,
+                          n_codebooks=cfg.n_codebooks).next_batch()
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = np.zeros(
+            (2, cfg.frontend_tokens, cfg.d_model), np.float32)
+    base = model.init_params(cfg, 0, "cpu")
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev, copy=True) for k, v in base.items()}  # in place
+        s = adamw.init(p, opt)
+        loss, p, s = steps.make_train_step(cfg, opt)(p, s, batch)
+        got[dev] = (float(loss), p, s)
+    assert abs(got["cuda"][0] - got["cpu"][0]) <= 2e-3 * abs(got["cpu"][0])
+    assert any(not torch.equal(got["cuda"][1][k].cpu(), base[k])
+               for k in base)
+    for k in base:
+        assert bool(torch.isfinite(got["cuda"][1][k]).all())
+        for a, b in ((got["cuda"][2].m[k], got["cpu"][2].m[k]),
+                     (got["cuda"][2].v[k], got["cpu"][2].v[k])):
+            want = b.float().numpy()
+            np.testing.assert_allclose(
+                a.float().cpu().numpy(), want, rtol=2e-3,
+                atol=2e-3 * max(float(np.abs(want).max()), 1e-30))
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_card_tensors_restores_bit_for_bit(tmp_path):
+    _card()
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.optim import adamw
+
+    p = {"w": torch.randn(8, 4, device="cuda").to(torch.bfloat16),
+         "b": torch.randn(4, device="cuda")}
+    s = adamw.init(p, adamw.AdamWConfig())
+    s.m["w"].normal_()
+    ckpt.save(str(tmp_path), 3, (p, s, {"step": 3, "seed": 1}))
+    like = ({k: torch.zeros_like(v) for k, v in p.items()},
+            adamw.init(p, adamw.AdamWConfig()), {"step": 0, "seed": 0})
+    q, t, d = ckpt.restore(str(tmp_path), 3, like)
+    assert d == {"step": 3, "seed": 1} and q["w"].is_cuda
+    assert torch.equal(q["w"], p["w"]) and torch.equal(t.m["w"], s.m["w"])

@@ -317,3 +317,86 @@ def test_kernel_plans_are_priced_not_timed(monkeypatch):
     assert not got[1].measured
     assert any(e.kind == "lower-unsupported" and e.action == "fallback"
                for e in resilience.LOG.events())
+
+
+# ------------------------------------- the tiled GEMM's own space on the card
+GEMM_SHAPES = [(512, 512, 512), (4096, 4096, 4096), (2048, 1024, 768)]
+
+
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=str)
+def test_card_gemm_plan_lowers_to_the_template(shape):
+    """On the H100 tier ``lower_auto(gemm)`` plans in the template's own
+    space: the tiled IR is the Table 3 form ``match_tiled_gemm`` takes,
+    and the plan's charge is the shared bytes the launch allocates
+    (``gemm_layout``, padding included)."""
+    from repro_torch.core import codegen_cuda as cc
+    from repro_torch.core.strip_mine import tile
+
+    p = dse.gemm_program(*shape)
+    call = cc.lower_auto(p, device="cpu", tier=cost.H100_SXM, cache=False)
+    plan = call.tile_plan
+    (bm, bn), (bk,) = plan.sizes["gemm"], plan.sizes["gemm_k"]
+    assert cc.match_tiled_gemm(tile(p, plan.sizes,
+                                    vmem_budget_words=H100_BUDGET // 4))
+    assert plan.vmem_bytes == cc.gemm_layout(bm, bn, bk,
+                                             plan.depth).smem_bytes
+    assert plan.vmem_bytes <= H100_BUDGET and bk < shape[2]
+    assert call.source == cc.gemm_source(bm, bn, bk, plan.depth)
+    m, n, k = shape
+    assert plan.traffic_words == m * k * (n // bn) + k * n * (m // bm) \
+        + m * n
+    if m == 512:        # the lowered call computes the product
+        x = np.random.RandomState(0).randn(m, k).astype(np.float32)
+        y = np.random.RandomState(1).randn(k, n).astype(np.float32)
+        np.testing.assert_allclose(call(x=x, y=y).numpy(), x @ y,
+                                   rtol=2e-3, atol=2e-3)
+
+
+def test_card_gemm_space_is_the_templates():
+    """Every candidate of the space is a tile the template takes at the
+    extents, at every depth of ``DEPTHS``, charged ``gemm_layout``; the
+    reference's tier keeps the reference's search."""
+    from repro_torch.core import codegen_cuda as cc
+
+    p = dse.gemm_program(2048, 1024, 768)
+    kernel = dse.template_kernel(p, cost.H100_SXM)
+    assert dse.template_kernel(p, cost.TPU) is None
+    assert dse.template_kernel(dse.filter_reduce_program(4096),
+                               cost.H100_SXM) is None
+    assert kernel.depths == dse.DEPTHS and kernel.lowers
+    for sizes in kernel.combos():
+        (bm, bn), (bk,) = sizes["gemm"], sizes["gemm_k"]
+        lay = cc.gemm_layout(bm, bn, bk, 2)
+        assert 2048 % bm == 0 and 1024 % bn == 0 and 768 % bk == 0
+        assert bm % lay.tm == 0 and bn % lay.tn == 0
+        assert lay.threads <= dse.GEMM_MAX_THREADS and bk < 768
+        for d in kernel.depths:
+            assert kernel.charge(sizes, d) == cc.gemm_layout(
+                bm, bn, bk, d).smem_bytes
+    with pytest.raises(ValueError, match="takes no tile"):
+        dse.explore(dse.gemm_program(250, 256, 256), tier=cost.H100_SXM,
+                    kernel=dse.template_kernel(
+                        dse.gemm_program(250, 256, 256), cost.H100_SXM),
+                    cache=False)
+
+
+def test_card_gemm_measured_winner_is_certified(tmp_path):
+    """Measured mode in the template's space times the candidates (the
+    CPU runs the plain version) and ships a winner certified by
+    ``certify_gemm_plan`` -- no ``lower-unsupported`` fallback."""
+    from repro_torch.core import resilience
+
+    p = dse.gemm_program(256, 256, 256)
+    resilience.LOG.reset()
+    plan = dse.explore(p, tier=cost.H100_SXM, device="cpu",
+                       kernel=dse.template_kernel(p, cost.H100_SXM),
+                       measure="top_k", cache=str(tmp_path / "c.json"),
+                       timing_db=str(tmp_path / "t.json"), repeat=1,
+                       warmup=0)
+    assert plan.measured and plan.timed >= 1
+    assert not [e for e in resilience.LOG.events()
+                if e.kind == "lower-unsupported"]
+    ok, why = resilience.certify_gemm_plan(
+        256, 256, 256, plan.sizes["gemm"] + plan.sizes["gemm_k"],
+        depth=plan.depth, device="cpu")
+    assert ok, why

@@ -14,9 +14,9 @@ as the SSD's bfloat16 test holds its output.  An elementwise 2e-2 does
 not hold in bfloat16: the two frameworks round the products' sums in
 other orders, and after two layers 0.3-0.7% of the logits (those near
 zero) differ by up to 0.055 on a scale of 4.  Parameter shapes are
-equal (dense, MoE, SSM and hybrid; the recurrent families' numerics are
-``test_torch_ssm.py``'s); the audio and VLM families, which the port
-does not run yet, raise ``NotImplementedError``.
+equal for every family (the recurrent families' numerics are
+``test_torch_ssm.py``'s, the audio and VLM families'
+``test_torch_audio_vlm.py``'s).
 """
 import jax
 import jax.numpy as jnp
@@ -191,18 +191,20 @@ def test_decode_step_writes_the_ring_buffer_of_a_sliding_window():
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_param_shapes_match_jax_or_raise(arch):
+    """Every family of ``ARCHS`` has the reference's parameter shapes
+    (audio and VLM included since their slice); a family the reference
+    does not define raises."""
     cfg, jcfg = get_config(arch, smoke=True), jget_config(arch, smoke=True)
-    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
-        assert model.param_shapes(cfg) == jmodel.param_shapes(jcfg)
-        assert model.param_shapes(get_config(arch)) \
-            == jmodel.param_shapes(jget_config(arch))
-        return
-    for fn in (lambda: model.param_shapes(cfg),
-               lambda: model.init_params(cfg, 0, "cpu"),
-               lambda: model.init_cache(cfg, 1, 8, device="cpu"),
-               lambda: model.forward({}, cfg, {"tokens": torch.zeros(
+    assert model.param_shapes(cfg) == jmodel.param_shapes(jcfg)
+    assert model.param_shapes(get_config(arch)) \
+        == jmodel.param_shapes(jget_config(arch))
+    bad = cfg.with_(family="speech")
+    for fn in (lambda: model.param_shapes(bad),
+               lambda: model.init_params(bad, 0, "cpu"),
+               lambda: model.init_cache(bad, 1, 8, device="cpu"),
+               lambda: model.forward({}, bad, {"tokens": torch.zeros(
                    (1, 2), dtype=torch.int32)})):
-        with pytest.raises(NotImplementedError, match="audio/VLM slice"):
+        with pytest.raises(NotImplementedError, match="no speech family"):
             fn()
 
 
