@@ -3645,6 +3645,190 @@ def run_train(torch, dev, where: Path) -> None:
           f"{time.perf_counter() - t2:.1f} s)", flush=True)
 
 
+# [dist]: the meshed train step against the plain one, the dry run of it
+DIST_STEPS = 3
+DIST_TOL = 2e-3              # the f32 rule, where meshed and plain differ
+# the production cells the dry run prints: (arch, shape, multi-pod)
+DIST_CELLS = (("granite-3-2b", "train_4k", False),
+              ("qwen2-72b", "decode_32k", True))
+DIST_CELL_TIMEOUT_S = 300
+
+
+def dist_steps(label: str, step, params, state, batches, torch, dev):
+    """Run ``step`` over ``batches`` from ``params`` / ``state``: (losses,
+    ms a step on the host clock, synchronized; peak device memory)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        loss, params, state = step(params, state, batch)
+        loss = loss.full_tensor() if hasattr(loss, "full_tensor") else loss
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[dist] {label}: losses {losses}; step ms "
+          f"{[round(t, 1) for t in ms]}; peak device memory "
+          f"{peak / 1e9:.2f} GB", flush=True)
+    return losses, ms, peak
+
+
+def dist_cells(src: Path) -> None:
+    """The production cells of DIST_CELLS, each ``python -m
+    repro_torch.launch.dryrun`` in a subprocess (a fake world on the
+    host: 256 or 512 ranks, no device), under DIST_CELL_TIMEOUT_S."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(src))
+    for arch, shape, multi_pod in DIST_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape] + (["--multi-pod"] if multi_pod
+                                          else [])
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, env=env, capture_output=True,
+                                  text=True, timeout=DIST_CELL_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"dist: the dry run of {arch} {shape} took over "
+                 f"{DIST_CELL_TIMEOUT_S} s")
+        secs = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            fail(f"dist: the dry run of {arch} {shape} exited "
+                 f"{proc.returncode}: {(lines or [''])[-1][:400]} "
+                 f"{proc.stderr[-800:]}")
+        rec = json.loads(lines[-1])
+        print(f"[dist] dry run {arch} {shape} on {rec['mesh']}: "
+              f"{secs:.1f} s: {json.dumps(rec)}", flush=True)
+
+
+def run_dist(torch, dev, where: Path) -> None:
+    """``[dist]``: a real NCCL group of one rank (a ``FileStore`` in
+    ``where``, no port) and its (1, 1) ("data", "model") CUDA mesh.
+    granite-3-2b at full width and depth (bf16, remat, TRAIN_BATCH x
+    TRAIN_SEQ) takes DIST_STEPS steps from the same weights and batches
+    through the plain step, then through the meshed one: parameters
+    placed by ``param_sharding``, optimizer state by
+    ``opt_state_sharding``, the batch by ``batch_sharding``,
+    ``grad_shardings`` and the hints on.  Losses and every parameter
+    after the last step must be bitwise equal, or within DIST_TOL (rtol
+    and atol).  The dry run of the same step on this mesh must count
+    exactly the bytes of the parameters, optimizer state and batch on
+    the card; its temp plus argument bytes are printed beside the meshed
+    step's peak memory.  Then the production cells (``dist_cells``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun, shard_rules, steps
+    from repro_torch.models.sharding import use_mesh_hints
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    opt = adamw.AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    batches = [train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed, dev)
+               for seed in range(DIST_STEPS)]
+    params = make_params("dist", cfg, torch, dev)
+    plain_losses, plain_ms, plain_peak = dist_steps(
+        "plain step", steps.make_train_step(cfg, opt), params,
+        adamw.init(params, opt), batches, torch, dev)
+    want = {k: v.cpu() for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+
+    where.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(where / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+
+        def placed(tree, shardings):
+            # one rank: each local shard is the whole tensor
+            return {k: DTensor.from_local(v, mesh, shardings[k].placements,
+                                          run_check=False)
+                    for k, v in tree.items()}
+
+        params = make_params("dist", cfg, torch, dev)
+        psh = shard_rules.param_sharding(cfg, mesh, params)
+        zeros = adamw.init(params, opt)
+        osh = shard_rules.opt_state_sharding(
+            cfg, mesh, params, adamw.state_specs(params, opt))
+        params = placed(params, psh)
+        state = adamw.AdamWState(
+            DTensor.from_local(zeros.step, mesh, osh.step.placements,
+                               run_check=False),
+            placed(zeros.m, osh.m), placed(zeros.v, osh.v), None)
+        meshed = [placed(b, shard_rules.batch_sharding(mesh, b))
+                  for b in batches]
+        step = steps.make_train_step(cfg, opt, grad_shardings=psh)
+        with use_mesh_hints(mesh):
+            losses, ms, peak = dist_steps("meshed step (1x1 mesh)", step,
+                                          params, state, meshed, torch, dev)
+        same = losses == plain_losses
+        worst, diff, n_diff = 0.0, 0.0, 0
+        for k, w in want.items():
+            got = params[k].to_local()
+            w = w.to(dev)
+            if not torch.equal(got, w):
+                same = False
+                n_diff += 1
+                d = (got.double() - w.double()).abs()
+                diff = max(diff, float(d.max()))
+                worst = max(worst, float(
+                    (d / (DIST_TOL + DIST_TOL * w.double().abs())).max()))
+        loss_err = max(abs(a - b) for a, b in zip(losses, plain_losses))
+        print(f"[dist] meshed vs plain after {DIST_STEPS} steps: "
+              f"{'bitwise equal' if same else 'not bitwise'}; losses "
+              f"{losses} vs {plain_losses} (max abs diff {loss_err:.3g}); "
+              f"{n_diff} of {len(want)} parameters differ, max abs diff "
+              f"{diff:.3g}, worst over the f32 rule {worst:.3g}; ms a step "
+              f"(steps 2..{DIST_STEPS}) meshed "
+              f"{[round(t, 1) for t in ms[1:]]} plain "
+              f"{[round(t, 1) for t in plain_ms[1:]]}; peak "
+              f"{peak / 1e9:.2f} GB meshed, {plain_peak / 1e9:.2f} GB plain",
+              flush=True)
+        if not same and (worst > 1.0 or any(
+                abs(a - b) > DIST_TOL + DIST_TOL * abs(b)
+                for a, b in zip(losses, plain_losses))):
+            fail("dist: the meshed step is not the plain step within "
+                 f"{DIST_TOL}")
+
+        on_card = sum(t.to_local().numel() * t.to_local().element_size()
+                      for t in (list(params.values()) + [state.step]
+                                + list(state.m.values())
+                                + list(state.v.values())
+                                + list(meshed[0].values())))
+        t0 = time.perf_counter()
+        shape = ShapeConfig(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", "train",
+                            TRAIN_SEQ, TRAIN_BATCH)
+        rec = dryrun.cell_cost(cfg, shape, mesh)
+        mem = rec["memory_per_device"]
+        predicted = mem["temp_bytes"] + mem["argument_bytes"]
+        print(f"[dist] dry run of the same step on the 1x1 mesh "
+              f"({time.perf_counter() - t0:.1f} s): argument_bytes "
+              f"{mem['argument_bytes']}, on the card {on_card}; temp + "
+              f"argument bytes {predicted} ({predicted / 1e9:.2f} GB) vs "
+              f"the meshed step's max_memory_allocated {peak} "
+              f"({peak / 1e9:.2f} GB): ratio {predicted / peak:.4f}; "
+              f"flops {rec['cost_per_device']['flops']:.6g}, collectives "
+              f"{ {k: v['count'] for k, v in rec['collectives'].items() if isinstance(v, dict)} }",
+              flush=True)
+        if mem["argument_bytes"] != on_card:
+            fail(f"dist: the dry run counts {mem['argument_bytes']} argument "
+                 f"bytes, the card holds {on_card}")
+        del params, state, meshed, zeros
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    dist_cells(Path(__file__).resolve().parent / "src")
+    print(f"[dist] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 TUNING_PROGRAMS = ("outerprod", "gda", "gemm", "filter")
 
 
@@ -3903,6 +4087,9 @@ def main() -> int:
     if sys.argv[1:] == ["--tuning"]:    # the measured-DSE phase alone
         run_tuning(tier, torch, dev, stores / "tuning")
         return 0
+    if sys.argv[1:] == ["--dist"]:      # the distribution phase alone
+        run_dist(torch, dev, stores / "dist")
+        return 0
     if sys.argv[1:] == ["--models"]:    # the audio, VLM and train phases
         run_media("audio", "musicgen-medium", tier, torch, dev)
         run_media("vlm", "internvl2-1b", tier, torch, dev)
@@ -4079,6 +4266,7 @@ def main() -> int:
     run_media("audio", "musicgen-medium", tier, torch, dev)
     run_media("vlm", "internvl2-1b", tier, torch, dev)
     run_train(torch, dev, stores / "train")
+    run_dist(torch, dev, stores / "dist")
     run_tuning(tier, torch, dev, stores / "tuning")
 
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,12 @@ reference's ``checkpoint/manager.py`` in PyTorch).
     ``ml_dtypes``;
   * ``AsyncCheckpointer`` copies the tensors to the host, then writes on
     a background thread (a bounded queue of 1: a save waits only while
-    the previous one is still in flight).
+    the previous one is still in flight);
+  * DTensor leaves are gathered whole on every rank of their mesh (a
+    collective: every rank saves), and rank 0 of the default process
+    group writes; ``restore(..., shardings=)`` places each leaf on a
+    mesh by ``distribute_tensor`` -- the elastic path: a checkpoint
+    written on one mesh loads onto another.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..models.sharding import is_dtensor
 
 # types numpy cannot hold: stored as bit patterns of the same width
 # (stored, signed numpy, signed torch, logical type)
@@ -58,10 +65,20 @@ def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
     return [("/".join(path), tree)]
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the default
+    process group, or a process without one."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_numpy(leaf: Any) -> np.ndarray:
     """A leaf as the host array stored for it (bit patterns for the
-    types ``_VIEW_AS`` names)."""
+    types ``_VIEW_AS`` names); a DTensor whole (``full_tensor``)."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         # a copy on the host: the caller may overwrite the tensor next
         t = leaf.detach().to("cpu", copy=True)
         name = _dtype_name(t)
@@ -111,8 +128,17 @@ def _save_host(directory: str, step: int,
 def save(directory: str, step: int, tree: Any) -> str:
     """Atomic synchronous save of ``tree`` (tensors, numpy arrays and
     Python numbers in dicts, tuples and named tuples); returns the final
-    path."""
-    return _save_host(directory, step, _flatten(tree))
+    path.  With a default process group every rank calls it (DTensor
+    leaves are gathered by all), rank 0 writes and all wait for it."""
+    import torch.distributed as dist
+
+    arrays = _flatten(tree)
+    final = os.path.join(directory, f"step-{step}")
+    if _writes():
+        final = _save_host(directory, step, arrays)
+    if dist.is_initialized():
+        dist.barrier()
+    return final
 
 
 def _verify(path: str) -> Optional[Dict]:
@@ -140,7 +166,10 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _restore_leaf(arr: np.ndarray, logical: str, like: Any, key: str):
+def _restore_leaf(arr: np.ndarray, logical: str, like: Any, key: str,
+                  on_like: bool = True):
+    """One leaf from its stored array: a tensor of ``like``'s shape and
+    type, on ``like``'s device where ``on_like`` (else on the host)."""
     if not isinstance(like, torch.Tensor):
         return arr.item() if isinstance(like, (int, float)) else arr
     if logical in _VIEW_AS:
@@ -152,7 +181,7 @@ def _restore_leaf(arr: np.ndarray, logical: str, like: Any, key: str):
     if tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
                          f"{tuple(like.shape)}")
-    return t.to(device=like.device, dtype=like.dtype)
+    return t.to(device=like.device if on_like else "cpu", dtype=like.dtype)
 
 
 def _unflatten(like: Any, leaves: Dict[str, Any],
@@ -172,20 +201,41 @@ def _unflatten(like: Any, leaves: Dict[str, Any],
     return leaves["/".join(path)]
 
 
-def restore(directory: str, step: int, like: Any) -> Any:
+def _place(t: torch.Tensor, like: Any, sharding: Any) -> torch.Tensor:
+    """``t`` (whole) placed by ``sharding`` (a ``shard_rules.Sharding``),
+    else as the DTensor ``like`` is."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if sharding is None:
+        mesh, place = like.device_mesh, like.placements
+    else:
+        mesh, place = sharding.mesh, sharding.placements
+    return distribute_tensor(t.to(mesh.device_type), mesh, list(place))
+
+
+def restore(directory: str, step: int, like: Any,
+            shardings: Optional[Any] = None) -> Any:
     """Restore into new tensors of the structure of ``like``: each
     tensor leaf takes its shape, type and device from ``like``'s, each
-    Python number leaf comes back as a Python number.  Raises
-    ``IOError`` for a torn or missing checkpoint."""
+    Python number leaf comes back as a Python number.  ``shardings``
+    (a tree of ``shard_rules.Sharding`` like ``like``) places each
+    tensor on its mesh by ``distribute_tensor`` (every rank of the mesh
+    restores); a DTensor leaf of ``like`` without one is placed as that
+    leaf is.  Raises ``IOError`` for a torn or missing checkpoint."""
     path = os.path.join(directory, f"step-{step}")
     manifest = _verify(path)
     if manifest is None:
         raise IOError(f"checkpoint {path} is torn or missing")
     with np.load(os.path.join(path, "shards.npz")) as z:
         arrays = {k: z[k] for k in z.files}
-    leaves = {key: _restore_leaf(arrays[key], manifest["dtypes"][key], leaf,
-                                 key)
-              for key, leaf in _leaves(like)}
+    where = dict(_leaves(shardings)) if shardings is not None else {}
+    leaves = {}
+    for key, leaf in _leaves(like):
+        sh = where.get(key)
+        placed = sh is not None or is_dtensor(leaf)
+        t = _restore_leaf(arrays[key], manifest["dtypes"][key], leaf, key,
+                          on_like=not placed)
+        leaves[key] = _place(t, leaf, sh) if placed else t
     return _unflatten(like, leaves)
 
 
@@ -215,7 +265,9 @@ class AsyncCheckpointer:
         tensors in the next step), write it in the background."""
         if self._err:
             raise self._err
-        self._q.put((step, _flatten(tree)))  # blocks if previous in flight
+        arrays = _flatten(tree)
+        if _writes():
+            self._q.put((step, arrays))  # blocks if previous in flight
 
     def close(self) -> None:
         self._q.put(None)

@@ -7,8 +7,11 @@ cache they are handed in place and return it, and the train step its
 parameters and optimizer state (the reference's steps donate them).
 Gradients come from ``torch.autograd``: the reference's forward has no
 custom derivative, and neither has the port's (attention in plain
-PyTorch, ``transformer._sdpa_chunked``).  The dry-run steps wait for the
-distribution slice (ROADMAP §1).
+PyTorch, ``transformer._sdpa_chunked``).  The steps take DTensors as
+they take tensors: ``launch.dryrun`` runs them on ``meta`` shards of a
+production mesh, and a meshed train step on the card places its
+parameters by ``launch.shard_rules``, under ``models.sharding.
+use_mesh_hints``.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from ..configs.shapes import ShapeConfig
 from ..core import telemetry
 from ..models import model
 from ..models.config import ModelConfig
+from ..models.sharding import is_dtensor
 from ..models.transformer import check_family
 from ..optim import adamw
 
@@ -88,6 +92,25 @@ def value_and_grad(params, cfg: ModelConfig, batch: Dict):
     return loss.detach(), dict(zip(names, grads))
 
 
+def _accumulator(param: torch.Tensor, sharding) -> torch.Tensor:
+    """A float32 zero gradient accumulator for ``param``: plain, or, for
+    a DTensor parameter, a DTensor of local zeros placed by ``sharding``
+    (a ``shard_rules.Sharding``) or else as the parameter."""
+    if not is_dtensor(param):
+        return torch.zeros(param.shape, dtype=torch.float32,
+                           device=param.device)
+    from torch.distributed.tensor import DTensor
+
+    if sharding is None:
+        place, shape = param.placements, param.to_local().shape
+    else:
+        place, shape = sharding.placements, sharding.shard_shape(param.shape)
+    return DTensor.from_local(
+        torch.zeros(shape, dtype=torch.float32, device=param.device),
+        param.device_mesh, place, run_check=False, shape=param.shape,
+        stride=param.stride())
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     microbatches: int = 1, grad_shardings=None):
     """``(params, opt_state, batch) -> (loss, params, opt_state)``: the
@@ -97,12 +120,23 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     float32 accumulators and their losses in float32, both divided by
     ``microbatches``, as the reference's.  ``cfg.remat`` recomputes
     each super-block in the backward (``layers.remat``).
-    ``grad_shardings`` is accepted and ignored, as the sharding hints
-    are on one card."""
+    ``grad_shardings`` (name -> ``shard_rules.Sharding``, as the
+    parameters') pins the float32 accumulators of DTensor parameters:
+    each is made with those placements, and each microbatch's gradient
+    is redistributed to them before it is added (the reference's
+    ``with_sharding_constraint`` on the carried accumulators).  Without
+    it, or with plain tensors, the step is unchanged."""
     with telemetry.span("steps.build.train", family=cfg.family,
                         microbatches=microbatches):
         check_family(cfg)
-        del grad_shardings
+        shardings = grad_shardings or {}
+
+        def pin(name: str, g: torch.Tensor) -> torch.Tensor:
+            sh = shardings.get(name)
+            if (sh is None or not is_dtensor(g)
+                    or tuple(g.placements) == sh.placements):
+                return g
+            return g.redistribute(g.device_mesh, sh.placements)
 
         def train_step(params, opt_state, batch):
             names = sorted(params)
@@ -116,8 +150,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     raise ValueError(f"batch of {rows} rows does not split "
                                      f"into {microbatches} microbatches")
                 per = rows // microbatches
-                grads = {n: torch.zeros(params[n].shape, dtype=torch.float32,
-                                        device=dev) for n in names}
+                grads = {n: _accumulator(params[n], shardings.get(n))
+                         for n in names}
                 loss = torch.zeros((), dtype=torch.float32, device=dev)
                 for i in range(microbatches):
                     mslice = {k: v[i * per:(i + 1) * per]
@@ -125,7 +159,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     l, g = value_and_grad(params, cfg, mslice)
                     loss = loss + l
                     for n in names:
-                        grads[n] += g[n].float()
+                        grads[n] += pin(n, g[n].float())
                     del g
                 loss = loss / microbatches
                 for n in names:
@@ -155,8 +189,10 @@ def greedy(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     tied maxima, as ``jnp.argmax`` picks it); pad vocab never wins.
     ``(B,)``, or ``(B, n_cb)`` for codebook logits (one token a
     codebook)."""
-    logits = model.mask_vocab_pad(logits, cfg)
-    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    from ..models.sharding import unsharded
+
+    logits = unsharded(model.mask_vocab_pad(logits, cfg)[:, -1], -1)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def make_serve_step(cfg: ModelConfig):

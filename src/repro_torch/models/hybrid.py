@@ -16,6 +16,7 @@ from . import layers as L
 from . import ssm as ssm_mod
 from . import transformer as tr
 from .config import ModelConfig
+from .sharding import hint, project
 
 Params = Dict[str, Any]
 
@@ -69,20 +70,21 @@ def _group(x, params: Params, shared: Dict, g: int, cfg: ModelConfig,
     for i in range(every):
         x, _ = ssm_mod.block_forward(_m_slices(params, g * every + i), x,
                                      cfg, prefix="m_")
-    return _shared_block(shared, x, cfg, positions)
+    x = _shared_block(shared, x, cfg, positions)
+    return hint(x, "data", "model", None)  # sequence parallelism
 
 
 def forward(params: Params, cfg: ModelConfig,
             tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward: tokens (B, S) -> logits (B, S, padded
     vocab) in the model's type."""
-    x = params["embed"][tokens.long()]
+    x = L.embed(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     shared = _shared_slice(params)
     for g in range(n_attn_apps(cfg)):
         x = L.remat(cfg, _group, x, params, shared, g, cfg, positions)
     x = L.rms_norm(x, params["final_norm"])
-    return x @ params["lm_head"]
+    return project(x, params["lm_head"])
 
 
 # ------------------------------------------------------------------ decode
@@ -118,7 +120,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
     Mamba layers' recurrent steps, each shared-block application
     attending over its own KV slot.  The cache is updated in place;
     returns ``(logits, cache)``."""
-    x = params["embed"][tokens.long()]
+    x = L.embed(params["embed"], tokens)
     index = int(index)
     positions = torch.full((1,), index, dtype=torch.int32, device=x.device)
     shared = _shared_slice(params)
@@ -137,4 +139,4 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
                           kv_cache=(cache["k"][g], cache["v"][g]),
                           cache_index=index)
     x = L.rms_norm(x, params["final_norm"])
-    return x @ params["lm_head"], cache
+    return project(x, params["lm_head"]), cache

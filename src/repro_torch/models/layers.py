@@ -95,6 +95,16 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.bfloat16,
     return (w * 0.02).to(dtype)
 
 
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` (V, d) at integer ``tokens``; on a mesh,
+    ``sharding.vocab_parallel_embed``."""
+    from .sharding import is_dtensor, vocab_parallel_embed
+
+    if is_dtensor(table):
+        return vocab_parallel_embed(table, tokens.long())
+    return table[tokens.long()]
+
+
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                   state: Optional[torch.Tensor] = None):
     """Depthwise causal conv (Mamba).  x: (B, S, C); w: (K, C).
@@ -115,6 +125,20 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     return ys.to(x.dtype), new_state
 
 
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The labels' logits.  A DTensor, whose vocab dim may be sharded,
+    takes them as a sum over the vocab of the logits where the column is
+    the label and zero elsewhere: each rank sums its own columns (no
+    gather of the logits), and the sum of one value and zeros is that
+    value, so this equals the gather bit for bit."""
+    from .sharding import is_dtensor, last_dim_index
+
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    col = last_dim_index(logits)
+    return torch.where(col == labels[..., None], logits, 0.0).sum(-1)
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  z_loss: float = 1e-4) -> torch.Tensor:
     """Mean token cross-entropy with a z-loss on lse², accumulated in
@@ -122,7 +146,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     (...)."""
     logits = up(logits)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = _gold(logits, labels.long())
     loss = lse - gold
     if z_loss:
         loss = loss + z_loss * torch.square(lse)

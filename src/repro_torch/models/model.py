@@ -4,6 +4,7 @@ embeddings and heads) and VLM (InternVL: prefix embeddings) families
 behind one interface.
 
     shapes  = model.param_shapes(cfg)
+    specs   = model.param_specs(cfg)
     params  = model.init_params(cfg, seed, device)
     logits  = model.forward(params, cfg, batch)
     loss    = model.loss(params, cfg, batch)
@@ -20,7 +21,7 @@ from . import layers as L
 from . import ssm as ssm_mod
 from . import transformer as tr
 from .config import ModelConfig
-from .sharding import hint_first
+from .sharding import hint_first, last_dim_index, project
 
 Params = Dict[str, torch.Tensor]
 Batch = Dict[str, torch.Tensor]
@@ -50,6 +51,14 @@ def param_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
     if name.startswith("m_") and name[2:] in ssm_mod.FLOAT32_PARAMS:
         return torch.float32
     return tr.dtype_of(cfg)
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The parameters' shapes and types as tensors on the ``meta``
+    device (no memory), as ``steps.input_specs`` gives the inputs'."""
+    return {name: torch.empty(shape, dtype=param_dtype(cfg, name),
+                              device="meta")
+            for name, (shape, _) in param_shapes(cfg).items()}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
@@ -83,12 +92,12 @@ def _ssm_body(x, slc, cfg: ModelConfig):
 
 def _ssm_forward(params: Params, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+    x = L.embed(params["embed"], tokens)
     for layer in range(cfg.n_layers):
         slc = {k: v[layer] for k, v in params.items() if k.startswith("m_")}
         x = L.remat(cfg, _ssm_body, x, slc, cfg)
     x = L.rms_norm(x, params["final_norm"])
-    return x @ params["lm_head"]
+    return project(x, params["lm_head"])
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Batch) -> torch.Tensor:
@@ -111,7 +120,7 @@ def mask_vocab_pad(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     softmax-xent and argmax decode)."""
     if cfg.vocab_pad == 0:
         return logits
-    col = torch.arange(logits.shape[-1], device=logits.device)
+    col = last_dim_index(logits)
     return torch.where(col >= cfg.vocab,
                        torch.tensor(-1e30, dtype=logits.dtype,
                                     device=logits.device), logits)
@@ -161,7 +170,7 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
 
 def _ssm_decode(params: Params, cfg: ModelConfig, cache: Dict,
                 tokens: torch.Tensor, index: int):
-    x = params["embed"][tokens.long()]
+    x = L.embed(params["embed"], tokens)
     conv, state = cache["ssm"]["conv"], cache["ssm"]["ssm"]
     for layer in range(cfg.n_layers):
         slc = {k: v[layer] for k, v in params.items() if k.startswith("m_")}
@@ -171,7 +180,7 @@ def _ssm_decode(params: Params, cfg: ModelConfig, cache: Dict,
         conv[layer] = st["conv"]
         state[layer] = st["ssm"]
     x = L.rms_norm(x, params["final_norm"])
-    return x @ params["lm_head"], cache
+    return project(x, params["lm_head"]), cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict,

@@ -18,13 +18,14 @@ Supports Mixtral (8 experts, top-2, every layer) and Llama-4 Maverick
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 
 from . import layers as L
 from .config import ModelConfig
-from .sharding import hint
+from .sharding import data_gathered, hint, on_local, pinned, proj_input
 
 GROUP_SIZE = 4096  # tokens per routing group (capacity is per group)
 
@@ -96,10 +97,16 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if n_tok % gsz:
         raise ValueError(f"{n_tok} tokens do not split into routing groups "
                          f"of {gsz}")
-    xt = hint(x.reshape(n_tok // gsz, gsz, d), "data", None, None)
+    # the groups flatten (B, S): a sharded sequence is gathered first
+    xt = hint(proj_input(x).reshape(n_tok // gsz, gsz, d),
+              "data", None, None)
     gate_logits = torch.einsum("gtd,de->gte", xt.float(),
                                p["router"].float())
-    _, gates, dest = route(gate_logits, cfg, capacity(cfg, gsz))
+    # routing is integer work per group: on a mesh, each rank routes its
+    # own groups (``on_local``), as the reference's data-sharded groups
+    cap = capacity(cfg, gsz)
+    _, gates, dest = on_local(lambda logits: route(logits, cfg, cap), (0,),
+                              gate_logits)
     yt = experts(p, xt, gates, dest, cfg)
     if cfg.shared_expert:
         act = L.activation("silu" if cfg.activation == "swiglu"
@@ -108,7 +115,41 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         if cfg.activation == "swiglu":
             hs = hs * torch.einsum("gtd,df->gtf", xt, p["ws3"])
         yt = yt + torch.einsum("gtf,fd->gtd", hs, p["ws2"])
-    return yt.reshape(b, s, d).to(x.dtype)
+    # pinned: the view's backward flattens (B, S) again
+    return pinned(yt.reshape(b, s, d)).to(x.dtype)
+
+
+def _dispatch(xt: torch.Tensor, dest: torch.Tensor, e: int,
+              cap: int) -> torch.Tensor:
+    """Scatter dispatch: tokens ``xt`` (g, t, D) into the (g, e, cap, D)
+    buffer; each kept (expert, slot) has one writer, dropped choices
+    land in a dump row removed after the adds."""
+    g, gsz, d = xt.shape
+    nslots = e * cap
+    rows = nslots + 1
+    base = (torch.arange(g, device=xt.device) * rows)[:, None]
+    buf = torch.zeros((g * rows, d), dtype=xt.dtype, device=xt.device)
+    src = xt.reshape(g * gsz, d)
+    for kk in range(dest.shape[-1]):
+        buf.index_add_(0, (dest[:, :, kk] + base).reshape(-1), src)
+    return buf.reshape(g, rows, d)[:, :nslots].reshape(g, e, cap, d)
+
+
+def _combine(ex_out: torch.Tensor, gates: torch.Tensor,
+             dest: torch.Tensor) -> torch.Tensor:
+    """Gather combine: each token's rows of ``ex_out`` (g, e, cap, D)
+    weighted by its gates; dropped choices read an appended zero row."""
+    g, e, cap, d = ex_out.shape
+    _, gsz, k = dest.shape
+    nslots = e * cap
+    rows = nslots + 1
+    base = (torch.arange(g, device=ex_out.device) * rows)[:, None]
+    flat = torch.cat([ex_out.reshape(g, nslots, d),
+                      torch.zeros((g, 1, d), dtype=ex_out.dtype,
+                                  device=ex_out.device)], dim=1)
+    got = flat.reshape(g * rows, d)[(dest + base[:, :, None]).reshape(-1)]
+    got = got.reshape(g, gsz, k, d)
+    return torch.einsum("gtkd,gtk->gtd", got, gates.to(ex_out.dtype))
 
 
 def experts(p: Dict, xt: torch.Tensor, gates: torch.Tensor,
@@ -116,38 +157,24 @@ def experts(p: Dict, xt: torch.Tensor, gates: torch.Tensor,
     """The routed experts of ``moe_ffn`` for one routing (``route``'s
     ``gates`` and ``dest``): tokens ``xt`` (g, t, D) scattered into the
     dispatch buffer, the experts' products, and each token's rows
-    gathered back weighted by its gates -> (g, t, D) in ``xt``'s type."""
-    g, gsz, d = xt.shape
-    e, k = cfg.n_experts, cfg.top_k
-    cap = capacity(cfg, gsz)
-    # scatter dispatch: each kept (expert, slot) has one writer; dropped
-    # choices land in the dump row nslots, removed after the adds
-    nslots = e * cap
-    rows = nslots + 1
-    base = (torch.arange(g, device=xt.device) * rows)[:, None]
-    buf = torch.zeros((g * rows, d), dtype=xt.dtype, device=xt.device)
-    src = xt.reshape(g * gsz, d)
-    for kk in range(k):
-        buf.index_add_(0, (dest[:, :, kk] + base).reshape(-1), src)
-    ex_in = buf.reshape(g, rows, d)[:, :nslots].reshape(g, e, cap, d)
+    gathered back weighted by its gates -> (g, t, D) in ``xt``'s type.
+    On a mesh the scatter and the gather run on each rank's groups
+    (``on_local``) and the products shard experts over "model"."""
+    cap = capacity(cfg, xt.shape[1])
+    ex_in = on_local(functools.partial(_dispatch, e=cfg.n_experts,
+                                       cap=cap), (0,), xt, dest)
     ex_in = hint(ex_in, "data", "model", None, None)
     act = L.activation("silu" if cfg.activation == "swiglu"
                        else cfg.activation)
-    h = torch.einsum("gecd,edf->gecf", ex_in, p["we1"])
+    we1, we3, we2 = (data_gathered(p.get(k)) for k in ("we1", "we3", "we2"))
+    h = torch.einsum("gecd,edf->gecf", ex_in, we1)
     if cfg.activation == "swiglu":
-        h = act(h) * torch.einsum("gecd,edf->gecf", ex_in, p["we3"])
+        h = act(h) * torch.einsum("gecd,edf->gecf", ex_in, we3)
     else:
         h = act(h)
-    ex_out = torch.einsum("gecf,efd->gecd", h, p["we2"])
+    ex_out = torch.einsum("gecf,efd->gecd", h, we2)
     ex_out = hint(ex_out, "data", "model", None, None)
-
-    # gather combine: dropped choices read the appended zero row
-    flat = torch.cat([ex_out.reshape(g, nslots, d),
-                      torch.zeros((g, 1, d), dtype=ex_out.dtype,
-                                  device=xt.device)], dim=1)
-    got = flat.reshape(g * rows, d)[(dest + base[:, :, None]).reshape(-1)]
-    got = got.reshape(g, gsz, k, d)
-    return torch.einsum("gtkd,gtk->gtd", got, gates.to(ex_out.dtype))
+    return on_local(_combine, (0,), ex_out, gates, dest)
 
 
 def router_counts(p: Dict, x: torch.Tensor, cfg: ModelConfig,

@@ -9,6 +9,7 @@ forms run as plain PyTorch, as the reference's run in eager JAX.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 
 from . import layers as L
 from .config import ModelConfig
+from .sharding import hint, on_local, project
 
 Params = Dict[str, Any]
 
@@ -66,12 +68,25 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     float32 accumulation) whatever the model's type."""
     if chunk is None:
         chunk = SSD_CHUNK
-    b, s, h, dh = x.shape
-    n = B.shape[-1]
+    s = x.shape[1]
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"ssd_chunked: chunk {chunk} must divide the "
                          f"sequence length {s}")
+    x = hint(x, "data", None, "model", None)
+    dt = hint(dt, "data", None, "model")
+    # each (batch row, head) scans alone: on a mesh each rank runs the
+    # chunks of its own rows and heads (``on_local``; B and C are shared
+    # by the heads)
+    return on_local(functools.partial(_ssd_chunks, chunk=chunk),
+                    [(0, 2), (0, 2), (None, 0), (0, None), (0, None)],
+                    x, dt, A, B, C, out_dims=[(0, 2), (0, 1)])
+
+
+def _ssd_chunks(x, dt, A, B, C, chunk: int):
+    """``ssd_chunked``'s chunk loop, on whole or local tensors."""
+    b, s, h, dh = x.shape
+    n = B.shape[-1]
     nc = s // chunk
     xf = x.float().reshape(b, nc, chunk, h, dh)
     dtf = dt.float().reshape(b, nc, chunk, h)
@@ -112,7 +127,7 @@ def block_forward(slc: Params, x: torch.Tensor, cfg: ModelConfig,
     p = {k[len(prefix):]: v for k, v in slc.items()
          if k.startswith(prefix)} if prefix else slc
     h = L.rms_norm(x, p["ln"])
-    z = h @ p["in_proj"]
+    z = project(h, p["in_proj"])
     x_in, gate, B, C, dt = _split_proj(z, cfg)
     conv_in = torch.cat([x_in, B, C], dim=-1)
     conv_out, new_conv = L.causal_conv1d(
@@ -147,11 +162,11 @@ def block_forward(slc: Params, x: torch.Tensor, cfg: ModelConfig,
     y = y + xh * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(x.shape[0], x.shape[1], di)
     y = L.rms_norm(y, p["gate_ln"]) * L.silu(gate)
-    out = y.to(x.dtype) @ p["out_proj"]
+    out = project(y.to(x.dtype), p["out_proj"])
     new_state = None
     if state is not None:
         new_state = {"conv": new_conv, "ssm": hfin}
-    return x + out, new_state
+    return hint(x + out, "data", "model", None), new_state  # sequence par.
 
 
 def state_shapes(cfg: ModelConfig, batch: int) -> Dict[str, Tuple]:

@@ -23,6 +23,7 @@ and ``models.hybrid`` (whose shared block reuses ``_attn`` and
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -30,7 +31,8 @@ import torch
 from . import layers as L
 from . import moe as moe_mod
 from .config import ModelConfig
-from .sharding import hint, hint_first
+from .sharding import (hint, hint_first, is_dtensor, model_axis_size,
+                       on_local, pinned, project, split_dim)
 
 Params = Dict[str, Any]
 
@@ -117,8 +119,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
 # -------------------------------------------------------------- attention
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dq->bsq")`` in the inputs' type (float32
-    accumulation inside the product)."""
-    return x @ w
+    accumulation inside the product); on a mesh, ``sharding.project``."""
+    return project(x, w)
 
 
 def _qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -129,9 +131,9 @@ def _qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = L.rope(q.reshape(b, s, hq, dh), positions, cfg.rope_theta)
-    k = L.rope(k.reshape(b, s, hkv, dh), positions, cfg.rope_theta)
-    return q, k, v.reshape(b, s, hkv, dh)
+    q = L.rope(split_dim(q, -1, hq), positions, cfg.rope_theta)
+    k = L.rope(split_dim(k, -1, hkv), positions, cfg.rope_theta)
+    return q, k, split_dim(v, -1, hkv)
 
 
 def _attn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -151,7 +153,8 @@ def _attn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 
     if kv_cache is None:
         out = _sdpa_chunked(q, k, v, positions, cfg)
-        return _proj(out.reshape(b, s, hq * dh), p["wo"]), None
+        # pinned: the view's backward splits the heads again
+        return _proj(pinned(out.reshape(b, s, hq * dh)), p["wo"]), None
 
     ck, cv = kv_cache                                   # (B, Hkv, C, dh)
     c = ck.shape[2]
@@ -160,9 +163,7 @@ def _attn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     w0 = min(widx, c - s)
     ck[:, :, w0:w0 + s] = k.transpose(1, 2).to(ck.dtype)
     cv[:, :, w0:w0 + s] = v.transpose(1, 2).to(cv.dtype)
-    qg = q.reshape(b, s, hkv, group, dh)
-    scores = torch.einsum("bskgh,bkch->bskgc", qg.float(),
-                          ck.float()) * dh ** -0.5
+    qg = split_dim(q, 2, hkv)                          # (B, S, Hkv, g, dh)
     slotpos = torch.arange(c, device=x.device)
     # ring semantics relative to the LAST slot this block wrote: slot j
     # holds absolute position last - ((wlast - j) mod C); query row i
@@ -174,12 +175,27 @@ def _attn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     valid = (abspos[None, :] <= qpos[:, None]) & (abspos >= 0)[None, :]
     if cfg.sliding_window is not None:
         valid &= abspos[None, :] > qpos[:, None] - cfg.sliding_window
+    # each (batch row, KV head) attends alone: on a mesh each rank runs
+    # its own (``on_local``; the caches, viewed with heads at dim 2, come
+    # first and set the layout: the step's queries move, not the cache)
+    out = on_local(functools.partial(_attend_cache, valid=valid),
+                   (0, 2), ck.transpose(1, 2), cv.transpose(1, 2), qg)
+    out = out.reshape(b, s, hq * dh).to(x.dtype)
+    return _proj(out, p["wo"]), (ck, cv)
+
+
+def _attend_cache(ckt: torch.Tensor, cvt: torch.Tensor, qg: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """Decode attention over the cache: the caches (B, C, Hkv, dh), qg
+    (B, S, Hkv, g, dh), ``valid`` (S, C) -> (B, S, Hkv, g, dh) in
+    float32."""
+    ck, cv = ckt.transpose(1, 2), cvt.transpose(1, 2)   # (B, Hkv, C, dh)
+    scores = torch.einsum("bskgh,bkch->bskgc", qg.float(),
+                          ck.float()) * qg.shape[-1] ** -0.5
     scores = scores.masked_fill(~valid[None, :, None, None, :],
                                 float("-inf"))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bskgc,bkch->bskgh", probs, cv.float())
-    out = out.reshape(b, s, hq * dh).to(x.dtype)
-    return _proj(out, p["wo"]), (ck, cv)
+    return torch.einsum("bskgc,bkch->bskgh", probs, cv.float())
 
 
 ATTN_CHUNK = 1024  # q-block size for the tiled softmax
@@ -191,7 +207,10 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     an online softmax over key blocks of the same size: the reference's
     XLA-level flash attention, eagerly.  Masked scores are -1e30; p is
     rounded to V's type before the PV product; float32 statistics
-    (float64 for float64 inputs).
+    (float64 for float64 inputs).  Under mesh hints the heads are padded
+    with zeros to a multiple of the model axis, as the reference's are
+    (Llama-4's 40, MusicGen's 24, InternVL's 14 on a 16-way axis), so
+    that attention shards by head; the padded heads are dropped after.
 
     q: (B, S, Hq, dh); k, v: (B, S, Hkv, dh) -> (B, S, Hq, dh)
     """
@@ -200,9 +219,29 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group = hq // hkv
     kq = k.repeat_interleave(group, dim=2)
     vq = v.repeat_interleave(group, dim=2)
+    hq_orig = hq
+    ms = model_axis_size()
+    if ms and hq % ms != 0:
+        pad = (-hq) % ms
+        zq = torch.zeros((b, s, pad, dh), dtype=q.dtype, device=q.device)
+        q, kq, vq = (torch.cat([t, zq], dim=2) for t in (q, kq, vq))
+        hq += pad
     head = [("data", None, "model", None)]
     q, kq, vq = (hint_first(t, head) for t in (q, kq, vq))
 
+    # each (batch row, head) attends alone: on a mesh each rank runs the
+    # blocks on its own rows and heads (``on_local``)
+    out = on_local(functools.partial(_attend_blocks, positions=positions,
+                                     cfg=cfg), (0, 2), q, kq, vq)
+    return out if hq == hq_orig else out[:, :, :hq_orig]
+
+
+def _attend_blocks(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
+                   positions: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """``_sdpa_chunked``'s blocks: q, kq, vq (B, S, H, dh), one head of
+    kq / vq per query head -> (B, S, H, dh)."""
+    b, s, hq, dh = q.shape
     bq = min(ATTN_CHUNK, s)
     if s % bq != 0:
         bq = s
@@ -232,7 +271,7 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m_run = m_new
         denom = torch.where(l_run == 0.0, 1.0, l_run)
         out = (acc / denom[..., None]).to(vq.dtype)
-        outs.append(hint_first(out.transpose(1, 2), head))  # (b, bq, h, dh)
+        outs.append(out.transpose(1, 2))             # (b, bq, h, dh)
     return torch.cat(outs, dim=1)
 
 
@@ -312,20 +351,23 @@ def _embed_tokens(params: Params, cfg: ModelConfig,
     """Token embeddings (B, S, d); multi-codebook tokens (B, S, n_cb)
     sum their codebooks' embeddings in codebook order (the EnCodec
     frame stack), each add in the model's type, as the reference's."""
-    tokens = tokens.long()
     if cfg.n_codebooks:
-        return sum(params["embed"][i][tokens[..., i]]
+        return sum(L.embed(params["embed"][i], tokens[..., i])
                    for i in range(cfg.n_codebooks))
-    return params["embed"][tokens]
+    return L.embed(params["embed"], tokens)
 
 
 def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Logits of the normed residual: (B, S, V), or (B, S, n_cb, V)
     for codebook heads (n_cb, d, V)."""
     x = L.rms_norm(x, params["final_norm"])
-    if params["lm_head"].dim() == 3:
-        return torch.einsum("bsd,ndv->bsnv", x, params["lm_head"])
-    return _proj(x, params["lm_head"])
+    head = params["lm_head"]
+    if head.dim() == 2:
+        return _proj(x, head)
+    if is_dtensor(x):   # one product a codebook: no batched-product view
+        return torch.stack([_proj(x, head[i]) for i in range(head.shape[0])],
+                           dim=2)
+    return torch.einsum("bsd,ndv->bsnv", x, head)
 
 
 def _super_block(x, layers, cfg: ModelConfig, positions):
