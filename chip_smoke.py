@@ -171,7 +171,30 @@ ptxas must report no stack frame for any of those), then:
     output detached and the bias correction dropped; and a restart at
     the 2-layer cut: 4 steps uninterrupted against 2 steps, a checkpoint
     restored into fresh tensors (bitwise what was saved) and 2 more
-    (batches bitwise, losses within 1e-5).
+    (batches bitwise, losses within 1e-5);
+  * ``[examples]`` (after ``[dist]``; alone with ``--examples``): the
+    port's four examples, ``examples/*_torch.py``, each through its
+    ``main``.  quickstart on the CPU, then on the card: exactly one
+    ``tiled_gemm`` launch (128^3, tiles 64^3, depth 2), its output at
+    EXAMPLE_TOL against the template's plain version and numpy after
+    proving that limit catches a dropped K slab, its IR, traffic and
+    schedule text equal to the CPU run's, timed (a ``kernels`` row).
+    serve_lm in float32 and in bfloat16, on the CPU and on the card from
+    the same weights drawn on the host: float32 tokens identical,
+    bfloat16 tokens ones a teacher-forced CPU oracle scores within the
+    bf16 tolerance of its best; each rule first shown to reject a card
+    run with the last layer's K/V write skipped and the conv state
+    dropped.  train_lm at LM_130M (full width and depth), 200 steps of
+    8 x 256: losses finite, the last below the first by more than the
+    bf16 tolerance (a limit the first weights' loss on the last batch,
+    a run without updates, must fail), the first three within the bf16
+    tolerance of the same three steps on the CPU from the same weights
+    (a forward with every norm's scaling dropped must fail it); ms a
+    step, tokens a second, peak memory, each checkpoint write's
+    seconds.  elastic_restart: phase 5 resumes at step 10, its losses
+    within EXAMPLE_TOL of an uninterrupted 14-step run on the card
+    (bitwise equality printed), a limit first shown to reject a resume
+    from step 5's checkpoint relabelled as step 10.
 
 Each run resets the kernel's launch count just before, reads it just
 after, and fails if the kernel did not run.  Each result is held
@@ -193,6 +216,7 @@ repository.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import re
@@ -703,19 +727,21 @@ def gemm_faults(x, y, want, bk: int, depth: int, torch) -> list:
     """The GEMM's planted faults on the float64 reference rows ``want``
     (``x``'s first rows times ``y``): the middle K slab dropped, and a
     stale ring slot (slab ``depth`` computed from the slot of slab 0,
-    the one it reuses).  Fails unless rtol = atol = RTOL catches each;
-    returns their descriptions with the shift."""
+    the one it reuses; only where K has more than ``depth`` slabs, so
+    that a slot is reused).  Fails unless rtol = atol = RTOL catches
+    each; returns their descriptions with the shift."""
     rows = want.shape[0]
     xd, yd = x[:rows].double(), y.double()
 
     def slab(i):
         return xd[:, i * bk:(i + 1) * bk] @ yd[i * bk:(i + 1) * bk]
     mid = x.shape[1] // bk // 2
+    faults = [(f"K slab {mid} dropped", want - slab(mid))]
+    if x.shape[1] // bk > depth:
+        faults.append((f"slab {depth} read from slab 0's slot",
+                       want - slab(depth) + slab(0)))
     out = []
-    for what, faulted in (
-            (f"K slab {mid} dropped", want - slab(mid)),
-            (f"slab {depth} read from slab 0's slot",
-             want - slab(depth) + slab(0))):
+    for what, faulted in faults:
         shift = float((faulted - want).abs().max())
         if torch.allclose(faulted, want, rtol=RTOL, atol=ATOL):
             fail(f"gemm: rtol/atol {RTOL}/{ATOL} would not catch {what}")
@@ -3829,6 +3855,392 @@ def run_dist(torch, dev, where: Path) -> None:
     print(f"[dist] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# [examples]: the port's four examples (examples/*_torch.py) on the card
+EXAMPLE_LM_STEPS = 200       # train_lm's default --steps
+EXAMPLE_TOL = 2e-3           # the f32 rule: quickstart, elastic_restart
+SERVE_LM_PROMPT = 16         # serve_lm_torch's prompt length
+QUICKSTART_SECTIONS = ("original PPL program",
+                       "tiled (strip-mined + interchanged + tile copies)",
+                       "main-memory traffic (words)", "metapipeline schedule")
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def text_sections(text: str) -> dict:
+    """``{heading: body}`` of an example's ``== heading ==`` sections."""
+    out, head = {}, None
+    for line in text.splitlines():
+        if line.startswith("== ") and line.endswith(" =="):
+            head = line[3:-3]
+            out[head] = []
+        elif head is not None:
+            out[head].append(line)
+    return {h: "\n".join(b).strip("\n") for h, b in out.items()}
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """``obj.name`` set to ``value`` for the block, put back after."""
+    real = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield real
+    finally:
+        setattr(obj, name, real)
+
+
+def example_quickstart(cc, tier, torch, dev) -> dict:
+    """``quickstart_torch`` on the card: one ``tiled_gemm`` launch (128^3,
+    tiles 64^3, depth 2), its output against the template's plain version
+    and the numpy reference at the f32 rule after proving that limit
+    catches a dropped K slab, its IR, traffic and schedule text equal to
+    its CPU run's character for character; timed beside its plain
+    version and ``torch.matmul``."""
+    ex = load_example("quickstart_torch")
+    cpu_text = ex.main(["--device", "cpu"])
+    torch.cuda.synchronize()
+    cc.tiled_gemm.launches = 0
+    stats = {}
+    text = ex.main(["--device", "cuda"], stats)
+    torch.cuda.synchronize()
+    launches = cc.tiled_gemm.launches
+    if launches != 1:
+        fail(f"examples: quickstart launched tiled_gemm {launches} times, "
+             "not once")
+    got, want = text_sections(text), text_sections(cpu_text)
+    for head in QUICKSTART_SECTIONS:
+        if got.get(head) != want.get(head):
+            fail(f"examples: quickstart's '{head}' differs from its CPU run")
+    from repro_torch.patterns.analytics import gemm
+
+    _, _, make_inputs, _ = gemm(m=128, n=128, k=128, bm=64, bn=64, bk=64)
+    host = make_inputs()
+    x = torch.as_tensor(host["x"]).to(dev)
+    y = torch.as_tensor(host["y"]).to(dev)
+    out = torch.as_tensor(stats["kernel"]).to(dev)
+    e_plain = max_err(out, cc.tiled_gemm_plain(x, y, bm=64, bn=64, bk=64),
+                      torch, "quickstart vs plain", EXAMPLE_TOL)
+    e_ref = max_err(out, stats["reference"], torch,
+                    "quickstart vs numpy", EXAMPLE_TOL)
+    want64 = torch.as_tensor(host["x"].astype("float64")
+                             @ host["y"].astype("float64"), device=dev)
+    faults = gemm_faults(x, y, want64, 64, 2, torch)
+    print(f"[examples] quickstart: tiled_gemm launches={launches}; max abs "
+          f"err vs plain {e_plain:.3e}, vs numpy {e_ref:.3e} (rtol/atol "
+          f"{EXAMPLE_TOL}/{EXAMPLE_TOL}); planted faults caught: "
+          + "; ".join(faults) + "; IR, traffic and schedule text equal to "
+          "the CPU run's", flush=True)
+
+    def run():
+        return cc.tiled_gemm(x, y, bm=64, bn=64, bk=64, depth=2)
+    ms = median_ms(run, torch)
+    plain_ms = median_ms(
+        lambda: cc.tiled_gemm_plain(x, y, bm=64, bn=64, bk=64), torch)
+    lib_ms = median_ms(lambda: torch.matmul(x, y), torch)
+    flops = 2 * 128 ** 3
+    bound_ms, by = bound(nbytes_of(x, y, out), flops, tier)
+    print(f"[examples] quickstart tiled_gemm {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({by})", flush=True)
+    return {"name": "tiled_gemm[quickstart,128^3,64x64x64,d2]",
+            "route": "cuda", "source": f"{CSRC}/tiled_gemm.cuh",
+            "replaces": GEMM_TPU, "launches": launches,
+            "max_abs_err": e_plain, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
+
+
+def host_weights(model):
+    """``model.init_params`` drawing on the host and copying to the asked
+    device: the CPU and the card start from the same weights (a CUDA
+    generator draws other numbers than the CPU's at the same seed)."""
+    real = model.init_params
+
+    def init(cfg, seed=0, device=None):
+        return {k: v.to(device) for k, v in real(cfg, seed, "cpu").items()}
+    return init
+
+
+def serve_lm_runs(ex, dtype: str, torch, dev, plant: bool = False) -> tuple:
+    """``serve_lm_torch`` in ``dtype`` (the SMOKE configs switched) on the
+    CPU and on the card from the same host-drawn weights; with ``plant``
+    the card's run carries two planted faults (the last layer's K/V
+    write skipped, the conv state dropped).  Returns (cpu stats, card
+    stats)."""
+    import repro_torch.configs as configs
+    from repro_torch.models import model
+
+    with contextlib.ExitStack() as stack:
+        for arch in ex.ARCHS:
+            mod = configs.ARCHS[arch]
+            stack.enter_context(patched(mod, "SMOKE",
+                                        mod.SMOKE.with_(dtype=dtype)))
+        stack.enter_context(patched(model, "init_params", host_weights(model)))
+        cpu = {}
+        ex.main(["--device", "cpu"], cpu)
+        undo = [last_cache_write_skipped(), conv_state_dropped()] \
+            if plant else []
+        card = {}
+        try:
+            ex.main(["--device", "cuda"], card)
+        finally:
+            for u in undo:
+                u()
+        torch.cuda.synchronize()
+    return cpu, card
+
+
+def serve_lm_misses(arch: str, cpu: dict, card: dict, dtype: str,
+                    torch) -> list:
+    """Where the card's tokens fail the rule: float32 identical to the
+    CPU's; bfloat16 each token one the CPU model scores, teacher-forced
+    on the card's tokens, within the bf16 tolerance of its best
+    (``serve.near_best``).  Returns the misses (empty: held)."""
+    a, b = card[arch]["tokens"], cpu[arch]["tokens"]
+    first_a, first_b = card[arch]["first_tokens"], cpu[arch]["first_tokens"]
+    if np.array_equal(a, b) and np.array_equal(first_a, first_b):
+        return []
+    if dtype == "float32":
+        return [f"{arch}: tokens {a.tolist()} != the CPU's {b.tolist()}"]
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    cfg = get_config(arch, smoke=True)
+    params = model.init_params(cfg, 0, "cpu")
+    lens = [SERVE_LM_PROMPT] * a.shape[0]
+    rows = family_oracle(cfg, params, lens, a, first_a, torch,
+                         torch.device("cpu"))
+    misses, _ = family_misses(rows, a, first_a, dtype)
+    return [f"{arch}: {m[1]}" for m in misses if m is not None]
+
+
+def example_serve(torch, dev) -> dict:
+    """``serve_lm_torch`` on the card against its CPU run from the same
+    weights: float32 tokens identical, bfloat16 by the near-best rule;
+    each rule first shown to reject a card run with planted faults.
+    Returns each arch's card ms a token (bfloat16)."""
+    ex = load_example("serve_lm_torch")
+    per_token = {}
+    for dtype in ("float32", "bfloat16"):
+        cpu, faulty = serve_lm_runs(ex, dtype, torch, dev, plant=True)
+        for arch in ex.ARCHS:
+            if not serve_lm_misses(arch, cpu, faulty, dtype, torch):
+                fail(f"examples: serve_lm's {dtype} rule does not reject "
+                     f"{arch} served with the planted faults")
+        cpu, card = serve_lm_runs(ex, dtype, torch, dev)
+        misses = [m for arch in ex.ARCHS
+                  for m in serve_lm_misses(arch, cpu, card, dtype, torch)]
+        if misses:
+            fail(f"examples: serve_lm {dtype}: " + "; ".join(misses))
+        same = all(np.array_equal(card[a]["tokens"], cpu[a]["tokens"])
+                   for a in ex.ARCHS)
+        print(f"[examples] serve_lm {dtype}: every arch's tokens held to "
+              f"its CPU run (identical: {same}; the planted faults "
+              "rejected for all three first); card ms a token "
+              + ", ".join(f"{a} {card[a]['ms_per_token']:.3f}"
+                          for a in ex.ARCHS), flush=True)
+        if dtype == "bfloat16":
+            per_token = {a: card[a]["ms_per_token"] for a in ex.ARCHS}
+    return per_token
+
+
+def norm_scale_dropped():
+    """A planted fault of the forward: every RMS norm scales by its
+    weight without dividing by the root mean square.  Returns a function
+    that undoes it."""
+    from repro_torch.models import layers
+
+    real = layers.rms_norm
+    layers.rms_norm = lambda x, w, eps=1e-6: \
+        (x * (1.0 + w.to(x.dtype))).to(x.dtype)
+    return lambda: setattr(layers, "rms_norm", real)
+
+
+def example_train(torch, dev, where: Path) -> None:
+    """``train_lm_torch`` at LM_130M, batch 8 x 256, its default 200
+    steps on the card: losses finite, the last below the first by more
+    than the bf16 tolerance (a run whose updates are dropped must fail
+    that: the first weights' loss on the last batch); the first three
+    within the bf16 tolerance of the same three steps run on the CPU from
+    the same weights (a forward with every norm's scaling dropped must
+    fail that).  ms a step, tokens a second, peak memory, the
+    checkpoint writes' seconds."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import TOLERANCES
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+
+    ex = load_example("train_lm_torch")
+    cfg = ex.LM_130M
+    rtol, atol = TOLERANCES[cfg.dtype]
+    rows, seq = 8, 256
+    t0 = time.perf_counter()
+    # what train draws on the card (seed 0), and the batches it feeds
+    p0 = model.init_params(cfg, 0, dev)
+    pipe = TokenPipeline(vocab=cfg.vocab, global_batch=rows, seq_len=seq,
+                         seed=0)
+    first = train_mod._batch(pipe, cfg, dev)
+    pipe.step = EXAMPLE_LM_STEPS - 1
+    last = train_mod._batch(pipe, cfg, dev)
+    with torch.no_grad():
+        frozen = float(model.loss(p0, cfg, last))
+        undo = norm_scale_dropped()
+        try:
+            unnormed = float(model.loss(p0, cfg, first))
+        finally:
+            undo()
+    opt = adamw.AdamWConfig(total_steps=EXAMPLE_LM_STEPS,
+                            warmup_steps=max(1, EXAMPLE_LM_STEPS // 10))
+    step = steps.make_train_step(cfg, opt)
+    params = {k: v.cpu() for k, v in p0.items()}
+    del p0
+    state = adamw.init(params, opt)
+    pipe = TokenPipeline(vocab=cfg.vocab, global_batch=rows, seq_len=seq,
+                         seed=0)
+    cpu_losses = []
+    for _ in range(3):
+        loss, params, state = step(params, state, train_mod._batch(
+            pipe, cfg, torch.device("cpu")))
+        cpu_losses.append(float(loss))
+    del params, state
+    cpu_s = time.perf_counter() - t0
+
+    writes, copies = [], []
+
+    def timed(fn, into):
+        def run(*a, **k):
+            ts = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                into.append(time.perf_counter() - ts)
+        return run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = {}
+    t1 = time.perf_counter()
+    with patched(ckpt, "_save_host", timed(ckpt._save_host, writes)), \
+            patched(ckpt, "_flatten", timed(ckpt._flatten, copies)):
+        ex.main(["--steps", str(EXAMPLE_LM_STEPS), "--ckpt-dir",
+                 str(where / "train_lm"), "--device", "cuda"], stats)
+    run_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = stats["losses"]
+    if stats["start"] != 0 or len(losses) != EXAMPLE_LM_STEPS \
+            or not all(np.isfinite(losses)):
+        fail(f"examples: train_lm ran from step {stats['start']}: losses "
+             f"{losses}")
+
+    def fell(a, b):
+        return b < a - (atol + rtol * abs(a))
+    if fell(losses[0], frozen):
+        fail(f"examples: train_lm's falling-loss rule would pass a run "
+             f"whose updates are dropped ({losses[0]} -> {frozen})")
+    if not fell(losses[0], losses[-1]):
+        fail(f"examples: train_lm's loss did not fall: {losses[0]} -> "
+             f"{losses[-1]}")
+
+    def held(a, b):
+        return abs(a - b) <= atol + rtol * abs(b)
+    if held(unnormed, cpu_losses[0]):
+        fail(f"examples: train_lm's {cfg.dtype} rule would pass a forward "
+             f"with the norms' scaling dropped ({unnormed} vs "
+             f"{cpu_losses[0]})")
+    if not all(held(a, b) for a, b in zip(losses[:3], cpu_losses)):
+        fail(f"examples: train_lm's first losses {losses[:3]} are not "
+             f"within {cfg.dtype}'s rtol/atol {rtol}/{atol} of the CPU run's "
+             f"{cpu_losses}")
+    step_ms = sorted(t * 1e3 for t in stats["step_s"][1:])
+    med = step_ms[len(step_ms) // 2]
+    if len(writes) != EXAMPLE_LM_STEPS // 50:
+        fail(f"examples: train_lm wrote {len(writes)} checkpoints")
+    print(f"[examples] train_lm: LM_130M ({cfg.param_count()} parameters, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}), "
+          f"{EXAMPLE_LM_STEPS} steps of {rows} x {seq} tokens: loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f} (the first weights on the "
+          f"last batch: {frozen:.6f}); first three {losses[:3]} vs the "
+          f"CPU's {cpu_losses} (rtol/atol {rtol}/{atol}; norms' scaling "
+          f"dropped: {unnormed:.6f}); median step {med:.2f} ms (steps "
+          f"2..{EXAMPLE_LM_STEPS}), {rows * seq / med * 1e3:.0f} tokens/s; "
+          f"peak device memory {peak / 1e9:.3f} GB "
+          f"(torch.cuda.max_memory_allocated); {len(writes)} checkpoint "
+          f"writes {[round(w, 3) for w in writes]} s on the writer thread, "
+          f"host copies {[round(c, 3) for c in copies]} s; run "
+          f"{run_s:.1f} s, CPU steps {cpu_s:.1f} s", flush=True)
+
+
+def example_elastic(torch, dev, where: Path) -> None:
+    """``elastic_restart_torch`` on the card: phase 5 resumes at step 10,
+    its losses for steps 10-13 within EXAMPLE_TOL of an uninterrupted
+    14-step run on the card (bitwise equality reported), a limit first
+    shown to reject a resume from step 5's checkpoint relabelled as step
+    10."""
+    import shutil
+
+    from repro_torch.launch.train import train
+
+    ex = load_example("elastic_restart_torch")
+    stats = {}
+    ex.main(["--device", "cuda"], stats)
+    if stats["start_5"] != 10 or len(stats["losses_5"]) != 4:
+        fail(f"examples: elastic_restart's phase 5 resumed at step "
+             f"{stats['start_5']} and ran {len(stats['losses_5'])} steps")
+    d = where / "elastic"
+    kw = dict(smoke=True, batch=2, seq=32, ckpt_every=5, log_every=100,
+              device=dev)
+    whole, _ = train("granite-3-2b", n_steps=14, ckpt_dir=str(d), **kw)
+    shutil.rmtree(d / "step-10")
+    (d / "step-5").rename(d / "step-10")
+    relabelled, _ = train("granite-3-2b", n_steps=14, ckpt_dir=str(d), **kw)
+
+    def held(got):
+        return np.allclose(got, whole[10:], rtol=EXAMPLE_TOL,
+                           atol=EXAMPLE_TOL)
+    if held(relabelled):
+        fail("examples: elastic_restart's rule would pass a resume from "
+             f"step 5's checkpoint relabelled as step 10 ({relabelled} vs "
+             f"{whole[10:]})")
+    if not held(stats["losses_5"]):
+        fail(f"examples: elastic_restart resumed {stats['losses_5']}, the "
+             f"uninterrupted run {whole[10:]}")
+    print(f"[examples] elastic_restart: phase 5 resumed at step 10: losses "
+          f"{stats['losses_5']}, uninterrupted {whole[10:]} (rtol/atol "
+          f"{EXAMPLE_TOL}/{EXAMPLE_TOL}; bitwise equal: "
+          f"{stats['losses_5'] == whole[10:]}); step 5's checkpoint "
+          f"relabelled as 10 rejected: {relabelled}", flush=True)
+
+
+def run_examples(cc, tier, torch, dev, where: Path) -> dict:
+    """``[examples]``: the port's four examples on the card, each held to
+    its CPU run or to an uninterrupted run; returns quickstart's kernel
+    row."""
+    t0 = time.perf_counter()
+    row = example_quickstart(cc, tier, torch, dev)
+    t1 = time.perf_counter()
+    per_token = example_serve(torch, dev)
+    t2 = time.perf_counter()
+    example_train(torch, dev, where)
+    t3 = time.perf_counter()
+    example_elastic(torch, dev, where)
+    print(f"[examples] phase {time.perf_counter() - t0:.1f} s (quickstart "
+          f"{t1 - t0:.1f} s, serve_lm {t2 - t1:.1f} s, train_lm "
+          f"{t3 - t2:.1f} s, elastic_restart "
+          f"{time.perf_counter() - t3:.1f} s); serve_lm bf16 ms a token "
+          f"{per_token}", flush=True)
+    return row
+
+
 TUNING_PROGRAMS = ("outerprod", "gda", "gemm", "filter")
 
 
@@ -4090,6 +4502,9 @@ def main() -> int:
     if sys.argv[1:] == ["--dist"]:      # the distribution phase alone
         run_dist(torch, dev, stores / "dist")
         return 0
+    if sys.argv[1:] == ["--examples"]:  # the port's examples alone
+        run_examples(cc, tier, torch, dev, stores / "examples")
+        return 0
     if sys.argv[1:] == ["--models"]:    # the audio, VLM and train phases
         run_media("audio", "musicgen-medium", tier, torch, dev)
         run_media("vlm", "internvl2-1b", tier, torch, dev)
@@ -4267,6 +4682,7 @@ def main() -> int:
     run_media("vlm", "internvl2-1b", tier, torch, dev)
     run_train(torch, dev, stores / "train")
     run_dist(torch, dev, stores / "dist")
+    kernels.append(run_examples(cc, tier, torch, dev, stores / "examples"))
     run_tuning(tier, torch, dev, stores / "tuning")
 
     print(json.dumps({"kernels": kernels}))

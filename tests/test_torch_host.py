@@ -154,14 +154,19 @@ def test_tuning_runtime_arguments_raise(tmp_path, monkeypatch):
 # ------------------------------------------------------------- boundary
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    return files + examples + [ROOT / "chip_smoke.py"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():
     port = ROOT / "src" / "repro_torch"
-    covered = {p.relative_to(port).parts[0] for p in _port_files()[:-1]}
+    covered = {p.relative_to(port).parts[0] for p in _port_files()
+               if port in p.parents}
     assert {"models", "configs", "kernels", "core", "launch", "optim",
             "data", "checkpoint", "runtime"} <= covered
+    assert {p.name for p in _port_files() if p.parent.name == "examples"} \
+        == {"quickstart_torch.py", "serve_lm_torch.py", "train_lm_torch.py",
+            "elastic_restart_torch.py"}
     for path in _port_files():
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):
