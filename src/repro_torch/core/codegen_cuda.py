@@ -1020,22 +1020,32 @@ def dag_source(spec: DagSpec) -> str:
     call += [f"(float*)outs[{i}]" for i in range(n_map)]
     call.append("(float*)partials")
     L.append(_ctas_source("fdag", "fused_dag_kernel", "SMEM_BYTES"))
+    # start / end: CUDA timing events recorded right around the launch
+    # (telemetry.device_span's pair), or null
     L.append(f'''extern "C" int fdag_launch(void* const* ins, void* const* outs,
-                           void* partials, int ctas, void* stream) {{
+                           void* partials, int ctas, void* stream,
+                           void* start, void* end) {{
+  int rc = fdag::record(start, (cudaStream_t)stream);
+  if (rc) return rc;
   fused_dag_kernel<<<ctas, tcopy::THREADS, SMEM_BYTES,
                      (cudaStream_t)stream>>>(
       {", ".join(call)});
-  return (int)cudaGetLastError();
+  rc = (int)cudaGetLastError();
+  return rc ? rc : fdag::record(end, (cudaStream_t)stream);
 }}
 
 extern "C" int fdag_combine(const void* partials, const void* init,
-                            void* out, int ctas, void* stream) {{
+                            void* out, int ctas, void* stream,
+                            void* start, void* end) {{
   if (PARTIAL_WORDS == 0) return 0;
+  int rc = fdag::record(start, (cudaStream_t)stream);
+  if (rc) return rc;
   fdag::combine_partials<<<(PARTIAL_WORDS + 255) / 256, 256, 0,
                            (cudaStream_t)stream>>>(
       (const float*)partials, (const float*)init, (float*)out, ctas,
       PARTIAL_WORDS);
-  return (int)cudaGetLastError();
+  rc = (int)cudaGetLastError();
+  return rc ? rc : fdag::record(end, (cudaStream_t)stream);
 }}''')
     return "\n".join(L) + build.ERROR_STRING
 
@@ -1060,8 +1070,8 @@ class DagKernel:
             vp = ctypes.c_void_p
             self._lib = build.bind(build.load(self.name, self.source), {
                 "fdag_ctas": [ctypes.POINTER(ctypes.c_int)],
-                "fdag_launch": [vp, vp, vp, ctypes.c_int, vp],
-                "fdag_combine": [vp, vp, vp, ctypes.c_int, vp]})
+                "fdag_launch": [vp, vp, vp, ctypes.c_int, vp, vp, vp],
+                "fdag_combine": [vp, vp, vp, ctypes.c_int, vp, vp, vp]})
         return self._lib
 
     def ctas(self, dev: torch.device) -> int:
@@ -1161,39 +1171,53 @@ def fused_dag(kernel: DagKernel, tensors: Dict[str, torch.Tensor]
     tensors launch the kernel or raise.
     """
     spec = kernel.spec
-    ins = []
-    for name, shape in spec.inputs:
-        _f32(name, tensors[name], shape)
-        ins.append(tensors[name])
-    dev = _on(ins)
+    with telemetry.span("fused_dag.stage"):
+        ins = []
+        for name, shape in spec.inputs:
+            _f32(name, tensors[name], shape)
+            ins.append(tensors[name])
+        dev = _on(ins)
+        if dev.type != "cpu":
+            _aligned([(name, tensors[name]) for name, _ in spec.inputs])
     if dev.type == "cpu":
         return fused_dag_plain(spec, tensors)
-    _aligned([(name, tensors[name]) for name, _ in spec.inputs])
-    lib = kernel.library()
-    ctas = kernel.ctas(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    maps = {t.name: torch.empty(t.shape, dtype=torch.float32, device=dev)
-            for t in spec.terminals if t.kind == "map"}
-    partials = torch.empty((ctas, max(spec.partial_words, 1)),
-                           dtype=torch.float32, device=dev)
-    in_ptrs = build.pointers([t.data_ptr() for t in ins])
-    out_ptrs = build.pointers([m.data_ptr() for m in maps.values()])
-    rc = lib.fdag_launch(ctypes.cast(in_ptrs, ctypes.c_void_p),
-                         ctypes.cast(out_ptrs, ctypes.c_void_p),
-                         partials.data_ptr(), ctas, stream)
-    build.check(lib, rc, "fused_dag launch")
-    fused_dag.launches += 1
+    with telemetry.span("fused_dag.launch"):
+        lib = kernel.library()
+        ctas = kernel.ctas(dev)
+        cur = torch.cuda.current_stream(dev)
+        stream = cur.cuda_stream
+        maps = {t.name: torch.empty(t.shape, dtype=torch.float32,
+                                    device=dev)
+                for t in spec.terminals if t.kind == "map"}
+        partials = torch.empty((ctas, max(spec.partial_words, 1)),
+                               dtype=torch.float32, device=dev)
+        in_ptrs = build.pointers([t.data_ptr() for t in ins])
+        out_ptrs = build.pointers([m.data_ptr() for m in maps.values()])
+        # the C entry point records the device span's events (if any)
+        # right around the kernel
+        with telemetry.device_span("fused_dag.kernel", cur) as ev:
+            rc = lib.fdag_launch(ctypes.cast(in_ptrs, ctypes.c_void_p),
+                                 ctypes.cast(out_ptrs, ctypes.c_void_p),
+                                 partials.data_ptr(), ctas, stream,
+                                 *ev.events)
+            build.check(lib, rc, "fused_dag launch")
+        fused_dag.launches += 1
     outs: Dict[str, torch.Tensor] = dict(maps)
     if spec.partial_words:
-        flat = torch.empty(spec.partial_words, dtype=torch.float32,
-                           device=dev)
-        rc = lib.fdag_combine(partials.data_ptr(), kernel.init(dev).data_ptr(),
-                              flat.data_ptr(), ctas, stream)
-        build.check(lib, rc, "fused_dag combine")
-        for t in spec.terminals:
-            if t.kind != "map":
-                w = int(np.prod(t.shape)) if t.shape else 1
-                outs[t.name] = flat[t.partial:t.partial + w].reshape(t.shape)
+        with telemetry.span("fused_dag.combine"):
+            flat = torch.empty(spec.partial_words, dtype=torch.float32,
+                               device=dev)
+            init = kernel.init(dev).data_ptr()
+            with telemetry.device_span("fused_dag.combine", cur) as ev:
+                rc = lib.fdag_combine(partials.data_ptr(), init,
+                                      flat.data_ptr(), ctas, stream,
+                                      *ev.events)
+                build.check(lib, rc, "fused_dag combine")
+            for t in spec.terminals:
+                if t.kind != "map":
+                    w = int(np.prod(t.shape)) if t.shape else 1
+                    outs[t.name] = flat[t.partial:t.partial + w] \
+                        .reshape(t.shape)
     return {t.name: outs[t.name] for t in spec.terminals}
 
 
@@ -1228,9 +1252,11 @@ def lower_fused_dag(terminals, grid_n: int, depth: int = 2, *,
                                     smem_limit=limit))
 
     def call(**tensors):
-        ts = {name: _staged(tensors[name], dev)
-              for name, _ in kernel.spec.inputs}
-        return fused_dag(kernel, ts)
+        with telemetry.span("fused_dag.call"):
+            with telemetry.span("fused_dag.stage"):
+                ts = {name: _staged(tensors[name], dev)
+                      for name, _ in kernel.spec.inputs}
+            return fused_dag(kernel, ts)
 
     call.kernel = kernel
     return call
@@ -1315,14 +1341,19 @@ def lower_fused_pipeline(pipe, *, plan=None,
         lowerings.append((outs[-1], how))
 
     out_names = plmod.output_names(pipe)
+    seq = itertools.count(1)
 
     def call(**tensors):
-        env = {k: torch.as_tensor(v).to(dev) for k, v in tensors.items()}
-        for runner in runners:
-            env.update(runner(**env))
-        if len(out_names) == 1:
-            return env[out_names[0]]
-        return {n: env[n] for n in out_names}
+        with telemetry.span("pipeline.call", pipeline=pipe.name,
+                            seq=next(seq)):
+            with telemetry.span("fused_dag.stage"):
+                env = {k: torch.as_tensor(v).to(dev)
+                       for k, v in tensors.items()}
+            for runner in runners:
+                env.update(runner(**env))
+            if len(out_names) == 1:
+                return env[out_names[0]]
+            return {n: env[n] for n in out_names}
 
     call.pipeline_plan = plan
     call.group_lowerings = tuple(lowerings)

@@ -13,6 +13,20 @@ One subsystem, four faces:
   sites cost nothing in production.  Spans time the host: they wrap
   host-side orchestration only and never synchronize the card, so a
   span around a kernel launch measures the launch, not the kernel.
+  Every span record carries an ``id`` unique in the process and, under
+  a parent, the parent's ``parent_id``, so the spans of one call group
+  together however many calls a trace holds.
+* **Device spans** -- ``with device_span("fused_dag.kernel") as ev:``
+  hands the launcher a pair of CUDA timing events (``ev.events``, their
+  ``cudaEvent_t`` handles), which its C entry point records right
+  around the kernel, so the pair times the kernel alone and not the
+  host's way to it.  Gated like spans, and besides by
+  ``enable(device=False)`` (host spans without event work inside
+  them); disabled, it is ``NULL_SPAN``, whose ``events`` are nulls, and
+  makes no event.  It never synchronizes: a later device span resolves
+  the pairs the card has finished, ``flush_device()`` waits for the
+  rest, each into ``observe(name + "_s", seconds)``, so the histogram's
+  ``count`` and ``sum`` are the launches and their device time.
 * **Metrics** -- ``count`` / ``gauge`` (always-on: they replace the
   ad-hoc stat dicts of serving and planning) and
   ``observe`` (latency histograms with fixed log-spaced bounds,
@@ -25,6 +39,16 @@ One subsystem, four faces:
   lane) and ``metrics_snapshot()``
   returns a flat, JSON-able dict of the registry.
 
+**One clock.**  Span and event ``ts`` are microseconds since ``_T0``, a
+``perf_counter`` reading taken at import.  ``epoch_ns(ts)`` maps a
+``ts`` onto the epoch clock (``time.time_ns()``), the clock
+torch.profiler's Chrome trace is stamped on (its ``ts`` in microseconds
+after its ``baseTimeNanoseconds``), and ``export_trace`` writes
+``baseTimeNanoseconds`` = ``epoch_base_ns()``, so both files line up.
+The anchor between the two clocks is read when a ``ts`` is mapped, not
+once: the epoch clock can be stepped while a process runs (seconds, on a
+virtual machine), and the profiler stamps by its reading of it then.
+
 ``put_record`` / ``get_record`` is a small gated provenance store the
 DSE uses to back ``dse.explain(plan)`` with the full exploration
 record (enumerated / pruned-with-reason / ranks / certification).
@@ -36,6 +60,7 @@ cap out and count drops rather than growing without limit).
 from __future__ import annotations
 
 import bisect
+import itertools
 import json
 import threading
 import time
@@ -45,16 +70,19 @@ __all__ = [
     "enabled", "enable", "disable", "reset", "span", "count", "gauge",
     "observe", "emit", "events", "clear_events", "put_record",
     "get_record", "log_bounds", "LATENCY_BOUNDS_S", "export_trace",
-    "metrics_snapshot", "span_log",
+    "metrics_snapshot", "span_log", "device_span", "flush_device",
+    "device_pending", "epoch_ns", "epoch_base_ns",
 ]
 
 _LOCK = threading.RLock()
 _TLS = threading.local()
 _T0 = time.perf_counter()
+_IDS = itertools.count(1)     # span ids; next() is atomic under the GIL
 
 MAX_SPANS = 200_000
 MAX_EVENTS = 100_000
 MAX_RECORDS = 1024
+MAX_FREE_EVENTS = 4096
 
 # None = not yet resolved; resolved lazily from Options.from_env() so
 # plain REPRO_TRACE=1 runs trace without any code opting in.
@@ -68,6 +96,12 @@ _hists: Dict[str, Dict[str, Any]] = {}
 _events: List[Dict[str, Any]] = []
 _dropped_events = 0
 _records: Dict[Tuple[str, str], Any] = {}
+# device spans recorded and not yet resolved: (name, device index,
+# start event, end event); resolved events kept for reuse, by device
+_device: List[Tuple[str, int, Any, Any]] = []
+_dropped_device = 0
+_free_events: Dict[int, List[Any]] = {}
+_device_on = True             # enable(device=False) leaves device spans off
 
 
 # ------------------------------------------------------------------
@@ -92,9 +126,12 @@ def enabled() -> bool:
     return _enabled
 
 
-def enable() -> None:
-    global _enabled
+def enable(device: bool = True) -> None:
+    """Turn tracing on; ``device=False`` keeps ``device_span`` the no-op,
+    so host spans are read with no event work inside them."""
+    global _enabled, _device_on
     _enabled = True
+    _device_on = device
 
 
 def disable() -> None:
@@ -104,11 +141,16 @@ def disable() -> None:
 
 def reset() -> None:
     """Clear all recorded telemetry and re-arm env-based enablement."""
-    global _enabled, _dropped_spans, _dropped_events
+    global _enabled, _dropped_spans, _dropped_events, _dropped_device
+    global _device_on
     with _LOCK:
         _enabled = None
+        _device_on = True
         _spans.clear()
         _dropped_spans = 0
+        _device.clear()
+        _dropped_device = 0
+        _free_events.clear()
         _counters.clear()
         _gauges.clear()
         _hists.clear()
@@ -128,6 +170,7 @@ class _NullSpan:
     zero allocations."""
 
     __slots__ = ()
+    events = (None, None)       # as a device span's: no event to record
 
     def __enter__(self):
         return self
@@ -150,11 +193,12 @@ def _stack() -> list:
 
 
 class Span:
-    __slots__ = ("name", "args", "_ts")
+    __slots__ = ("name", "args", "id", "_ts")
 
     def __init__(self, name: str, args: Dict[str, Any]):
         self.name = name
         self.args = args
+        self.id = next(_IDS)
         self._ts = 0.0
 
     def set(self, **kv):
@@ -163,8 +207,10 @@ class Span:
         return self
 
     def __enter__(self):
-        self._ts = (time.perf_counter() - _T0) * 1e6
         _stack().append(self)
+        # stamped after the span's own bookkeeping, as on exit before
+        # it, so a span's time leaves its own cost out
+        self._ts = (time.perf_counter() - _T0) * 1e6
         return self
 
     def __exit__(self, exc_type, exc, tb):
@@ -177,10 +223,11 @@ class Span:
         ev: Dict[str, Any] = {
             "name": self.name, "ph": "X",
             "ts": self._ts, "dur": dur,
-            "tid": th.ident, "thread": th.name,
+            "tid": th.ident, "thread": th.name, "id": self.id,
         }
         if st:
             ev["parent"] = st[-1].name
+            ev["parent_id"] = st[-1].id
         if exc_type is not None:
             self.args["error"] = exc_type.__name__
         if self.args:
@@ -204,6 +251,141 @@ def span_log() -> List[Dict[str, Any]]:
     """Finished spans recorded so far (copies; test/export surface)."""
     with _LOCK:
         return list(_spans)
+
+
+def epoch_base_ns() -> int:
+    """``_T0`` on the epoch clock as it reads now, in nanoseconds."""
+    return time.time_ns() - int(round((time.perf_counter() - _T0) * 1e9))
+
+
+def epoch_ns(ts_us: float) -> int:
+    """A span's or event's ``ts`` (microseconds since ``_T0``) on the
+    epoch clock, in nanoseconds: torch.profiler's trace puts the same
+    instant at ``(epoch_ns(ts) - baseTimeNanoseconds) / 1e3``.  To map
+    many, take ``epoch_base_ns()`` once and add ``ts * 1e3``."""
+    return epoch_base_ns() + int(round(ts_us * 1e3))
+
+
+# ------------------------------------------------------------------
+# device spans
+# ------------------------------------------------------------------
+
+
+class _DeviceSpan:
+    """A pair of timing events for the launcher to record right around
+    its kernel (``events``: their ``cudaEvent_t`` handles), pending from
+    the block's end until resolved."""
+
+    __slots__ = ("name", "_key", "_start", "_end", "events")
+
+    def __init__(self, name: str, key: int, start, end):
+        self.name = name
+        self._key = key
+        self._start, self._end = start, end
+        self.events = (start.cuda_event, end.cuda_event)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        global _dropped_device
+        with _LOCK:
+            if exc_type is not None:
+                # the launch failed: the pair times nothing
+                _keep(self._key, self._start, self._end)
+            elif len(_device) < MAX_SPANS:
+                _device.append((self.name, self._key, self._start,
+                                self._end))
+            else:
+                _dropped_device += 1
+        return False
+
+
+def device_span(name: str, stream=None):
+    """The card's time of the kernel the block launches: a pair of CUDA
+    timing events on ``stream`` (a ``torch.cuda.Stream``; default: the
+    current device's current stream) that the launcher records,
+    pending until a later device span finds it finished or
+    ``flush_device()`` waits for it.  Disabled (or
+    ``enable(device=False)``) -> ``NULL_SPAN``, and no event is made."""
+    if not (_enabled if _enabled is not None else _resolve_enabled()) \
+            or not _device_on:
+        return NULL_SPAN
+    import torch
+
+    if stream is None:
+        stream = torch.cuda.current_stream()
+    key = stream.device_index
+    with _LOCK:
+        start, end = _take(key, stream), _take(key, stream)
+    return _DeviceSpan(name, key, start, end)
+
+
+def _take(key: int, stream):
+    """A timing event of device ``key``: one kept by an earlier pair,
+    else one of a finished pending pair (``_reap``), else a new one,
+    recorded once on ``stream`` so that its CUDA event exists (torch
+    makes it at the first record).  Making an event costs more than
+    recording one, and a traced run holds a few events, not one pair
+    per launch.  Under ``_LOCK``."""
+    free = _free_events.get(key)
+    if not free:
+        _reap()
+        free = _free_events.get(key)
+    if free:
+        return free.pop()
+    import torch
+
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+def _keep(key: int, start, end) -> None:
+    free = _free_events.setdefault(key, [])
+    if len(free) < MAX_FREE_EVENTS:
+        free += (start, end)
+
+
+def _resolve(name: str, key: int, start, end) -> None:
+    _hist(name + "_s", start.elapsed_time(end) / 1e3, LATENCY_BOUNDS_S)
+    _keep(key, start, end)
+
+
+def _reap() -> None:
+    """Resolve the pending pairs the card has finished, oldest first, up
+    to the first it has not (``query``; no synchronize)."""
+    with _LOCK:
+        done = 0
+        for name, key, start, end in _device:
+            if not end.query():
+                break
+            _resolve(name, key, start, end)
+            done += 1
+        del _device[:done]
+
+
+def flush_device() -> int:
+    """Resolve every pending device span into ``observe(name + "_s",
+    seconds)``, whether tracing is still on or not (the pairs were
+    recorded while it was).  Waits for each pair's end event; returns
+    the number resolved here (pairs a device span already found
+    finished were resolved then)."""
+    with _LOCK:
+        pending = list(_device)
+        _device.clear()
+    for *_, end in pending:
+        end.synchronize()
+    with _LOCK:
+        for name, key, start, end in pending:
+            _resolve(name, key, start, end)
+    return len(pending)
+
+
+def device_pending() -> int:
+    """Device spans recorded and not yet flushed."""
+    with _LOCK:
+        return len(_device)
 
 
 # ------------------------------------------------------------------
@@ -256,6 +438,10 @@ def observe(name: str, value: float,
     zero registry growth in production."""
     if not (_enabled if _enabled is not None else _resolve_enabled()):
         return
+    _hist(name, value, bounds)
+
+
+def _hist(name: str, value: float, bounds: Tuple[float, ...]) -> None:
     with _LOCK:
         h = _hists.get(name)
         if h is None:
@@ -342,6 +528,9 @@ def export_trace(path: str) -> str:
     deadline's worker thread is visible next to the main thread),
     structured events become instant ("i") marks.  Timed
     events are sorted by ``ts`` so consumers see monotone timestamps.
+    A span's ``args`` carry its ``id`` and ``parent_id``;
+    ``baseTimeNanoseconds`` puts ``ts`` 0 on the epoch clock, as a
+    torch.profiler trace of the same process does.
     """
     with _LOCK:
         spans = list(_spans)
@@ -365,6 +554,9 @@ def export_trace(path: str) -> str:
         args = dict(s.get("args") or {})
         if s.get("parent"):
             args["parent"] = s["parent"]
+        for k in ("id", "parent_id"):
+            if k in s:
+                args[k] = s[k]
         if args:
             ev["args"] = {k: _jsonable(v) for k, v in args.items()}
         timed.append(ev)
@@ -376,7 +568,8 @@ def export_trace(path: str) -> str:
                        if k not in ("stream", "kind", "ts")}}
         timed.append(ev)
     timed.sort(key=lambda ev: ev["ts"])
-    doc = {"traceEvents": meta + timed, "displayTimeUnit": "ms"}
+    doc = {"traceEvents": meta + timed, "displayTimeUnit": "ms",
+           "baseTimeNanoseconds": epoch_base_ns()}
     with open(path, "w") as f:
         json.dump(doc, f, indent=1, sort_keys=True)
     return path
@@ -410,5 +603,6 @@ def metrics_snapshot() -> Dict[str, Any]:
             "events": streams,
             "spans": len(_spans),
             "dropped": {"spans": _dropped_spans,
-                        "events": _dropped_events},
+                        "events": _dropped_events,
+                        "device": _dropped_device},
         }

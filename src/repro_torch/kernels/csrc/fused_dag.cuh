@@ -126,6 +126,13 @@ __global__ void combine_partials(const float* __restrict__ partials,
   out[j] = s;
 }
 
+// Record `event` (a timing cudaEvent_t the caller made; null: nothing)
+// on `stream`.  The launch entry points record a pair right around their
+// kernel, so the pair's time is the kernel's alone.
+inline int record(void* event, cudaStream_t stream) {
+  return event ? (int)cudaEventRecord((cudaEvent_t)event, stream) : 0;
+}
+
 // Launch combine_partials over `width` words; returns cudaGetLastError().
 inline int launch_combine(const float* partials, const float* init,
                           float* out, int ctas, int width,

@@ -33,6 +33,7 @@ import torch
 from repro_torch.core import codegen_cuda as cc
 from repro_torch.core import ir
 from repro_torch.core import pipeline as pl
+from repro_torch.core import telemetry
 from repro_torch.core.dse import PipelinePlan
 from repro_torch.core.strip_mine import tile
 from repro_torch.kernels import build
@@ -197,6 +198,69 @@ def test_fused_dag_kernel_matches_plain_and_reference(name):
         assert out[k].is_cuda
         torch.testing.assert_close(out[k], plain[k], **TOL)
         np.testing.assert_allclose(out[k].cpu().numpy(), ref[k], **TOL)
+
+
+@pytest.mark.cuda
+def test_fused_dag_device_spans_count_each_launch(monkeypatch):
+    """With tracing on, N calls of the lowered Q6 pipeline time N
+    megakernels and N combines by CUDA event pairs (recorded by the C
+    entry points), resolved into positive device seconds, and leave one
+    span tree a call; with it off they make no event and record
+    nothing; with host spans alone they make no event; and
+    ``fused_dag.launches`` counts N each time."""
+    _card()
+    n = 6
+    pipe, make_inputs, _ = an.PIPELINES["tpchq6"](n=1 << 20)
+    inp = {k: torch.as_tensor(v).cuda() for k, v in make_inputs().items()}
+    kern = cc.lower_fused_pipeline(pipe)
+    kern(**inp)
+    torch.cuda.synchronize()
+    made = []
+    real = torch.cuda.Event
+    monkeypatch.setattr(torch.cuda, "Event",
+                        lambda *a, **k: made.append(1) or real(*a, **k))
+    telemetry.reset()
+    telemetry.disable()
+    try:
+        before = cc.fused_dag.launches
+        outs = [kern(**inp) for _ in range(n)]
+        torch.cuda.synchronize()
+        assert cc.fused_dag.launches == before + n
+        assert made == [] and telemetry.device_pending() == 0
+        assert telemetry.span_log() == []
+        telemetry.enable()
+        traced = [kern(**inp) for _ in range(n)]
+        torch.cuda.synchronize()
+        assert cc.fused_dag.launches == before + 2 * n
+        # a call's device spans resolve the pairs the card has finished
+        # and record on their events
+        assert 0 < len(made) <= 4 * n
+        telemetry.flush_device()
+        assert telemetry.device_pending() == 0
+        hist = telemetry.metrics_snapshot()["histograms"]
+        for name in ("fused_dag.kernel_s", "fused_dag.combine_s"):
+            assert hist[name]["count"] == n and hist[name]["sum"] > 0
+        names = [s["name"] for s in telemetry.span_log()]
+        for name, per_call in (("pipeline.call", 1), ("fused_dag.call", 1),
+                               ("fused_dag.stage", 3),
+                               ("fused_dag.launch", 1),
+                               ("fused_dag.combine", 1)):
+            assert names.count(name) == per_call * n, name
+        for a, b in zip(outs, traced):
+            assert torch.equal(a, b)
+        # host spans alone: no event, the same answers
+        made.clear()
+        telemetry.enable(device=False)
+        hosted = [kern(**inp) for _ in range(n)]
+        torch.cuda.synchronize()
+        assert cc.fused_dag.launches == before + 3 * n
+        assert made == [] and telemetry.device_pending() == 0
+        assert [s["name"] for s in telemetry.span_log()].count(
+            "pipeline.call") == 2 * n
+        for a, b in zip(outs, hosted):
+            assert torch.equal(a, b)
+    finally:
+        telemetry.reset()
 
 
 @pytest.mark.cuda
