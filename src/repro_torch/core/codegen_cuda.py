@@ -22,7 +22,8 @@ place of MaxJ ones, for an NVIDIA Hopper card (``sm_90a``):
     scratch, fold terminals in registers, CAM terminals in per-warp
     tables (registers, or shared memory for large ones) without atomics,
     Map terminals streamed out once; per-block partials are summed in
-    block order by a second small launch
+    block order by a second small launch; a call repeated on the same
+    inputs replays the two launches as one CUDA graph
   * one serving decode step of one layer over a paged KV cache
     (``lower_paged_decode``)             -> ``csrc/paged_decode.cuh``,
     the request's live pages split across blocks (flash-decoding), each
@@ -45,6 +46,7 @@ import dataclasses
 import functools
 import itertools
 import operator
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -1022,15 +1024,19 @@ def dag_source(spec: DagSpec) -> str:
     L.append(_ctas_source("fdag", "fused_dag_kernel", "SMEM_BYTES"))
     # start / end: CUDA timing events recorded right around the launch
     # (telemetry.device_span's pair), or null
-    L.append(f'''extern "C" int fdag_launch(void* const* ins, void* const* outs,
+    L.append(f'''static int launch_dag(void* const* ins, void* const* outs,
+                      void* partials, int ctas, cudaStream_t stream) {{
+  fused_dag_kernel<<<ctas, tcopy::THREADS, SMEM_BYTES, stream>>>(
+      {", ".join(call)});
+  return (int)cudaGetLastError();
+}}
+
+extern "C" int fdag_launch(void* const* ins, void* const* outs,
                            void* partials, int ctas, void* stream,
                            void* start, void* end) {{
   int rc = fdag::record(start, (cudaStream_t)stream);
   if (rc) return rc;
-  fused_dag_kernel<<<ctas, tcopy::THREADS, SMEM_BYTES,
-                     (cudaStream_t)stream>>>(
-      {", ".join(call)});
-  rc = (int)cudaGetLastError();
+  rc = launch_dag(ins, outs, partials, ctas, (cudaStream_t)stream);
   return rc ? rc : fdag::record(end, (cudaStream_t)stream);
 }}
 
@@ -1046,13 +1052,57 @@ extern "C" int fdag_combine(const void* partials, const void* init,
       PARTIAL_WORDS);
   rc = (int)cudaGetLastError();
   return rc ? rc : fdag::record(end, (cudaStream_t)stream);
+}}
+
+// The megakernel and its combine, launched as fdag_launch and
+// fdag_combine launch them, captured on a stream of its own into one
+// CUDA graph: *exec is its executable graph, which fdag_graph_launch
+// replays on any stream of the card and fdag_graph_free destroys.
+extern "C" int fdag_graph(void* const* ins, void* const* outs,
+                          void* partials, const void* init, void* out,
+                          int ctas, void** exec) {{
+  cudaStream_t s;
+  cudaGraph_t graph = nullptr;
+  int rc = (int)cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  if (rc) return rc;
+  rc = (int)cudaStreamBeginCapture(s, cudaStreamCaptureModeThreadLocal);
+  if (!rc) {{
+    int lrc = launch_dag(ins, outs, partials, ctas, s);
+    if (!lrc)
+      lrc = fdag::launch_combine((const float*)partials, (const float*)init,
+                                 (float*)out, ctas, PARTIAL_WORDS, s);
+    rc = (int)cudaStreamEndCapture(s, &graph);
+    if (!rc) rc = lrc;
+  }}
+  if (!rc)
+    rc = (int)cudaGraphInstantiateWithFlags((cudaGraphExec_t*)exec, graph, 0);
+  if (graph) cudaGraphDestroy(graph);
+  cudaStreamDestroy(s);
+  return rc;
+}}
+
+extern "C" int fdag_graph_launch(void* exec, void* stream) {{
+  return (int)cudaGraphLaunch((cudaGraphExec_t)exec, (cudaStream_t)stream);
+}}
+
+extern "C" int fdag_graph_free(void* exec) {{
+  return (int)cudaGraphExecDestroy((cudaGraphExec_t)exec);
 }}''')
     return "\n".join(L) + build.ERROR_STRING
 
 
+def _partial_views(spec: DagSpec) -> List[Tuple[str, int, int, Tuple]]:
+    """(name, first word, end word, shape) of each fold / CAM terminal's
+    output in the combine's flat output."""
+    return [(t.name, t.partial,
+             t.partial + (int(np.prod(t.shape)) if t.shape else 1), t.shape)
+            for t in spec.terminals if t.kind != "map"]
+
+
 class DagKernel:
     """The megakernel of one fused DAG at one plan: its ``DagSpec``, its
-    generated source and -- from its first launch on a card -- the
+    generated source, where each fold / CAM output lies in the combine's
+    output (``views``) and -- from its first launch on a card -- the
     loaded library, its persistent block count and the terminals'
     ``init`` words, kept so a launch does no host work beyond it."""
 
@@ -1061,6 +1111,7 @@ class DagKernel:
     def __init__(self, spec: DagSpec):
         self.spec = spec
         self.source = dag_source(spec)
+        self.views = _partial_views(spec)
         self._lib = None
         self._ctas: Dict[torch.device, int] = {}
         self._init: Dict[torch.device, torch.Tensor] = {}
@@ -1071,7 +1122,11 @@ class DagKernel:
             self._lib = build.bind(build.load(self.name, self.source), {
                 "fdag_ctas": [ctypes.POINTER(ctypes.c_int)],
                 "fdag_launch": [vp, vp, vp, ctypes.c_int, vp, vp, vp],
-                "fdag_combine": [vp, vp, vp, ctypes.c_int, vp, vp, vp]})
+                "fdag_combine": [vp, vp, vp, ctypes.c_int, vp, vp, vp],
+                "fdag_graph": [vp, vp, vp, vp, vp, ctypes.c_int,
+                               ctypes.POINTER(vp)],
+                "fdag_graph_launch": [vp, vp],
+                "fdag_graph_free": [vp]})
         return self._lib
 
     def ctas(self, dev: torch.device) -> int:
@@ -1213,15 +1268,139 @@ def fused_dag(kernel: DagKernel, tensors: Dict[str, torch.Tensor]
                                       flat.data_ptr(), ctas, stream,
                                       *ev.events)
                 build.check(lib, rc, "fused_dag combine")
-            for t in spec.terminals:
-                if t.kind != "map":
-                    w = int(np.prod(t.shape)) if t.shape else 1
-                    outs[t.name] = flat[t.partial:t.partial + w] \
-                        .reshape(t.shape)
+            for name, a, b, shape in kernel.views:
+                outs[name] = flat[a:b].reshape(shape)
+    telemetry.count("fused_dag.eager_calls")
     return {t.name: outs[t.name] for t in spec.terminals}
 
 
 fused_dag.launches = 0
+
+
+# --------------------------------------------------------------------
+# Replays: a fused-DAG call as one CUDA graph, keyed on its inputs
+# --------------------------------------------------------------------
+
+DAG_GRAPHS = 128   # graphs a fused-DAG callable keeps, the oldest dropped
+                   # first: one per input signature, so the partitions of
+                   # a table cut in up to 128 pieces each keep theirs
+
+
+def current_stream(dev: torch.device) -> Tuple[int, int]:
+    """(device index, handle) of the stream a launch on ``dev`` goes to,
+    ``torch.cuda.current_stream(dev)``'s, read without building a
+    ``torch.cuda.Stream``: the public call costs more than the rest of
+    a replay's lookup."""
+    index = torch._C._cuda_getDevice() if dev.index is None else dev.index
+    return index, torch._C._cuda_getCurrentRawStream(index)
+
+
+def dag_signature(tensors: Dict[str, Any], names: Sequence[str],
+                  stream) -> Optional[tuple]:
+    """What an eager launch's checks and pointers depend on: the stream
+    the call launches on (``current_stream``; first), then each input's
+    address, shape, strides, dtype and device.  None when an input is
+    no tensor."""
+    key: List[Any] = [stream]
+    for name in names:
+        t = tensors[name]
+        if not isinstance(t, torch.Tensor):
+            return None
+        key.append((t.data_ptr(), t.shape, t.stride(), t.dtype, t.device))
+    return tuple(key)
+
+
+def graphable(spec: DagSpec, dev: torch.device) -> bool:
+    """Can a call of this DAG on ``dev`` replay one CUDA graph: on the
+    card, with every terminal a fold or a CAM, so that a replay's output
+    is the combine's few words (a Map terminal writes a whole output,
+    which a replay would have to copy out)."""
+    return dev.type == "cuda" and all(t.kind != "map"
+                                      for t in spec.terminals)
+
+
+def replayable(spec: DagSpec, dev: torch.device, tensors: Dict[str, Any],
+               staged: Dict[str, torch.Tensor]) -> bool:
+    """May this call's launch be kept as a graph for its signature:
+    ``graphable``, no device span times the launches (they time eager
+    ones), and staging left every input as the caller gave it (a copy
+    has no address that lasts)."""
+    return graphable(spec, dev) and not telemetry.device_enabled() and all(
+        staged[name] is tensors[name] for name, _ in spec.inputs)
+
+
+class DagGraph:
+    """The megakernel and its combine over fixed inputs, as one CUDA
+    graph (``fdag_graph``) with partials and a flat output of its own.
+    The executable graph is destroyed with the object."""
+
+    def __init__(self, kernel: DagKernel, ins: Sequence[torch.Tensor],
+                 dev: torch.device, stream: int):
+        spec = kernel.spec
+        self.exec = None
+        self.lib = kernel.library()
+        self.stream = stream
+        self.views = kernel.views
+        ctas = kernel.ctas(dev)
+        self.partials = torch.empty((ctas, spec.partial_words),
+                                    dtype=torch.float32, device=dev)
+        self.flat = torch.empty(spec.partial_words, dtype=torch.float32,
+                                device=dev)
+        self._lock = threading.Lock()
+        in_ptrs = build.pointers([t.data_ptr() for t in ins])
+        exe = ctypes.c_void_p()
+        rc = self.lib.fdag_graph(ctypes.cast(in_ptrs, ctypes.c_void_p), None,
+                                 self.partials.data_ptr(),
+                                 kernel.init(dev).data_ptr(),
+                                 self.flat.data_ptr(), ctas,
+                                 ctypes.byref(exe))
+        build.check(self.lib, rc, "fused_dag graph capture")
+        self.exec = exe.value
+
+    def replay(self) -> Dict[str, torch.Tensor]:
+        """Launch the graph on its stream; the outputs, in fresh storage
+        that no later replay writes."""
+        with self._lock:      # a replay rewrites the flat output
+            build.check(self.lib,
+                        self.lib.fdag_graph_launch(self.exec, self.stream),
+                        "fused_dag graph launch")
+            flat = self.flat.clone()
+        fused_dag.launches += 1
+        telemetry.count("fused_dag.graph_replays")
+        return {name: flat[a:b].reshape(shape)
+                for name, a, b, shape in self.views}
+
+    def __del__(self):
+        if self.exec:
+            # a graph still running is freed when it completes
+            self.lib.fdag_graph_free(self.exec)
+
+
+class DagGraphs:
+    """A fused-DAG callable's graphs by input signature
+    (``dag_signature``), at most ``DAG_GRAPHS``."""
+
+    def __init__(self, kernel: DagKernel, dev: torch.device):
+        self.kernel, self.dev = kernel, dev
+        self.names = tuple(name for name, _ in kernel.spec.inputs)
+        self.plans: Dict[tuple, DagGraph] = {}
+        self._lock = threading.Lock()
+
+    def key(self, tensors: Dict[str, Any]) -> Optional[tuple]:
+        """The call's signature, or None while device spans are on."""
+        if telemetry.device_enabled():
+            return None
+        return dag_signature(tensors, self.names, current_stream(self.dev))
+
+    def capture(self, key: tuple, staged: Dict[str, torch.Tensor]) -> None:
+        _, stream = key[0]
+        graph = DagGraph(self.kernel, [staged[n] for n in self.names],
+                         self.dev, stream)
+        with self._lock:
+            while len(self.plans) >= DAG_GRAPHS:
+                del self.plans[next(iter(self.plans))]
+            self.plans[key] = graph
+        telemetry.count("fused_dag.graph_captures")
 
 
 def lower_fused_dag(terminals, grid_n: int, depth: int = 2, *,
@@ -1240,7 +1419,16 @@ def lower_fused_dag(terminals, grid_n: int, depth: int = 2, *,
     (paper Fig. 6).  On a card, a plan whose CAM staging does not fit
     beside its charge raises ``ValueError`` here.  Returns
     ``call(**tensors) -> {name: tensor}`` with ``.kernel`` (the
-    ``DagKernel``: its spec and generated source).
+    ``DagKernel``: its spec and generated source) and ``.graphs``.
+
+    Where the DAG is ``graphable``, ``.graphs`` (``DagGraphs``) keeps
+    a call's two launches as one CUDA graph under the call's
+    ``dag_signature``: the first call with a signature runs the eager
+    path in full and captures the graph (``replayable`` says when), and
+    each later one looks the signature up and replays the graph, with
+    the same answer bit for bit.  Counters ``fused_dag.graph_captures``,
+    ``fused_dag.graph_replays``; ``fused_dag.eager_calls`` counts the
+    wrapper's launches.
     """
     dev = resolve(device)
     limit = torch.cuda.get_device_properties(dev) \
@@ -1251,14 +1439,28 @@ def lower_fused_dag(terminals, grid_n: int, depth: int = 2, *,
         kernel = DagKernel(dag_spec(terminals, grid_n, depth,
                                     smem_limit=limit))
 
+    graphs = DagGraphs(kernel, dev) if graphable(kernel.spec, dev) else None
+
     def call(**tensors):
         with telemetry.span("fused_dag.call"):
+            key = None
+            if graphs is not None:
+                with telemetry.span("fused_dag.stage"):
+                    key = graphs.key(tensors)
+                    graph = graphs.plans.get(key)
+                if graph is not None:
+                    with telemetry.span("fused_dag.launch"):
+                        return graph.replay()
             with telemetry.span("fused_dag.stage"):
                 ts = {name: _staged(tensors[name], dev)
                       for name, _ in kernel.spec.inputs}
-            return fused_dag(kernel, ts)
+            out = fused_dag(kernel, ts)
+            if key is not None and replayable(kernel.spec, dev, tensors, ts):
+                graphs.capture(key, ts)
+            return out
 
     call.kernel = kernel
+    call.graphs = graphs
     return call
 
 
@@ -1342,13 +1544,20 @@ def lower_fused_pipeline(pipe, *, plan=None,
 
     out_names = plmod.output_names(pipe)
     seq = itertools.count(1)
+    # one megakernel that replays graphs reads the caller's tensors as
+    # they are, before it stages them, so a replay makes no per-input op
+    direct = len(runners) == 1 and getattr(runners[0], "graphs", None) \
+        is not None
 
     def call(**tensors):
         with telemetry.span("pipeline.call", pipeline=pipe.name,
                             seq=next(seq)):
-            with telemetry.span("fused_dag.stage"):
-                env = {k: torch.as_tensor(v).to(dev)
-                       for k, v in tensors.items()}
+            if direct:
+                env = tensors
+            else:
+                with telemetry.span("fused_dag.stage"):
+                    env = {k: torch.as_tensor(v).to(dev)
+                           for k, v in tensors.items()}
             for runner in runners:
                 env.update(runner(**env))
             if len(out_names) == 1:

@@ -71,7 +71,7 @@ __all__ = [
     "observe", "emit", "events", "clear_events", "put_record",
     "get_record", "log_bounds", "LATENCY_BOUNDS_S", "export_trace",
     "metrics_snapshot", "span_log", "device_span", "flush_device",
-    "device_pending", "epoch_ns", "epoch_base_ns",
+    "device_pending", "device_enabled", "epoch_ns", "epoch_base_ns",
 ]
 
 _LOCK = threading.RLock()
@@ -301,6 +301,13 @@ class _DeviceSpan:
         return False
 
 
+def device_enabled() -> bool:
+    """Would ``device_span`` make a pair of events now?  A launcher whose
+    kernels can be timed only by an eager launch asks before choosing."""
+    return bool(_enabled if _enabled is not None else _resolve_enabled()) \
+        and _device_on
+
+
 def device_span(name: str, stream=None):
     """The card's time of the kernel the block launches: a pair of CUDA
     timing events on ``stream`` (a ``torch.cuda.Stream``; default: the
@@ -308,8 +315,7 @@ def device_span(name: str, stream=None):
     pending until a later device span finds it finished or
     ``flush_device()`` waits for it.  Disabled (or
     ``enable(device=False)``) -> ``NULL_SPAN``, and no event is made."""
-    if not (_enabled if _enabled is not None else _resolve_enabled()) \
-            or not _device_on:
+    if not device_enabled():
         return NULL_SPAN
     import torch
 

@@ -263,6 +263,276 @@ def test_fused_dag_device_spans_count_each_launch(monkeypatch):
         telemetry.reset()
 
 
+# ------------------------------------------ fused-DAG calls as graph replays
+GRAPH_COUNTERS = ("fused_dag.graph_captures", "fused_dag.graph_replays",
+                  "fused_dag.eager_calls")
+
+
+def _tpch_program(name):
+    """The benchmark's TPC-H program ``name`` (``bench/programs``), as a
+    module."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "bench", "programs", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_program_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tpch_columns(mod, rows, seed, device="cuda"):
+    """Columns for a TPC-H program: dates over the table's 7 years,
+    flags and statuses as codes, discounts up to 0.10, quantities 1-50."""
+    g = torch.Generator().manual_seed(seed)
+    cols = {c: torch.rand(rows, generator=g) for c in mod.COLUMNS}
+    cols["shipdate"] = cols["shipdate"] * 2526.0
+    if "returnflag" in cols:
+        cols["returnflag"] = torch.randint(0, 3, (rows,), generator=g).float()
+        cols["linestatus"] = torch.randint(0, 2, (rows,), generator=g).float()
+    cols["discount"] = cols["discount"] * 0.1
+    cols["quantity"] = torch.ceil(cols["quantity"] * 50.0)
+    return {k: v.to(device) for k, v in cols.items()}
+
+
+def _graph_case(name, seed=0):
+    """(pipeline, make(seed) -> CUDA inputs) for a program the graph path
+    takes: Q6 and Q1 at 2^20 rows, gda and kmeans at 65,536 (their
+    inputs are fixed)."""
+    if name.startswith("tpch_"):
+        mod = _tpch_program(name)
+        rows = 1 << 20
+        return mod.pipeline(rows), lambda s: _tpch_columns(mod, rows, s)
+    pipe, make_inputs, _ = an.PIPELINES[name](n=65536)
+    return pipe, lambda s: {k: torch.as_tensor(v).cuda()
+                            for k, v in make_inputs().items()}
+
+
+def _as_dict(out, pipe):
+    return out if isinstance(out, dict) else {pl.output_names(pipe)[0]: out}
+
+
+def _graph_counts():
+    c = telemetry.metrics_snapshot()["counters"]
+    return tuple(int(c.get(k, 0)) for k in GRAPH_COUNTERS)
+
+
+@pytest.fixture
+def _untraced():
+    """Tracing off (a replay needs device spans off), counters at 0."""
+    telemetry.reset()
+    telemetry.disable()
+    yield
+    telemetry.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tpch_q6", "tpch_q1", "gda", "kmeans"])
+def test_fused_dag_replay_is_the_eager_launch_bit_for_bit(name, _untraced):
+    """The first call runs the eager path and captures; the replays after
+    it give the eager wrapper's answer bit for bit, in fresh tensors."""
+    _card()
+    pipe, make = _graph_case(name)
+    inp = make(0)
+    call = cc.lower_fused_pipeline(pipe)
+    (dag,) = call.group_calls
+    assert dag.graphs is not None
+    eager = cc.fused_dag(dag.kernel, inp)
+    outs = [_as_dict(call(**inp), pipe) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert len(dag.graphs.plans) == 1
+    assert _graph_counts() == (1, 2, 2)
+    for out in outs:
+        assert set(out) == set(pl.output_names(pipe))
+        for k, v in out.items():
+            assert torch.equal(v, eager[k]), k
+    ptrs = [v.data_ptr() for out in outs for v in out.values()]
+    assert len(set(ptrs)) == len(ptrs)
+
+
+@pytest.mark.cuda
+def test_fused_dag_replay_answers_stay_after_later_calls(_untraced):
+    """An answer a replay returned is not written by a later call: on
+    other inputs, or on the same inputs after their values changed."""
+    _card()
+    pipe, make = _graph_case("tpch_q1")
+    a, b = make(1), make(2)
+    call = cc.lower_fused_pipeline(pipe)
+    (dag,) = call.group_calls
+    call(**a)
+    call(**b)
+    first = _as_dict(call(**a), pipe)        # replays
+    kept = {k: v.clone() for k, v in first.items()}
+    other = _as_dict(call(**b), pipe)
+    for k, v in a.items():
+        v.copy_(b[k])                        # a's tensors now hold b's values
+    again = _as_dict(call(**a), pipe)
+    torch.cuda.synchronize()
+    assert _graph_counts() == (2, 3, 2)
+    want_a, want_b = (cc.fused_dag(dag.kernel, x) for x in (make(1), b))
+    for k in first:
+        assert torch.equal(first[k], kept[k])
+        assert torch.equal(first[k], want_a[k])
+        assert torch.equal(other[k], want_b[k])
+        assert torch.equal(again[k], want_b[k])
+        assert not torch.equal(first[k], other[k])
+
+
+@pytest.mark.cuda
+def test_fused_dag_replays_alternating_partition_views(_untraced):
+    """Views of one table's partitions (other addresses, as the
+    ``partitions`` traffic makes) each keep a graph and each answer
+    right, whatever the order."""
+    _card()
+    mod = _tpch_program("tpch_q6")
+    rows, parts = 1 << 18, 4
+    table = _tpch_columns(mod, rows * parts, 5)
+    views = [{k: v[p * rows:(p + 1) * rows] for k, v in table.items()}
+             for p in range(parts)]
+    call = cc.lower_fused_pipeline(mod.pipeline(rows))
+    (dag,) = call.group_calls
+    want = [cc.fused_dag(dag.kernel, v)["q6_sum"] for v in views]
+    order = [0, 2, 1, 3, 3, 0, 2, 1, 1, 3, 0, 2]
+    got = [call(**views[p]) for p in order]
+    torch.cuda.synchronize()
+    for p, g in zip(order, got):
+        assert torch.equal(g, want[p]), p
+    assert len(dag.graphs.plans) == parts
+    assert _graph_counts() == (parts, len(order) - parts, 2 * parts)
+
+
+@pytest.mark.cuda
+def test_fused_dag_two_streams_keep_two_graphs(_untraced):
+    _card()
+    pipe, make = _graph_case("gda")
+    inp = make(0)
+    call = cc.lower_fused_pipeline(pipe)
+    (dag,) = call.group_calls
+    want = cc.fused_dag(dag.kernel, inp)
+    side = torch.cuda.Stream()
+    outs = [call(**inp), call(**inp)]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs += [call(**inp), call(**inp)]
+    torch.cuda.current_stream().wait_stream(side)
+    outs.append(call(**inp))
+    torch.cuda.synchronize()
+    assert len(dag.graphs.plans) == 2
+    dev = torch.cuda.current_device()
+    assert {k[0] for k in dag.graphs.plans} == {
+        (dev, torch.cuda.current_stream().cuda_stream),
+        (dev, side.cuda_stream)}
+    with torch.cuda.stream(side):
+        assert cc.current_stream(torch.device("cuda")) == (
+            dev, side.cuda_stream)
+    assert _graph_counts() == (2, 3, 3)
+    for out in outs:
+        for k, v in _as_dict(out, pipe).items():
+            assert torch.equal(v, want[k]), k
+
+
+@pytest.mark.cuda
+def test_fused_dag_one_signature_captures_once(_untraced):
+    """N calls with one signature: one eager launch and capture, N - 1
+    replays; ``fused_dag.launches`` counts all N."""
+    _card()
+    n = 7
+    pipe, make = _graph_case("tpch_q6")
+    inp = make(3)
+    call = cc.lower_fused_pipeline(pipe)
+    before = cc.fused_dag.launches
+    outs = [call(**inp) for _ in range(n)]
+    torch.cuda.synchronize()
+    assert cc.fused_dag.launches == before + n
+    assert _graph_counts() == (1, n - 1, 1)
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+@pytest.mark.cuda
+def test_fused_dag_device_spans_take_the_eager_path(_untraced):
+    """With device spans on every call launches eagerly (its event pair
+    times the kernel), with host spans alone or tracing off it replays;
+    the answers are the same bits throughout."""
+    _card()
+    n = 4
+    pipe, make = _graph_case("tpch_q1")
+    inp = make(4)
+    call = cc.lower_fused_pipeline(pipe)
+    first = _as_dict(call(**inp), pipe)
+    telemetry.enable()
+    traced = [_as_dict(call(**inp), pipe) for _ in range(n)]
+    torch.cuda.synchronize()
+    assert _graph_counts() == (1, 0, 1 + n)
+    telemetry.flush_device()
+    assert telemetry.metrics_snapshot()["histograms"][
+        "fused_dag.kernel_s"]["count"] == n
+    telemetry.enable(device=False)
+    hosted = [_as_dict(call(**inp), pipe) for _ in range(n)]
+    telemetry.disable()
+    quiet = _as_dict(call(**inp), pipe)
+    torch.cuda.synchronize()
+    assert _graph_counts() == (1, n + 1, 1 + n)
+    names = [s["name"] for s in telemetry.span_log()]
+    # a replay: the call, the lookup and the launch; no combine span
+    assert names.count("fused_dag.combine") == n
+    assert names.count("pipeline.call") == 2 * n
+    assert names.count("fused_dag.stage") == 3 * n + n
+    for out in traced + hosted + [quiet]:
+        for k in first:
+            assert torch.equal(out[k], first[k]), k
+
+
+@pytest.mark.cuda
+def test_fused_dag_graphs_bounded_and_freed(monkeypatch, _untraced):
+    """Past ``DAG_GRAPHS`` signatures the oldest graph is destroyed; the
+    rest go with the lowered callable; a Map terminal and a view off a
+    16-byte boundary keep the eager path."""
+    import gc
+    import weakref
+
+    _card()
+    monkeypatch.setattr(cc, "DAG_GRAPHS", 2)
+    mod = _tpch_program("tpch_q6")
+    rows = 1 << 16
+    inputs = [_tpch_columns(mod, rows, s) for s in range(3)]
+    call = cc.lower_fused_pipeline(mod.pipeline(rows))
+    (dag,) = call.group_calls
+    refs = []
+    for inp in inputs:
+        call(**inp)
+        refs += [weakref.ref(g) for g in dag.graphs.plans.values()
+                 if not any(r() is g for r in refs)]
+    torch.cuda.synchronize()
+    assert len(refs) == 3 and len(dag.graphs.plans) == 2
+    gc.collect()
+    assert refs[0]() is None and refs[1]() is not None
+    call(**inputs[0])                        # evicted: captured again
+    assert _graph_counts()[:2] == (4, 0)
+    del call, dag
+    gc.collect()
+    assert all(r() is None for r in refs)
+
+    odd = {k: _offset_view(v) for k, v in inputs[0].items()}
+    call = cc.lower_fused_pipeline(mod.pipeline(rows))
+    (dag,) = call.group_calls
+    want = call(**inputs[0])
+    got = [call(**odd) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert len(dag.graphs.plans) == 1
+    assert all(torch.equal(g, want) for g in got)
+    pipe, make_inputs, _ = an.PIPELINES["normalize"](n=4096)
+    norm = cc.lower_fused_pipeline(pipe)
+    assert norm.group_calls[0].graphs is None
+    x = {k: torch.as_tensor(v).cuda() for k, v in make_inputs().items()}
+    before = _graph_counts()
+    a, b = norm(**x), norm(**x)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert _graph_counts() == (before[0], before[1],
+                               before[2] + 2 * len(norm.group_calls))
+
+
 @pytest.mark.cuda
 def test_fused_dag_cam_drops_out_of_range_keys():
     _card()
