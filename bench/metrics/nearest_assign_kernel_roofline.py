@@ -1,0 +1,9 @@
+"""The nearest-row assignment kernel's share of its roofline (the
+distances, their argmin and the counts): its least work's bound in the
+segment's calls over its device time.  Nothing where the segment did
+not see it."""
+from bench.metrics.kernel_roofline import share
+
+
+def read(rec):
+    return share(rec, "nearest_assign_kernel")

@@ -63,6 +63,19 @@ ptxas must report no stack frame for any of those), then:
     kernel for the same step (counts equal).  These phases print their
     form and shared bytes, call the kernel twice (bitwise equal) and
     show the device time of the kernel and of ``combine_partials``;
+  * ``[nearest[kmeans.lloyd]]`` (alone with ``--kmeans``): the benchmark
+    cell ``kmeans.lloyd``'s program (``bench/programs/kmeans_lloyd.py``)
+    through ``lower_pipeline`` at its shape, 8,099,840 MNIST-like points
+    of 784 dimensions (25.4 GB, ``bench/data/mnist_like.py``) and 256
+    centroids: the nearest-row DAG's ``nearest_assign_kernel`` and
+    ``nearest_fold_kernel`` and their two ``combine_partials``.  Two
+    Lloyd steps, each called twice (bitwise equal), the kernel's and the
+    plain path's answers held to the float64 reference's admissible
+    intervals (counts exactly, sums within the cell's limit), their
+    counts apart by at most the ambiguous points, and a dropped last
+    centroid tile caught; launch counts from the program's counters and
+    a device trace; the step's ms, the plain path's, and each kernel's
+    device ms against the bound of its least work (``kernel_work``);
   * runs the LM kernels at the widths of ``repro_torch.configs``:
     ``flash_attention`` at granite-3-2b's (causal prefill of 2 x 4096
     tokens in float32 and bfloat16, decode of 32 rows over 32,768 keys)
@@ -1329,6 +1342,186 @@ def run_hand_kernels(kmeans_kernel, cc, tier, torch, dev) -> list:
           f"generated fused_dag[kmeans] {gen_ms:.4f} ms on the same inputs "
           f"(block {kmeans_kernel.spec.block}, depth "
           f"{kmeans_kernel.spec.depth}); counts equal", flush=True)
+    return rows
+
+
+# --------------------------------- the nearest-row DAG at its source shape
+KM_CELL = "kmeans.lloyd"     # the benchmark cell whose program and shape
+KM_SEED = 3_000_000_019      # the points' and first centroids' seed
+KM_CALLS = 3                 # calls of the launch-counting trace
+NEAREST_KERNELS = ("nearest_assign_kernel", "nearest_fold_kernel")
+
+
+def km_check(label: str, out: dict, want: dict, limits: dict, ref) -> dict:
+    """Hold one step's ``km_sums`` / ``km_counts`` to the reference's
+    admissible intervals (``want``): every count inside its interval
+    exactly, the sums within the cell's limit.  Returns the numbers."""
+    got = {k: v.cpu().numpy() for k, v in out.items()}
+    numbers = ref.errors(got, want)
+    if numbers["counts_err"] != 0.0 or \
+            numbers["sums_err"] > limits["sums_err"]:
+        fail(f"{label}: {numbers} outside the admissible intervals (counts "
+             f"exactly, sums within {limits['sums_err']})")
+    return numbers
+
+
+def run_nearest(cc, tier, torch, dev) -> list:
+    """Lloyd's k-means at the benchmark cell's shape (faiss's MNIST8m:
+    8,099,840 x 784 points, 256 centroids) through ``lower_pipeline`` on
+    ``bench/programs/kmeans_lloyd.py``: the nearest-row DAG's assignment
+    and fold kernels (``nearest_dag.cuh``) and their two combines.  Two
+    Lloyd steps -- centroids drawn from the points, then their means --
+    each held, with the plain path (``fused_dag_plain``) on the same
+    inputs, to the float64 reference's admissible intervals; the kernel's
+    and the plain counts may differ only by the ambiguous points; the
+    check must catch the last centroid tile's points moved to the first
+    cluster.  Launch counts from the program's counters, reset to 0 just
+    before the first call, and from a device trace of KM_CALLS calls;
+    the call's and the plain path's ms, each kernel's device ms against
+    the bound of its least work (``kernel_work``)."""
+    from bench import harness
+    from repro_torch.core import pipeline as plmod
+    from repro_torch.core import telemetry
+
+    cell = harness.load_cell(KM_CELL, False)
+    cfg, limits = cell.config, cell.workload["limits"]
+    n, k, d = int(cfg["rows"]), int(cfg["args"]["k"]), int(cfg["args"]["d"])
+    ref = harness.module("reference", cfg["program"])
+    pipe = harness.module("programs", cfg["program"]).pipeline(
+        n, **cfg["args"])
+    label = f"nearest[{KM_CELL}]"
+    t0 = time.perf_counter()
+    call = plmod.lower_pipeline(pipe, device=dev)
+    plan = call.pipeline_plan
+    print(f"[{label}] n={n} k={k} d={d} plan: block={plan.block} groups="
+          f"{list(plan.groups)} depths={list(plan.depths)} onchip_bytes="
+          f"{plan.vmem_bytes}; group_lowerings={list(call.group_lowerings)}",
+          flush=True)
+    if len(call.group_calls) != 1 or any(
+            how != "megakernel" for _, how in call.group_lowerings):
+        fail(f"{label}: not one group through the megakernel")
+    kernel = call.group_calls[0].kernel
+    spec = kernel.spec
+    if spec.nearest is None:
+        fail(f"{label}: the DAG did not take the nearest-row kernels")
+    lay = spec.nearest.layout
+    kernel.library()
+    forms = [(t.name, t.cam_form) for t in spec.terminals]
+    print(f"[{label}] layout: tile {lay.tile} ({lay.tiles} tiles), "
+          f"{lay.tm} x {lay.tn} a thread, slab {lay.slab}, fold "
+          f"{lay.fold_cols} columns ({lay.slices} slices, ring "
+          f"{lay.fold_depth}); forms {forms}; shared bytes "
+          f"{spec.smem_bytes} / {lay.fold_bytes} (fold); "
+          f"lowered and built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    pts = harness.module("data", cfg["data"]["kind"]).make(
+        cfg, n, KM_SEED, dev)["points"]
+    pick = np.sort(np.random.default_rng(KM_SEED).choice(n, k,
+                                                         replace=False))
+    cents = pts[torch.as_tensor(pick, device=dev)].clone()
+    env = {"points": pts, "centroids": cents}
+    torch.cuda.synchronize()
+    telemetry.reset()
+    telemetry.disable()
+    cc.fused_dag.launches = 0
+    outs = []
+    for step in range(2):
+        if step:      # the step's means, as the benchmark's client writes
+            new = outs[-1]["km_sums"] / \
+                outs[-1]["km_counts"].clamp(min=1.0)[:, None]
+            cents.copy_(torch.where(outs[-1]["km_counts"][:, None] > 0, new,
+                                    cents))
+        out = call(**env)
+        again = call(**env)
+        torch.cuda.synchronize()
+        for name in out:
+            if not torch.equal(out[name], again[name]):
+                fail(f"{label} step {step}: two calls differ in {name}")
+        plain = cc.fused_dag_plain(spec, env)
+        want = ref.answer(env)
+        e_kernel = km_check(f"{label} step {step}", out, want, limits, ref)
+        e_plain = km_check(f"{label} step {step} plain", plain, want,
+                           limits, ref)
+        moved = float((out["km_counts"] - plain["km_counts"]).abs().sum())
+        if moved > 2 * want["ambiguous"] * n:
+            fail(f"{label} step {step}: kernel and plain counts differ by "
+                 f"{moved:.0f} over {want['ambiguous'] * n:.0f} ambiguous "
+                 "points")
+        faulted = {key: v.cpu().numpy().copy() for key, v in out.items()}
+        last = (lay.tiles - 1) * lay.tile
+        faulted["km_counts"][0] += faulted["km_counts"][last:].sum()
+        faulted["km_counts"][last:] = 0
+        caught = ref.errors(faulted, want)["counts_err"]
+        if not caught > limits["counts_err"]:
+            fail(f"{label} step {step}: a dropped last tile reads "
+                 f"{caught:.3g}, inside the limit {limits['counts_err']}")
+        print(f"[{label}] step {step}: kernel {e_kernel}, plain {e_plain} "
+              f"(limits {limits}); ambiguous points {want['ambiguous']:.3e}; "
+              f"kernel vs plain counts apart by {moved:.0f}; a dropped last "
+              f"tile reads counts_err {caught:.3g}; empty clusters "
+              f"{int((out['km_counts'] == 0).sum())}", flush=True)
+        outs.append(out)
+    counters = telemetry.metrics_snapshot()["counters"]
+    launches = cc.fused_dag.launches
+    # the centroids change in place, so the input signature holds: one
+    # eager call captures the graph, the three after it replay it
+    want_counts = {"fused_dag.eager_calls": 1, "fused_dag.graph_captures": 1,
+                   "fused_dag.graph_replays": 3,
+                   "fused_dag.table_tiles": 4 * lay.tiles,
+                   "fused_dag.column_slices": 4 * lay.slices}
+    seen_counts = {key: counters.get(key, 0) for key in want_counts}
+    print(f"[{label}] 4 calls (2 steps, each called twice): fused_dag "
+          f"launches {launches}; counters {seen_counts}")
+    if launches != 4 or seen_counts != want_counts:
+        fail(f"{label}: launches {launches}, counters {seen_counts}; want 4, "
+             f"{want_counts}")
+
+    ms = median_ms(lambda: call(**env), torch, reps=5, batch=2)
+    plain_ms = median_ms(lambda: cc.fused_dag_plain(spec, env), torch,
+                         reps=3, batch=1)
+    step_ops = ref.ops({"points": (n, d), "centroids": (k, d)})
+    step_bound, _ = bound(4 * (n * d + k * d + k * d + k), step_ops, tier)
+    print(f"[{label}] a step {ms:.4f} ms (graph replay), plain {plain_ms:.4f}"
+          f" ms, bound {step_bound:.4f} ms ({step_ops} ops)", flush=True)
+    seen = device_kernels(lambda: call(**env), torch, KM_CALLS,
+                          NEAREST_KERNELS + ("combine_partials",))
+    want_launches = {"nearest_assign_kernel": KM_CALLS,
+                     "nearest_fold_kernel": KM_CALLS,
+                     "combine_partials": 2 * KM_CALLS,
+                     "Memcpy DtoD": KM_CALLS}   # a replay's copy of its output
+    by = {}
+    for name, dms, count in seen:
+        key = next((w for w in want_launches if w in name), name)
+        by[key] = (dms, count)
+    print(f"[{label}] device time per launch over {KM_CALLS} calls: " + (
+        ", ".join(f"{name} {dms:.4f} ms x{count}" for name, dms, count in seen)
+        or f"not measured (the tracer saw no kernel in {TRACES} traces)"))
+    if seen:
+        got_launches = {key: by.get(key, (0, 0))[1] for key in want_launches}
+        if got_launches != want_launches or len(by) != len(want_launches):
+            fail(f"{label}: launches {sorted(by.items())} in the trace; want "
+                 f"{want_launches} and nothing else")
+    rows = []
+    work = ref.kernel_work(n, k, d)
+    for name in NEAREST_KERNELS:
+        ops_, nbytes = work[name]
+        bound_ms, bound_by = bound(nbytes, ops_, tier)
+        card = by.get(name, (None, 0))[0]
+        print(f"[{label}] {name}: {card if card is None else round(card, 4)}"
+              f" ms a launch, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{ops_} ops, {nbytes} B)"
+              + (f", {bound_ms / card * 100:.2f}% of it" if card else ""))
+        rows.append({
+            "name": f"{name}[{KM_CELL}]", "route": "cuda",
+            "source": f"{CSRC}/nearest_dag.cuh",
+            "replaces": f"{REPLACES}:564", "launches": KM_CALLS,
+            "max_abs_err": None, "ms": card, "call_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
+    del pts, cents, env, outs, out, again, plain
+    torch.cuda.empty_cache()
+    telemetry.reset()      # tracing as the environment says, for what follows
     return rows
 
 
@@ -4505,6 +4698,9 @@ def main() -> int:
     if sys.argv[1:] == ["--examples"]:  # the port's examples alone
         run_examples(cc, tier, torch, dev, stores / "examples")
         return 0
+    if sys.argv[1:] == ["--kmeans"]:    # the nearest-row DAG alone
+        print(json.dumps({"kernels": run_nearest(cc, tier, torch, dev)}))
+        return 0
     if sys.argv[1:] == ["--models"]:    # the audio, VLM and train phases
         run_media("audio", "musicgen-medium", tier, torch, dev)
         run_media("vlm", "internvl2-1b", tier, torch, dev)
@@ -4671,6 +4867,7 @@ def main() -> int:
     kmeans_call = built["kmeans"][4]
     kernels.extend(run_hand_kernels(kmeans_call.group_calls[0].kernel, cc,
                                     tier, torch, dev))
+    kernels.extend(run_nearest(cc, tier, torch, dev))
     kernels.extend(run_lm_kernels(tier, torch, dev))
     kernels.extend(run_paged_kernels(tier, torch, dev))
     kernels.append(run_serving(tier, torch, dev))

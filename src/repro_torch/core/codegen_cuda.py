@@ -52,11 +52,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import ir, resilience, telemetry
+from . import ir, memory, resilience, telemetry
 from .affine import AffineMap
 from ..device import resolve
 from ..kernels import build
 from ..kernels.grid_flags import Flags
+from .cost import DEFAULT_TIER
 from .dse import PAGED_LAYOUTS
 
 
@@ -414,11 +415,17 @@ class DagSpec:
     terminals: Tuple[Terminal, ...]
     partial_words: int
     stage_words: int       # a warp's CAM staging: one piece, then tables
+    nearest: Optional["NearestPart"] = None   # a nearest-row stage's DAG
 
     @property
     def onchip_bytes(self) -> int:
-        """The buffers ``memory.plan_memory`` charges."""
-        return 4 * sum(b.words * b.slots for b in self.buffers)
+        """The buffers ``memory.plan_memory`` charges; for a nearest-row
+        DAG the assignment kernel's ring, norms and keys
+        (``memory.NearestLayout.assign_bytes``) with the CAM tables."""
+        own = 4 * sum(b.words * b.slots for b in self.buffers)
+        if self.nearest is not None:
+            own += self.nearest.layout.assign_bytes
+        return own
 
     @property
     def staging_bytes(self) -> int:
@@ -454,7 +461,8 @@ def dag_spec(terminals, grid_n: int, depth: int = 2,
     shapes the template does not take, and ``ValueError`` when the plan's
     charge fits ``smem_limit`` (a block's shared bytes on the card) but
     the charge plus the CAM staging does not: the form is not changed to
-    make room."""
+    make room.  A DAG whose stage is a nearest-row one (``ir.Map.nearest``)
+    takes ``_nearest_spec``'s kernels."""
     from .fusion import tile_copy_key
 
     if depth < 2:
@@ -467,6 +475,8 @@ def dag_spec(terminals, grid_n: int, depth: int = 2,
             raise ValueError(
                 f"terminal '{t.name}' grid {t.domain} != ({grid_n},)")
     (block,) = terminals[0][1].inner.domain
+    if memory.nearest_dag([t for _, t in terminals]) is not None:
+        return _nearest_spec(terminals, grid_n, depth, smem_limit)
 
     buffers: List[Buffer] = []
     by_uid: Dict[str, int] = {}
@@ -839,6 +849,49 @@ def _cam_end_c(spec: DagSpec) -> List[str]:
     return L
 
 
+def _accumulators_c(terms: Sequence[Terminal]) -> List[str]:
+    """A block's accumulators: each fold terminal's array, each register
+    CAM's named scalars, each shared CAM's zeroed warp table."""
+    L: List[str] = []
+    for t in terms:
+        if t.kind == "fold":
+            L.append(f"  float acc_{_ident(t.name)}[{t.width}] = {{}};")
+        elif t.kind == "cam" and t.cam_form == "register":
+            nc = -(-t.width // t.cam_lanes)
+            L += ["  float " + ", ".join(f"{_cam_acc(t, j, p)} = 0.0f"
+                                         for p in range(nc)) + ";"
+                  for j in range(t.keys)]
+        elif t.kind == "cam":
+            wt = f"wt_{_ident(t.name)}"
+            L.append(f"  float* const {wt} = stage_w + {t.cam_table};")
+            L.append(f"  for (int e = lane; e < {t.keys * t.width}; e += 32) "
+                     f"{wt}[e] = 0.0f;")
+    return L
+
+
+def _partials_c(spec: DagSpec) -> List[str]:
+    """After the walk: the CAM tables into the block's (``_cam_end_c``),
+    then the block's partial of every CAM and fold terminal."""
+    L = _cam_end_c(spec)
+    L.append("  __syncthreads();")
+    L.append("  float* const part = partials + (long long)blockIdx.x "
+             "* PARTIAL_WORDS;")
+    for t in spec.terminals:
+        if t.kind == "cam":
+            L.append(f"  for (int e = threadIdx.x; e < {t.keys * t.width}; "
+                     f"e += blockDim.x) part[{t.partial} + e] = "
+                     f"buf{t.table}[e];")
+    L.append("  __syncthreads();  // shared memory becomes reduction scratch")
+    for t in spec.terminals:
+        if t.kind == "fold":
+            L.append(f"  for (int j = 0; j < {t.width}; ++j) {{")
+            L.append(f"    const float s = fdag::block_sum("
+                     f"acc_{_ident(t.name)}[j], smem);")
+            L.append(f"    if (threadIdx.x == 0) part[{t.partial} + j] = s;")
+            L.append("  }")
+    return L
+
+
 def _ring_c(fill: Callable[[str, str, str], List[str]]
             ) -> Tuple[List[str], List[str]]:
     """The lines of the ``cp.async`` ring over grid steps (``fused_dag.cuh``
@@ -927,19 +980,7 @@ def dag_source(spec: DagSpec) -> str:
             L.append(f"  tcopy::copy_scalar(buf{i}, {src}, {buf.words});")
         elif buf.kind == "cam":
             L.append(f"  fdag::zero(buf{i}, {buf.words});")
-    for t in spec.terminals:
-        if t.kind == "fold":
-            L.append(f"  float acc_{_ident(t.name)}[{t.width}] = {{}};")
-        elif t.kind == "cam" and t.cam_form == "register":
-            nc = -(-t.width // t.cam_lanes)
-            L += ["  float " + ", ".join(f"{_cam_acc(t, j, p)} = 0.0f"
-                                     for p in range(nc)) + ";"
-                  for j in range(t.keys)]
-        elif t.kind == "cam":
-            wt = f"wt_{_ident(t.name)}"
-            L.append(f"  float* const {wt} = stage_w + {t.cam_table};")
-            L.append(f"  for (int e = lane; e < {t.keys * t.width}; e += 32) "
-                     f"{wt}[e] = 0.0f;")
+    L += _accumulators_c(spec.terminals)
     L.append("  __syncthreads();")
 
     streams = [(i, buf) for i, buf in enumerate(spec.buffers)
@@ -997,23 +1038,7 @@ def dag_source(spec: DagSpec) -> str:
     L.append("  }")
     L.append("  hop::cp_async_wait<0>();")
     # epilogue: one partial per block for every fold and CAM terminal
-    L += _cam_end_c(spec)
-    L.append("  __syncthreads();")
-    L.append("  float* const part = partials + (long long)blockIdx.x "
-             "* PARTIAL_WORDS;")
-    for t in spec.terminals:
-        if t.kind == "cam":
-            L.append(f"  for (int e = threadIdx.x; e < {t.keys * t.width}; "
-                     f"e += blockDim.x) part[{t.partial} + e] = "
-                     f"buf{t.table}[e];")
-    L.append("  __syncthreads();  // shared memory becomes reduction scratch")
-    for t in spec.terminals:
-        if t.kind == "fold":
-            L.append(f"  for (int j = 0; j < {t.width}; ++j) {{")
-            L.append(f"    const float s = fdag::block_sum("
-                     f"acc_{_ident(t.name)}[j], smem);")
-            L.append(f"    if (threadIdx.x == 0) part[{t.partial} + j] = s;")
-            L.append("  }")
+    L += _partials_c(spec)
     L.append("}")
     L.append("}  // namespace")
     L.append("")
@@ -1091,6 +1116,445 @@ extern "C" int fdag_graph_free(void* exec) {{
     return "\n".join(L) + build.ERROR_STRING
 
 
+# --------------------------------------------------------------------
+# Nearest-row DAGs: a stage that is an argmin over a table's rows, the
+# table streamed in tiles, and a keyed sum of rows folded a column
+# slice at a time (csrc/nearest_dag.cuh)
+# --------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NearestPart:
+    """What a nearest-row DAG adds to its ``DagSpec``: the layout, the
+    stage, its table and query operands, and the keyed sum of rows the
+    fold kernel takes (``fold``: its terminal's index, or -1)."""
+
+    layout: "memory.NearestLayout"
+    stage: str          # the nearest-row stage's name
+    table: int          # operand index of the K x D table
+    query: int          # operand index of the n x D query rows
+    fold: int           # terminal folded by column slices, or -1
+    values: int         # operand index of the fold's rows
+    partial1: int       # words of an assignment block's partial
+
+    @property
+    def fold_words(self) -> int:
+        lay = self.layout
+        return lay.keys * lay.dim if self.fold >= 0 else 0
+
+
+def scratch_words(spec: DagSpec, ctas: int) -> int:
+    """Words of the device scratch one launch of ``spec`` takes: the
+    blocks' partials; for a nearest-row DAG with a fold, then the fold's
+    chunk partials and the keys (each 16-byte aligned)."""
+    near = spec.nearest
+    if near is None:
+        return max(spec.partial_words, 1) * ctas
+    words = -(-max(near.partial1, 1) * ctas // 4) * 4
+    if near.fold >= 0:
+        words += memory.FOLD_CHUNKS * near.fold_words \
+            + -(-spec.grid * spec.block // 4) * 4
+    return words
+
+
+def _tensor_of(a: ir.Access) -> Optional[ir.Tensor]:
+    src = a.src
+    if isinstance(src, ir.TileCopy):
+        src = src.src
+    return src if isinstance(src, ir.Tensor) else None
+
+
+def _nearest_spec(terminals, grid_n: int, depth: int,
+                  smem_limit: Optional[int]) -> DagSpec:
+    """The ``DagSpec`` of a DAG whose one stage is a nearest-row Map: its
+    table is read in tiles of rows by the assignment kernel, so nothing
+    of it is staged whole; the other terminals read only the stage, or
+    are one keyed sum of rows (``ir.GroupByFold.keyed_rows``), which
+    the fold kernel takes by column slices.  Raises
+    ``NotImplementedError`` for any other shape, and where no layout
+    fits ``smem_limit`` (``memory.nearest_layout``)."""
+    (block,) = terminals[0][1].inner.domain
+    stage_tc = None
+    for _, t in terminals:
+        for tc in t.loads:
+            if isinstance(tc.src, ir.Tensor):
+                continue
+            if stage_tc is not None and tc.uid != stage_tc.uid:
+                raise NotImplementedError(
+                    "nearest-row DAG: one stage, the nearest-row one")
+            stage_tc = tc
+    s = stage_tc.src
+    if s.nearest is None or s.elem_shape:
+        raise NotImplementedError(
+            f"stage '{s.name}' is not a scalar nearest-row Map")
+    inputs: List[Tuple[str, Tuple[int, ...]]] = []
+
+    def operand(t: ir.Tensor) -> int:
+        for i, (name, _) in enumerate(inputs):
+            if name == t.name:
+                return i
+        if t.dtype != "float32":
+            raise NotImplementedError(f"input '{t.name}' is {t.dtype}")
+        inputs.append((t.name, tuple(t.shape)))
+        return len(inputs) - 1
+
+    ta, qa = (s.reads[i] for i in s.nearest)
+    table, query = _tensor_of(ta), _tensor_of(qa)
+    if table is None or query is None or len(table.shape) != 2 \
+            or tuple(ta.window) != tuple(table.shape) \
+            or len(query.shape) != 2 or query.shape[1] != table.shape[1] \
+            or tuple(qa.window) != (1, query.shape[1]):
+        raise NotImplementedError(
+            f"stage '{s.name}': a whole K x D table and a D-row of the "
+            "query rows expected")
+    keys, dim = (int(e) for e in table.shape)
+    t_op, q_op = operand(table), operand(query)
+
+    def stage_read(a: ir.Access) -> bool:
+        return isinstance(a.src, ir.TileCopy) and a.src.uid == stage_tc.uid
+
+    # the stage's keys live in the assignment kernel's charge
+    # (``memory.NearestLayout.assign_bytes``): its reads name no buffer
+    buffers: List[Buffer] = []
+    terms: List[Terminal] = []
+    partial, fold, values = 0, -1, -1
+    for name, p in terminals:
+        q = p.inner
+        if isinstance(p, ir.GroupByFold) and q.keyed_rows is not None:
+            ka, va = (q.reads[i] for i in q.keyed_rows)
+            vt = _tensor_of(va)
+            ew = int(np.prod(p.elem_shape)) if p.elem_shape else 1
+            if fold >= 0 or not stage_read(ka) or vt is None \
+                    or len(vt.shape) != 2 or int(vt.shape[1]) != dim \
+                    or ew != dim or tuple(va.window) != (1, dim) \
+                    or p.num_keys != keys or not _additive(p):
+                raise NotImplementedError(
+                    f"keyed sum of rows '{name}': one, keyed by the "
+                    f"stage, of D = {dim}-rows, over the table's keys")
+            values = operand(vt)
+            fold = len(terms)
+            terms.append(Terminal(name, "cam", p, q, (), ew, p.num_keys,
+                                  tuple(p.shape), cam_form="sliced"))
+            continue
+        if not all(stage_read(a) for a in q.accesses):
+            raise NotImplementedError(
+                f"terminal '{name}' of a nearest-row DAG reads more than "
+                "the stage")
+        reads = tuple(Read(-1, False, (1,)) for _ in q.accesses)
+        if q.cuda is None:
+            raise NotImplementedError(f"terminal '{q.name}' has no CUDA body")
+        if isinstance(p, ir.GroupByFold) and isinstance(q, ir.GroupByFold) \
+                and _additive(p) and _additive(q):
+            ew = int(np.prod(p.elem_shape)) if p.elem_shape else 1
+            buffers.append(Buffer(q.name, "cam", p.num_keys * ew, 1, ew))
+            terms.append(Terminal(name, "cam", p, q, reads, ew, p.num_keys,
+                                  tuple(p.shape), table=len(buffers) - 1,
+                                  partial=partial))
+            partial += p.num_keys * ew
+        elif isinstance(p, ir.MultiFold) and p.combine is not None \
+                and isinstance(q, ir.MultiFold) and q.is_fold \
+                and q.inner is None and _additive(p) and _additive(q) \
+                and _zero_identity(q):
+            w = int(np.prod(p.range_shape)) if p.range_shape else 1
+            terms.append(Terminal(name, "fold", p, q, reads, w, 1,
+                                  tuple(p.range_shape), partial=partial))
+            partial += w
+        else:
+            raise NotImplementedError(
+                f"no nearest-row DAG template for terminal '{name}'")
+    partial1 = partial
+    if fold >= 0:   # the fold's table comes last in the combine's output
+        terms[fold] = dataclasses.replace(terms[fold], partial=partial)
+        partial += keys * dim
+    cams = [i for i, t in enumerate(terms)
+            if t.kind == "cam" and t.cam_form != "sliced"]
+    forms = cam_forms([(terms[i].keys, terms[i].width) for i in cams])
+    stage_words = max([piece_words(lanes) for _, lanes in forms] + [0])
+    for i, (form, lanes) in zip(cams, forms):
+        table_at = -1
+        if form == "shared":
+            table_at, stage_words = stage_words, \
+                stage_words + terms[i].keys * terms[i].width
+        terms[i] = dataclasses.replace(terms[i], cam_form=form,
+                                       cam_lanes=lanes, cam_table=table_at)
+    budget = smem_limit if smem_limit is not None \
+        else DEFAULT_TIER.onchip_bytes
+    lay = memory.nearest_layout(block, depth, keys, dim, fold >= 0, budget)
+    if lay is None:
+        raise NotImplementedError(
+            f"nearest-row stage '{s.name}' ({keys} x {dim} table) at block "
+            f"{block}, depth {depth}: no tile layout fits {budget} B")
+    spec = DagSpec(
+        block=int(block), grid=int(grid_n), depth=int(depth),
+        inputs=tuple(inputs), buffers=tuple(buffers), stages=(),
+        terminals=tuple(terms), partial_words=partial,
+        stage_words=stage_words,
+        nearest=NearestPart(lay, stage_tc.name, t_op, q_op, fold, values,
+                            partial1))
+    if smem_limit is not None and spec.smem_bytes > smem_limit:
+        raise ValueError(
+            f"nearest-row DAG ({', '.join(t.name for t in terms)}): the "
+            f"assignment kernel needs {spec.smem_bytes} B; a block may use "
+            f"{smem_limit} B")
+    return spec
+
+
+def nearest_source(spec: DagSpec) -> str:
+    """The translation unit of a nearest-row DAG at one plan:
+    ``nearest_dag.cuh``'s assignment kernel with the DAG's other
+    terminals in its epilogue, its fold kernel for the keyed sum of rows,
+    and the entry points ``fdag_*`` as ``dag_source`` names them, plus
+    ``fdag_fold``.  Deterministic for a given DAG and plan."""
+    near = spec.nearest
+    lay = near.layout
+    names = ", ".join(t.name for t in spec.terminals)
+    others = [t for t in spec.terminals if t.cam_form != "sliced"]
+    tables, off = [], 0
+    for t in others:
+        if t.kind == "cam":
+            tables.append((t, off))
+            off += t.keys * t.width
+    L: List[str] = [
+        f"// nearest-row DAG ({names}) at block {spec.block}, depth "
+        f"{spec.depth}, tile {lay.tile}, fold columns {lay.fold_cols};",
+        "// generated by codegen_cuda from nearest_dag.cuh",
+        '#include "nearest_dag.cuh"', "",
+        "namespace {",
+        f"constexpr int BLOCK = {spec.block};",
+        f"constexpr int DEPTH = {spec.depth};",
+        f"constexpr long long GRID = {spec.grid}LL;",
+        f"constexpr long long ROWS = {spec.grid * spec.block}LL;",
+        f"constexpr int WARPS = {DAG_WARPS};",
+        f"using A = ndag::Assign<BLOCK, {lay.tile}, {lay.tm}, {lay.tn}, "
+        f"DEPTH, {lay.keys}, {lay.dim}, {lay.slab}, {lay.pad}>;",
+        f"using F = ndag::Fold<{lay.keys}, {lay.dim}, "
+        f"{max(lay.fold_cols, 32)}, {max(lay.fold_depth, 2)}, "
+        f"{memory.FOLD_CHUNKS}>;",
+        f"constexpr bool FOLD = {'true' if near.fold >= 0 else 'false'};",
+        f"constexpr int CAM_WORDS = {off};",
+        f"constexpr int STAGE_WORDS = {spec.stage_words};",
+        "constexpr int SMEM_BYTES = 4 * (A::WORDS + CAM_WORDS + WARPS * "
+        "STAGE_WORDS);",
+        f"constexpr int FOLD_BYTES = 4 * F::WORDS;",
+        f"constexpr int PARTIAL_WORDS = {near.partial1};",
+        f"constexpr long long FOLD_WORDS = {near.fold_words}LL;",
+        f"static_assert(SMEM_BYTES == {spec.smem_bytes}, "
+        '"codegen_cuda.DagSpec.smem_bytes");',
+        'static_assert(tcopy::THREADS == 32 * WARPS && ndag::THREADS == '
+        'tcopy::THREADS, "codegen_cuda.DAG_WARPS");', ""]
+    for t in others:
+        L.append(_body_fn(f"body_{_ident(t.name)}", len(t.reads),
+                          t.inner.cuda, t.kind == "cam"))
+    params = [f"const float* __restrict__ in_{_ident(n)}"
+              for n, _ in spec.inputs]
+    params += ["float* __restrict__ partials", "float* __restrict__ keys_out"]
+    L.append("__global__ void __launch_bounds__(tcopy::THREADS, 1)\n"
+             "nearest_assign_kernel(" + ", ".join(params) + ") {")
+    L += ["  extern __shared__ float4 smem4[];",
+          "  float* const smem = reinterpret_cast<float*>(smem4);",
+          "  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;",
+          "  float* const stage_w = smem + A::WORDS + CAM_WORDS + warp * "
+          "STAGE_WORDS;  // this warp's CAM staging",
+          "  (void)lane;", "  (void)stage_w;"]
+    for t, o in tables:
+        L.append(f"  float* const buf{t.table} = smem + A::WORDS + {o};  "
+                 f"// the block's table of {t.name}")
+        L.append(f"  fdag::zero(buf{t.table}, {t.keys * t.width});")
+    L += _accumulators_c(others)
+    L.append("  __syncthreads();")
+    q_in = f"in_{_ident(spec.inputs[near.query][0])}"
+    t_in = f"in_{_ident(spec.inputs[near.table][0])}"
+    L.append(f"  A::walk({q_in}, {t_in}, smem, GRID, FOLD ? keys_out : "
+             "nullptr, [&](long long g, const float* keys) {")
+    L.append("    (void)g;")
+    for t in others:
+        args = ["keys + r"] * len(t.reads)
+        if t.kind == "cam":
+            L += _cam_step_c(spec, t, args)
+            continue
+        L.append(f"    // terminal {t.name} (fold)")
+        L.append("    for (int r = threadIdx.x; r < BLOCK; r += blockDim.x) {")
+        L.append(f"      float v[{t.width}];")
+        L.append(f"      body_{_ident(t.name)}({', '.join(args + ['v'])});")
+        L.append(f"      for (int j = 0; j < {t.width}; ++j) "
+                 f"acc_{_ident(t.name)}[j] += v[j];")
+        L.append("    }")
+    L.append("  });")
+    L += _partials_c(dataclasses.replace(spec, terminals=tuple(others)))
+    L.append("}")
+    L.append("")
+    cols = max(lay.fold_cols, 32)   # a DAG without a fold: a stub's
+    L.append(f"__global__ void __launch_bounds__({cols})\n"
+             "nearest_fold_kernel(const float* __restrict__ x, "
+             "const float* __restrict__ keys, float* __restrict__ partials) {")
+    L.append("  extern __shared__ float4 smem4[];")
+    L.append("  F::walk(x, keys, ROWS, partials, "
+             "reinterpret_cast<float*>(smem4));")
+    L.append("}")
+    L.append("}  // namespace")
+    L.append("")
+    n_in = len(spec.inputs)
+    call = ", ".join(f"(const float*)ins[{i}]" for i in range(n_in))
+    v_in = f"(const float*)ins[{near.values}]" if near.fold >= 0 \
+        else "nullptr"
+    L.append(_ctas_source("fdag", "nearest_assign_kernel", "SMEM_BYTES",
+                          ["nearest_fold_kernel"]))
+    L.append(f'''// the scratch the caller allocates (codegen_cuda.scratch_words):
+// the assignment blocks' partials, then the fold's chunk partials and
+// the keys, each 16-byte aligned
+static float* fold_partials(void* scratch, int ctas) {{
+  const long long p1 = ((long long)(PARTIAL_WORDS > 0 ? PARTIAL_WORDS : 1)
+                        * ctas + 3) / 4 * 4;
+  return (float*)scratch + p1;
+}}
+
+static float* fold_keys(void* scratch, int ctas) {{
+  return fold_partials(scratch, ctas) + F::UNITS / F::SLICES * FOLD_WORDS;
+}}
+
+static int launch_assign(void* const* ins, void* partials, int ctas,
+                         cudaStream_t stream) {{
+  nearest_assign_kernel<<<ctas, tcopy::THREADS, SMEM_BYTES, stream>>>(
+      {call}, (float*)partials,
+      FOLD ? fold_keys(partials, ctas) : nullptr);
+  return (int)cudaGetLastError();
+}}
+
+// the fold's persistent blocks: as many as fit on the card, at most a
+// block per unit (asked once, outside any capture)
+static int fold_grid(int* grid) {{
+  static int cached = 0;
+  if (cached == 0) {{
+    int dev = 0, sms = 0, per_sm = 0, e;
+    if ((e = (int)cudaGetDevice(&dev)) != 0) return e;
+    e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev);
+    if (e != 0) return e;
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, nearest_fold_kernel, {cols}, FOLD_BYTES);
+    if (e != 0) return e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    cached = sms * per_sm < F::UNITS ? sms * per_sm : F::UNITS;
+  }}
+  *grid = cached;
+  return 0;
+}}
+
+static int launch_fold(void* const* ins, void* partials, int ctas,
+                       cudaStream_t stream) {{
+  if (!FOLD) return 0;
+  int grid = 0;
+  const int rc = fold_grid(&grid);
+  if (rc) return rc;
+  nearest_fold_kernel<<<grid, {cols}, FOLD_BYTES, stream>>>(
+      {v_in}, fold_keys(partials, ctas), fold_partials(partials, ctas));
+  return (int)cudaGetLastError();
+}}
+
+static int launch_combines(const float* partials, const float* init,
+                           float* out, int ctas, cudaStream_t stream) {{
+  int rc = fdag::launch_combine(partials, init, out, ctas, PARTIAL_WORDS,
+                                stream);
+  if (rc || !FOLD) return rc;
+  return fdag::launch_combine(fold_partials((void*)partials, ctas),
+                              init + PARTIAL_WORDS, out + PARTIAL_WORDS,
+                              F::UNITS / F::SLICES, (int)FOLD_WORDS, stream);
+}}
+
+extern "C" int fdag_launch(void* const* ins, void* const* outs,
+                           void* partials, int ctas, void* stream,
+                           void* start, void* end) {{
+  (void)outs;
+  int rc = fdag::record(start, (cudaStream_t)stream);
+  if (rc) return rc;
+  rc = launch_assign(ins, partials, ctas, (cudaStream_t)stream);
+  return rc ? rc : fdag::record(end, (cudaStream_t)stream);
+}}
+
+extern "C" int fdag_fold(void* const* ins, void* partials, int ctas,
+                         void* stream, void* start, void* end) {{
+  int rc = fdag::record(start, (cudaStream_t)stream);
+  if (rc) return rc;
+  rc = launch_fold(ins, partials, ctas, (cudaStream_t)stream);
+  return rc ? rc : fdag::record(end, (cudaStream_t)stream);
+}}
+
+extern "C" int fdag_combine(const void* partials, const void* init,
+                            void* out, int ctas, void* stream,
+                            void* start, void* end) {{
+  int rc = fdag::record(start, (cudaStream_t)stream);
+  if (rc) return rc;
+  rc = launch_combines((const float*)partials, (const float*)init,
+                       (float*)out, ctas, (cudaStream_t)stream);
+  return rc ? rc : fdag::record(end, (cudaStream_t)stream);
+}}
+
+// the assignment, the fold and the combines captured into one CUDA graph
+// on a stream of its own, as dag_source's fdag_graph
+extern "C" int fdag_graph(void* const* ins, void* const* outs,
+                          void* partials, const void* init, void* out,
+                          int ctas, void** exec) {{
+  (void)outs;
+  cudaStream_t s;
+  cudaGraph_t graph = nullptr;
+  int grid = 0;
+  int rc = FOLD ? fold_grid(&grid) : 0;
+  if (rc) return rc;
+  rc = (int)cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  if (rc) return rc;
+  rc = (int)cudaStreamBeginCapture(s, cudaStreamCaptureModeThreadLocal);
+  if (!rc) {{
+    int lrc = launch_assign(ins, partials, ctas, s);
+    if (!lrc) lrc = launch_fold(ins, partials, ctas, s);
+    if (!lrc)
+      lrc = launch_combines((const float*)partials, (const float*)init,
+                            (float*)out, ctas, s);
+    rc = (int)cudaStreamEndCapture(s, &graph);
+    if (!rc) rc = lrc;
+  }}
+  if (!rc)
+    rc = (int)cudaGraphInstantiateWithFlags((cudaGraphExec_t*)exec, graph, 0);
+  if (graph) cudaGraphDestroy(graph);
+  cudaStreamDestroy(s);
+  return rc;
+}}
+
+extern "C" int fdag_graph_launch(void* exec, void* stream) {{
+  return (int)cudaGraphLaunch((cudaGraphExec_t)exec, (cudaStream_t)stream);
+}}
+
+extern "C" int fdag_graph_free(void* exec) {{
+  return (int)cudaGraphExecDestroy((cudaGraphExec_t)exec);
+}}''')
+    return "\n".join(L) + build.ERROR_STRING
+
+
+PLAIN_ROWS = 1 << 18   # rows a step of the plain keyed sum of rows widens
+
+
+def nearest_keys(spec: DagSpec, tensors: Dict[str, torch.Tensor]
+                 ) -> torch.Tensor:
+    """Plain PyTorch version of a nearest-row DAG's stage, its kernel's
+    algorithm on the whole domain: the table's row norms, then tile by
+    tile ``||c||^2 - 2 x.c`` in float32 and each tile's first minimum
+    replacing the running one only where strictly smaller.  Returns
+    each query row's table row (int64)."""
+    near = spec.nearest
+    lay = near.layout
+    x = tensors[spec.inputs[near.query][0]]
+    c = tensors[spec.inputs[near.table][0]]
+    norms = (c * c).sum(1)
+    best = torch.full((x.shape[0],), float("inf"), device=x.device)
+    arg = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    for t0 in range(0, lay.keys, lay.tile):
+        sc = norms[t0:t0 + lay.tile] - 2.0 * (x @ c[t0:t0 + lay.tile].T)
+        m, i = sc.min(1)
+        upd = m < best
+        best = torch.where(upd, m, best)
+        arg = torch.where(upd, i + t0, arg)
+    return arg
+
+
 def _partial_views(spec: DagSpec) -> List[Tuple[str, int, int, Tuple]]:
     """(name, first word, end word, shape) of each fold / CAM terminal's
     output in the combine's flat output."""
@@ -1110,7 +1574,8 @@ class DagKernel:
 
     def __init__(self, spec: DagSpec):
         self.spec = spec
-        self.source = dag_source(spec)
+        self.source = nearest_source(spec) if spec.nearest is not None \
+            else dag_source(spec)
         self.views = _partial_views(spec)
         self._lib = None
         self._ctas: Dict[torch.device, int] = {}
@@ -1126,7 +1591,9 @@ class DagKernel:
                 "fdag_graph": [vp, vp, vp, vp, vp, ctypes.c_int,
                                ctypes.POINTER(vp)],
                 "fdag_graph_launch": [vp, vp],
-                "fdag_graph_free": [vp]})
+                "fdag_graph_free": [vp],
+                **({"fdag_fold": [vp, vp, ctypes.c_int, vp, vp, vp]}
+                   if self.spec.nearest is not None else {})})
         return self._lib
 
     def ctas(self, dev: torch.device) -> int:
@@ -1144,11 +1611,12 @@ class DagKernel:
     def init(self, dev: torch.device) -> torch.Tensor:
         """Each fold / CAM terminal's ``init``, flat in partial order."""
         if dev not in self._init:
-            parts = [torch.as_tensor(t.outer.init(),
-                                     dtype=torch.float32).reshape(-1)
-                     for t in self.spec.terminals if t.kind != "map"]
-            self._init[dev] = torch.cat(parts).to(dev) if parts \
-                else torch.zeros(0, device=dev)
+            flat = torch.zeros(self.spec.partial_words)
+            for name, a, b, _ in self.views:
+                t = next(t for t in self.spec.terminals if t.name == name)
+                flat[a:b] = torch.as_tensor(t.outer.init(),
+                                            dtype=torch.float32).reshape(-1)
+            self._init[dev] = flat.to(dev)
         return self._init[dev]
 
 
@@ -1160,12 +1628,18 @@ def fused_dag_plain(spec: DagSpec, tensors: Dict[str, torch.Tensor]
     per-index contributions, keyed folds by ``index_add_`` with keys
     outside ``[0, num_keys)`` dropped, Map terminals as whole outputs.
     Folds and keyed folds accumulate in float64 and return float32, so
-    the plain version's own rounding stays far below the kernel's."""
+    the plain version's own rounding stays far below the kernel's.  A
+    nearest-row DAG's stage is ``nearest_keys`` (its terminals' reads
+    name it as buffer -1), and its keyed sum of rows adds the query rows
+    by those keys."""
     n = spec.grid * spec.block
     dev = _on([tensors[name] for name, _ in spec.inputs])
     i = torch.arange(n, device=dev)
     stack = (i // spec.block, i % spec.block)
     vals: Dict[int, torch.Tensor] = {}
+    if spec.nearest is not None:
+        arg = nearest_keys(spec, tensors)
+        vals[-1] = arg.to(torch.float32)
     for k, buf in enumerate(spec.buffers):
         if buf.operand >= 0:
             vals[k] = tensors[spec.inputs[buf.operand][0]]
@@ -1196,7 +1670,13 @@ def fused_dag_plain(spec: DagSpec, tensors: Dict[str, torch.Tensor]
             outs[t.name] = v.reshape(t.shape).contiguous()
             continue
         init = torch.as_tensor(t.outer.init(), dtype=torch.float64).to(dev)
-        if t.kind == "fold":
+        if t.cam_form == "sliced":   # in blocks: no float64 copy of all rows
+            rows = tensors[spec.inputs[spec.nearest.values][0]]
+            acc = init.clone()
+            for r in range(0, n, PLAIN_ROWS):
+                acc.index_add_(0, arg[r:r + PLAIN_ROWS],
+                               rows[r:r + PLAIN_ROWS].double())
+        elif t.kind == "fold":
             rng = tuple(t.outer.range_shape)
             zero = torch.zeros((n,) + rng, device=dev)
             contrib = batched(t.inner.fn(stack, zero, *wins), rng)
@@ -1244,7 +1724,7 @@ def fused_dag(kernel: DagKernel, tensors: Dict[str, torch.Tensor]
         maps = {t.name: torch.empty(t.shape, dtype=torch.float32,
                                     device=dev)
                 for t in spec.terminals if t.kind == "map"}
-        partials = torch.empty((ctas, max(spec.partial_words, 1)),
+        partials = torch.empty(scratch_words(spec, ctas),
                                dtype=torch.float32, device=dev)
         in_ptrs = build.pointers([t.data_ptr() for t in ins])
         out_ptrs = build.pointers([m.data_ptr() for m in maps.values()])
@@ -1257,6 +1737,16 @@ def fused_dag(kernel: DagKernel, tensors: Dict[str, torch.Tensor]
                                  *ev.events)
             build.check(lib, rc, "fused_dag launch")
         fused_dag.launches += 1
+    near = spec.nearest
+    if near is not None:
+        _count_tiles(spec)
+        if near.fold >= 0:
+            with telemetry.span("fused_dag.fold"), \
+                    telemetry.device_span("fused_dag.fold", cur) as ev:
+                rc = lib.fdag_fold(ctypes.cast(in_ptrs, ctypes.c_void_p),
+                                   partials.data_ptr(), ctas, stream,
+                                   *ev.events)
+                build.check(lib, rc, "fused_dag fold")
     outs: Dict[str, torch.Tensor] = dict(maps)
     if spec.partial_words:
         with telemetry.span("fused_dag.combine"):
@@ -1275,6 +1765,13 @@ def fused_dag(kernel: DagKernel, tensors: Dict[str, torch.Tensor]
 
 
 fused_dag.launches = 0
+
+
+def _count_tiles(spec: DagSpec) -> None:
+    """A nearest-row DAG call's table tiles and fold column slices."""
+    lay = spec.nearest.layout
+    telemetry.count("fused_dag.table_tiles", lay.tiles)
+    telemetry.count("fused_dag.column_slices", lay.slices)
 
 
 # --------------------------------------------------------------------
@@ -1342,7 +1839,8 @@ class DagGraph:
         self.stream = stream
         self.views = kernel.views
         ctas = kernel.ctas(dev)
-        self.partials = torch.empty((ctas, spec.partial_words),
+        self.spec = spec
+        self.partials = torch.empty(scratch_words(spec, ctas),
                                     dtype=torch.float32, device=dev)
         self.flat = torch.empty(spec.partial_words, dtype=torch.float32,
                                 device=dev)
@@ -1367,6 +1865,8 @@ class DagGraph:
             flat = self.flat.clone()
         fused_dag.launches += 1
         telemetry.count("fused_dag.graph_replays")
+        if self.spec.nearest is not None:
+            _count_tiles(self.spec)
         return {name: flat[a:b].reshape(shape)
                 for name, a, b, shape in self.views}
 
@@ -1417,7 +1917,9 @@ def lower_fused_dag(terminals, grid_n: int, depth: int = 2, *,
     its CAM table (the form ``cam_forms`` picks), or streams its Map
     block out.  Main memory is touched solely at the pipeline edges
     (paper Fig. 6).  On a card, a plan whose CAM staging does not fit
-    beside its charge raises ``ValueError`` here.  Returns
+    beside its charge raises ``ValueError`` here.  A DAG whose stage is a
+    nearest-row Map lowers to ``nearest_dag.cuh``'s kernels
+    (``_nearest_spec``).  Returns
     ``call(**tensors) -> {name: tensor}`` with ``.kernel`` (the
     ``DagKernel``: its spec and generated source) and ``.graphs``.
 
@@ -1438,6 +1940,9 @@ def lower_fused_dag(terminals, grid_n: int, depth: int = 2, *,
                         depth=int(depth)):
         kernel = DagKernel(dag_spec(terminals, grid_n, depth,
                                     smem_limit=limit))
+    for t in kernel.spec.terminals:
+        if t.kind == "cam":
+            telemetry.count(f"fused_dag.cam_form.{t.cam_form}")
 
     graphs = DagGraphs(kernel, dev) if graphable(kernel.spec, dev) else None
 

@@ -78,7 +78,7 @@ from . import calibrate, ir, resilience, telemetry
 from . import measure as measure_mod
 from . import pipeline as plmod
 from .cost import TPU, Tier, device_tier, stream_seconds, traffic
-from .memory import plan_memory
+from .memory import FOLD_CHUNKS, nearest_dag, nearest_layout, plan_memory
 # The exploration-option constants and the Options surface live in
 # core.options (a leaf module); re-exported here as the reference does.
 from .options import (DEPTHS, MAX_POINTS, MEASURE_REPEAT,  # noqa: F401
@@ -1488,6 +1488,11 @@ def _price_pipeline_group(sub_pipe, b: int, *, vmem_budget: int, tier: Tier,
     except (ValueError, NotImplementedError):
         return None
     counters["explored"] += 1
+    near = nearest_dag(fdag.patterns)
+    if near is not None:
+        return _price_nearest(fdag, sub_pipe, near, depth=depth,
+                              vmem_budget=vmem_budget, tier=tier,
+                              counters=counters, profile=profile)
     if onchip_bytes is None:
         mem = plan_memory(fdag.patterns, vmem_budget_bytes=vmem_budget,
                           depth=depth)
@@ -1525,6 +1530,39 @@ def _price_pipeline_group(sub_pipe, b: int, *, vmem_budget: int, tier: Tier,
         "Pipeline", seconds * tier.hbm_bytes_per_s, steps,
         profile=profile, tier=tier)
     return (reads + out_w, onchip_bytes, seconds, calibrated, steps)
+
+
+def _price_nearest(fdag, sub_pipe, near: Tuple[int, int, bool], *,
+                   depth: int, vmem_budget: int, tier: Tier,
+                   counters: Dict[str, int], profile=None):
+    """Price a DAG whose stage is a nearest-row Map (``ir.Map.nearest``)
+    at its block and ``depth`` as ``_price_pipeline_group`` does: on a
+    card's tier, the layout ``memory.nearest_layout`` gives it (None:
+    pruned) charged its larger kernel's bytes; the words are the query
+    rows once per table tile, the table once per grid step and, with a
+    keyed sum of rows, the rows again with their keys and the chunks'
+    partial tables; the time the larger of those words' and the distance
+    loop's FFMA (2 n K D FLOP) at the tier's rates.  Under ``cost.TPU``
+    no template takes it."""
+    keys, dim, folded = near
+    lay = nearest_layout(fdag.block, depth, keys, dim, folded, vmem_budget) \
+        if tier.name != TPU.name else None
+    if lay is None:
+        counters["pruned"] += 1
+        return None
+    n = fdag.grid * fdag.block
+    words = n * dim * lay.tiles + fdag.grid * keys * dim \
+        + plmod.output_words(sub_pipe)
+    if folded:
+        words += n * dim + 2 * n + FOLD_CHUNKS * keys * dim
+    seconds = max(stream_seconds(words, tier=tier),
+                  2.0 * n * keys * dim / tier.peak_flops)
+    steps = int(fdag.grid)
+    calibrated = calibrate.predicted_seconds(
+        "Pipeline", seconds * tier.hbm_bytes_per_s, steps,
+        profile=profile, tier=tier)
+    vmem = max(lay.assign_bytes, lay.fold_bytes)
+    return (words, vmem, seconds, calibrated, steps)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -233,6 +233,12 @@ class Map(Pattern):
     name: str = "map"
     dtype: str = "float32"
     ragged: Optional[RaggedExtent] = None  # bounded-dynamic 1-D domain
+    # (table read, query read): the value is the index of the table row
+    # nearest the query row in squared Euclidean distance, the first of
+    # equal ones -- an argmin fold over the table's rows that the fused
+    # lowering strip-mines into tiles of rows (``fn`` and ``cuda`` state
+    # the same value for the other paths)
+    nearest: Optional[Tuple[int, int]] = None
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -327,6 +333,11 @@ class GroupByFold(Pattern):
     strided: bool = False
     name: str = "groupbyfold"
     dtype: str = "float32"
+    # (key read, value read): the key is the element of the first read
+    # (an integer-valued float) and the value is the second read's window
+    # as it is -- a keyed sum of rows, which the fused lowering may fold
+    # a column slice at a time (``fn`` and ``cuda`` state the same)
+    keyed_rows: Optional[Tuple[int, int]] = None
 
     @property
     def shape(self) -> Tuple[int, ...]:

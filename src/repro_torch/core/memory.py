@@ -173,3 +173,150 @@ def _plan_memory_body(roots, vmem_budget_bytes: int, depth: int,
     for root in roots:
         visit(root)
     return MemoryPlan(buffers, vmem_budget_bytes)
+
+
+# ------------------------------------------------------------------
+# Nearest-row stages (``ir.Map.nearest``): the table in tiles of rows
+# ------------------------------------------------------------------
+# A stage whose value is the nearest row of a K x D table (k-means'
+# assignment) reads the whole table per row.  The fused lowering strip-
+# mines that argmin fold over the table's rows: a block's BLOCK query
+# rows meet the table TILE rows at a time, both streamed through a
+# DEPTH-slot ring of slab-dimension slices, each thread holding a TM x TN
+# block of partial distances in registers; a keyed sum of rows
+# (``ir.GroupByFold.keyed_rows``) whose table is wider than a block's
+# shared memory is folded a column slice of FOLD_COLS at a time by a
+# second kernel over (row chunk x column slice) units
+# (``kernels/csrc/nearest_dag.cuh`` sets the kernels out).
+
+NEAREST_THREADS = 256    # ndag::THREADS
+NEAREST_SLABS = (56, 32, 28, 16)   # dimensions of a ring slot, by rule
+NEAREST_TN = 8           # table rows a thread holds, at most
+NEAREST_TM = 8           # query rows a thread holds, at most
+FOLD_ROWS = 64           # rows of a fold ring slot
+FOLD_DEPTH_MAX = 4       # slots of the fold's ring, at most
+FOLD_CHUNKS = 128        # row chunks of the fold: its partial tables
+FOLD_COLS_MAX = 128      # columns of a fold unit: 4 warps
+
+
+@dataclasses.dataclass(frozen=True)
+class NearestLayout:
+    """The shape of a nearest-row DAG's kernels at one plan."""
+
+    block: int       # query rows of a grid step
+    tile: int        # table rows of a tile
+    tm: int          # query rows a thread holds
+    tn: int          # table rows a thread holds
+    depth: int       # ring slots (both kernels)
+    keys: int        # table rows K
+    dim: int         # row width D
+    fold_cols: int   # columns of a fold unit; 0: no keyed sum of rows
+    fold_depth: int  # the fold's ring slots: as many as fit
+    slab: int        # dimensions of a ring slot
+
+    @property
+    def pad(self) -> int:
+        """Words of padding per staged row: the row stride an odd number
+        of 16-byte pieces, so the eight rows of an LDS.128 phase fall in
+        distinct banks."""
+        return 4 if (self.slab // 4) % 2 == 0 else 8
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.keys // self.tile)
+
+    @property
+    def slabs(self) -> int:
+        return -(-self.dim // self.slab)
+
+    @property
+    def slices(self) -> int:
+        return -(-self.dim // self.fold_cols) if self.fold_cols else 0
+
+    @property
+    def slot_words(self) -> int:
+        return (self.block + self.tile) * (self.slab + self.pad)
+
+    @property
+    def assign_bytes(self) -> int:
+        """The assignment kernel's charge: the ring, the table's row
+        norms (padded to whole tiles) and the stage's keys."""
+        return 4 * (self.depth * self.slot_words + self.tiles * self.tile
+                    + self.block)
+
+    @property
+    def fold_bytes(self) -> int:
+        """The fold kernel's: one unit's table slice and its ring of
+        rows and keys (a streaming pass: its ring is as deep as fits, so
+        that enough bytes are in flight to keep up with main memory)."""
+        if not self.fold_cols:
+            return 0
+        return 4 * (self.keys * self.fold_cols
+                    + self.fold_depth * FOLD_ROWS * (self.fold_cols + 1))
+
+
+def nearest_layout(block: int, depth: int, keys: int, dim: int,
+                   folded: bool, budget: int):
+    """The layout of a nearest-row DAG at ``block`` rows and ``depth``
+    slots, or None where the kernels cannot take it: tiles of as many
+    table rows as make an 8 x 8 block of distances a thread
+    (``16384 / block``), a thread's ``tm`` x ``tn`` with the tile's
+    ``tile / tn`` lanes in one warp, and, for a keyed sum of rows, fold
+    units of the widest multiple of 32 columns up to FOLD_COLS_MAX whose
+    table slice leaves room for two ring slots in ``budget``, the fold's
+    ring as deep as fits, up to FOLD_DEPTH_MAX.  The ring's slot holds
+    the first of NEAREST_SLABS that divides ``dim`` (else the last, the
+    tail zero-filled).  Raises nothing."""
+    if dim % 4 or depth < 2 or block % 8:
+        return None
+    tile = NEAREST_THREADS * NEAREST_TM * NEAREST_TN // block
+    tn = min(NEAREST_TN, tile)
+    if tile < 1 or tile % tn:
+        return None
+    tx = tile // tn
+    if tx > 32 or tx & (tx - 1) or NEAREST_THREADS % tx:
+        return None
+    ty = NEAREST_THREADS // tx
+    if block % ty or not 1 <= block // ty <= NEAREST_TM:
+        return None
+    cols = fdepth = 0
+
+    def slots(c):   # the fold's ring slots beside a table slice of c
+        return min(FOLD_DEPTH_MAX, (budget // 4 - keys * c)
+                   // (FOLD_ROWS * (c + 1)))
+    if folded:
+        cols = min(FOLD_COLS_MAX, -(-dim // 32) * 32)
+        while cols > 32 and slots(cols) < 2:
+            cols -= 32
+        if slots(cols) < 2:
+            return None
+        fdepth = slots(cols)
+    slab = next((s for s in NEAREST_SLABS if dim % s == 0),
+                NEAREST_SLABS[-1])
+    lay = NearestLayout(block, tile, block // ty, tn, depth, keys, dim, cols,
+                        fdepth, slab)
+    if lay.assign_bytes > budget or lay.fold_bytes > budget:
+        return None
+    return lay
+
+
+def nearest_dag(patterns: Sequence[ir.Pattern]):
+    """For the per-terminal trees of a fused DAG: ``(K, D, folded)`` of
+    its nearest-row stage (the table's shape; whether a terminal is a
+    keyed sum of rows), or None when no stage is a nearest-row one."""
+    found = None
+    folded = False
+    for root in patterns:
+        q = root.inner
+        if isinstance(q, ir.GroupByFold) and q.keyed_rows is not None:
+            folded = True
+        for tc in root.loads:
+            s = tc.src
+            if isinstance(s, ir.Map) and s.nearest is not None:
+                table = s.reads[s.nearest[0]].src
+                if isinstance(table, ir.TileCopy):
+                    table = table.src
+                found = tuple(int(e) for e in table.shape)
+    if found is None:
+        return None
+    return found + (folded,)

@@ -104,7 +104,8 @@ def _strip_mine(p: ir.Pattern, sizes: Dict[str, Sequence],
             reads=tuple(rewrite._rewrap_access(a, xform) for a in p.reads),
             fn=rewrite.wrap_body_fn(p.fn, xform) if p.fn else None,
             inner=rewrite.rewrap(p.inner, xform) if p.inner else None,
-            name=p.name + "_tile", dtype=p.dtype, cuda=p.cuda)
+            name=p.name + "_tile", dtype=p.dtype, cuda=p.cuda,
+            nearest=p.nearest)
         out_shape = tuple(p.domain) + tuple(p.elem_shape)
         n_elem = len(p.elem_shape)
 
@@ -169,7 +170,8 @@ def _strip_mine(p: ir.Pattern, sizes: Dict[str, Sequence],
             fn=rewrite.wrap_body_fn(p.fn, xform) if p.fn else None,
             combine=p.combine,
             inner=rewrite.rewrap(p.inner, xform) if p.inner else None,
-            name=p.name + "_tile", dtype=p.dtype, cuda=p.cuda)
+            name=p.name + "_tile", dtype=p.dtype, cuda=p.cuda,
+            keyed_rows=p.keyed_rows)
         return ir.GroupByFold(
             domain=grid, num_keys=p.num_keys, elem_shape=p.elem_shape,
             init=p.init, combine=p.combine, inner=inner, strided=True,

@@ -2194,3 +2194,83 @@ def test_checkpoint_of_card_tensors_restores_bit_for_bit(tmp_path):
     q, t, d = ckpt.restore(str(tmp_path), 3, like)
     assert d == {"step": 3, "seed": 1} and q["w"].is_cuda
     assert torch.equal(q["w"], p["w"]) and torch.equal(t.m["w"], s.m["w"])
+
+
+# ----------------------------- nearest-row DAG: Lloyd's k-means, tiled
+def _bench_module(rel):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / rel
+    spec = importlib.util.spec_from_file_location(
+        "_cuda_" + path.stem + path.parent.name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# (n, k, d, block, depth), each at the layout rule's tiles
+# (``memory.nearest_layout``): four tiles of 64 centroids, the last of 8,
+# two column slices (128 and 72) and a zero-filled tail of the ring's
+# 16-dimension slot; the source's widths in two tiles of 128 and seven
+# slices; one ragged tile (100 of 128 centroids) and one slice; two tiles
+# of 16 (the last of 8) with the counts in the register form.  The
+# assignment takes whole blocks of rows, so n is a multiple of the block
+NEAREST_SHAPES = [(8192, 200, 200, 256, 2),
+                  (16384, 256, 784, 128, 3),
+                  (12288, 100, 64, 128, 2),
+                  (8192, 24, 40, 1024, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d,block,depth", NEAREST_SHAPES)
+def test_nearest_dag_kernels_within_the_admissible_choices(
+        n, k, d, block, depth, _untraced):
+    _card()
+    prog = _bench_module("bench/programs/kmeans_lloyd.py")
+    ref = _bench_module("bench/reference/kmeans_lloyd.py")
+    fd = pl.fuse_dag(prog.pipeline(n, k, d), block,
+                     vmem_budget_words=232_448 // 4)
+    call = cc.lower_fused_dag(fd.terminals, fd.grid, depth, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(n + k)
+    x = torch.rand(n, d, generator=g, device="cuda")
+    x[:n // 4] = x[n // 2]       # a quarter of the rows one point: rows of
+    #                              one key crowd the fold's batches
+    c = x[torch.randperm(n, generator=g, device="cuda")[:k]].clone()
+    c[k // 2] = c[0]             # an exact tie: the first centroid wins
+    out = call(points=x, centroids=c)
+    again = call(points=x, centroids=c)          # the graph's replay
+    counters = telemetry.metrics_snapshot()["counters"]
+    assert counters.get("fused_dag.graph_replays", 0) == 1
+    assert all(torch.equal(out[name], again[name]) for name in out)
+    got = {name: v.cpu().numpy() for name, v in out.items()}
+    numbers = ref.errors(got, ref.answer({"points": x, "centroids": c}))
+    assert numbers["counts_err"] == 0.0 and numbers["sums_err"] < 1e-5
+    assert float(out["km_counts"][k // 2]) == 0.0
+    assert float(out["km_counts"][0]) >= 1.0
+    assert float(out["km_counts"].max()) >= n // 4
+    assert float(out["km_counts"].sum()) == n
+    lay = call.kernel.spec.nearest.layout
+    assert counters["fused_dag.table_tiles"] == 2 * lay.tiles
+
+
+@pytest.mark.cuda
+def test_nearest_dag_catches_a_dropped_tile(_untraced):
+    """The check above is not blind: the same answer with the last
+    table tile's points moved to the first cluster fails it."""
+    _card()
+    prog = _bench_module("bench/programs/kmeans_lloyd.py")
+    ref = _bench_module("bench/reference/kmeans_lloyd.py")
+    n, k, d = 8192, 200, 200
+    fd = pl.fuse_dag(prog.pipeline(n, k, d), 256,
+                     vmem_budget_words=232_448 // 4)
+    call = cc.lower_fused_dag(fd.terminals, fd.grid, 2, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand(n, d, generator=g, device="cuda")
+    c = x[:k].clone()
+    got = {name: v.cpu().numpy().copy()
+           for name, v in call(points=x, centroids=c).items()}
+    got["km_counts"][0] += got["km_counts"][192:].sum()
+    got["km_counts"][192:] = 0
+    numbers = ref.errors(got, ref.answer({"points": x, "centroids": c}))
+    assert numbers["counts_err"] > 0.1
